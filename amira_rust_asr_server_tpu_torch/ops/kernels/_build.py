@@ -1,0 +1,113 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The sources are compiled at first use with ``nvcc`` into one shared library
+with a plain C interface, and loaded with ``ctypes`` (no PyTorch headers, so
+a build takes seconds). The library lands in the package's ``build/``
+directory under a name that carries a hash of the sources and flags, so an
+edited source is rebuilt and a stale library is never loaded. Importing this
+module needs neither ``nvcc`` nor a GPU.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0, since a
+refused launch never runs and a later synchronize would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+PKG = Path(__file__).resolve().parents[2]
+CSRC = PKG / "csrc"
+BUILD = PKG / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of this process's build
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+I64 = ctypes.c_int64
+
+# C signatures: name -> argtypes (all entries return int, a cudaError_t)
+SIGNATURES = {
+    "amira_log_mel": [P, I64, I, I, P, P, P, I, P, P],
+    "amira_greedy_loop": [I, I, I, I, I, I, I, I, I, I, I,
+                          P, P, P, P, P, P, P,
+                          P, P, P, P, P, P, P, P, P,
+                          P, P, P, P, P, P, P, P, P],
+}
+
+
+def find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _lib_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD / f"libamira_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    global build_seconds
+    BUILD.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: another process never loads half a file
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = _lib_path()
+            if not path.exists():
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,200 @@
+"""Continuous batching (port of runtime/batcher.py, the greedy half).
+
+Requests queue up; a dispatcher packs whatever is pending, up to the largest
+batch bucket and waiting at most ``batch_window_ms`` for stragglers, into
+one padded device call of the pipeline, then fans results back out to
+per-request futures. Pending work is grouped by audio-length bucket so a
+short request is not padded to the longest one, and each group is capped at
+the largest batch bucket already warm for its length. Admission is bounded
+(``inference_queue_size``): a full queue rejects with 503. The reference's
+second admission class, for WebSocket stream chunks, comes with the
+WebSocket route.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+from collections import deque
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from amira_rust_asr_server_tpu.errors import CapacityExceededError
+
+from ..types import Transcription
+from ..utils.async_patterns import ErrorRecoveryManager
+from .pipeline import AsrPipeline, StreamState
+
+
+class BatcherStats:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.dispatches = 0
+        self.lanes_total = 0
+        self.max_lanes_seen = 0
+
+    def record(self, lanes: int) -> None:
+        with self._lock:
+            self.dispatches += 1
+            self.lanes_total += lanes
+            self.max_lanes_seen = max(self.max_lanes_seen, lanes)
+
+    def to_json(self) -> dict:
+        with self._lock:
+            return {
+                "dispatches": self.dispatches,
+                "lanes_total": self.lanes_total,
+                "mean_lanes": (self.lanes_total / self.dispatches
+                               if self.dispatches else 0.0),
+                "max_lanes": self.max_lanes_seen,
+            }
+
+
+class ContinuousBatcher:
+    """Async collector in front of the pipeline."""
+
+    def __init__(self, pipeline: AsrPipeline, executor,
+                 window_ms: Optional[float] = None,
+                 max_lanes: Optional[int] = None):
+        self.pipeline = pipeline
+        self.executor = executor
+        cfg = pipeline.config
+        self.window_s = (window_ms if window_ms is not None
+                         else cfg.batch_window_ms) / 1e3
+        self.max_lanes = max_lanes or max(cfg.batch_buckets)
+        self.stats = BatcherStats()
+        self.prometheus = None  # optional PrometheusMetrics (AppState)
+        self._retry = ErrorRecoveryManager(
+            max_retries=2, base_delay_s=0.05,
+            retryable=(RuntimeError, TimeoutError))
+        self._maxsize = max(cfg.inference_queue_size, self.max_lanes)
+        self._pending: deque = deque()
+        self._work = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+
+    async def start(self) -> None:
+        """Idempotent: a second start() never spawns a second dispatcher."""
+        if self._task is not None and not self._task.done():
+            return
+        self._task = asyncio.create_task(self._run(), name="batcher")
+
+    async def stop(self) -> None:
+        if self._task:
+            self._task.cancel()
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+            self._task = None
+
+    async def submit(self, samples: np.ndarray,
+                     stream_state: Optional[StreamState] = None
+                     ) -> Tuple[Transcription, StreamState]:
+        """Queue one decode (``stream_state`` carries a stream's decoder
+        state); resolves when its device batch completes. Raises
+        CapacityExceededError when the queue is full."""
+        if len(self._pending) >= self._maxsize:
+            raise CapacityExceededError("inference queue is full")
+        fut: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._pending.append((samples, stream_state, fut))
+        self._work.set()
+        return await fut
+
+    def queue_depth(self) -> int:
+        return len(self._pending)
+
+    def _take(self) -> list:
+        n = min(self.max_lanes, len(self._pending))
+        return [self._pending.popleft() for _ in range(n)]
+
+    async def _run(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            while not self.queue_depth():
+                self._work.clear()
+                await self._work.wait()
+            deadline = loop.time() + self.window_s
+            while self.queue_depth() < self.max_lanes:
+                remaining = deadline - loop.time()
+                if remaining <= 0:
+                    break
+                self._work.clear()
+                try:
+                    await asyncio.wait_for(self._work.wait(),
+                                           timeout=remaining)
+                except asyncio.TimeoutError:
+                    break
+            await self._dispatch(self._take())
+
+    def _group_by_bucket(self, batch) -> List[list]:
+        """Group by length bucket; cap each group at the largest warm batch
+        bucket for its length (a fully cold length dispatches whole)."""
+        groups: dict = {}
+        for item in batch:
+            bucket = self.pipeline._bucket_len(item[0].shape[0])
+            groups.setdefault(bucket, []).append(item)
+        out: List[list] = []
+        for bucket, group in groups.items():
+            cap = self.pipeline.warm_batch_cap(bucket, "greedy")
+            natural = self.pipeline._bucket_batch(len(group))
+            if cap == 0 or self.pipeline.is_warm(natural, bucket, "greedy"):
+                out.append(group)
+                continue
+            out.extend(group[i:i + cap] for i in range(0, len(group), cap))
+        return out
+
+    def _record_dispatch(self, lanes: int, duration_s: float,
+                         ok: bool) -> None:
+        if ok:
+            self.stats.record(lanes)
+        if self.prometheus is not None:
+            self.prometheus.observe_dispatch("greedy", duration_s, ok)
+            if ok:
+                self.prometheus.batch_lanes.observe(lanes)
+
+    async def _dispatch(self, batch) -> None:
+        loop = asyncio.get_running_loop()
+        try:
+            groups = self._group_by_bucket(batch)
+        except Exception as e:  # noqa: BLE001 — malformed submission
+            for *_, fut in batch:
+                if not fut.done():
+                    fut.set_exception(e)
+            return
+        for group in groups:
+            samples = [item[0] for item in group]
+            states = [item[1] for item in group]
+            futures = [item[2] for item in group]
+            # timed inside the executor, per attempt: device-dispatch
+            # latency, not queueing or retry backoff; None = never ran
+            dev_s = [None]
+
+            def call_greedy():
+                ta = time.perf_counter()
+                try:
+                    return self.pipeline.decode_samples_batch(samples,
+                                                              states)
+                finally:
+                    dev_s[0] = time.perf_counter() - ta
+
+            try:
+                res, feat_lens, enc_lens, new_states = \
+                    await self._retry.run(lambda: loop.run_in_executor(
+                        self.executor, call_greedy))
+            except Exception as e:  # noqa: BLE001 — fan the error out
+                if dev_s[0] is not None:
+                    self._record_dispatch(len(group), dev_s[0], ok=False)
+                for fut in futures:
+                    if not fut.done():
+                        fut.set_exception(e)
+                continue
+            self._record_dispatch(len(group), dev_s[0], ok=True)
+            for i, fut in enumerate(futures):
+                if fut.done():
+                    continue
+                tr = self.pipeline._to_transcription(
+                    res, i, samples[i].shape[0],
+                    int(feat_lens[i]), int(enc_lens[i]))
+                fut.set_result((tr, new_states[i]))

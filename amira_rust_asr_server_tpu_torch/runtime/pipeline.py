@@ -1,0 +1,400 @@
+"""The ASR pipeline over shape buckets (port of runtime/pipeline.py, the
+greedy half).
+
+    log-mel -> conformer encode -> joint_precompute_enc -> greedy decode
+
+Requests are padded into (batch, length) buckets from
+``config.batch_buckets x config.audio_sec_buckets``, as in the reference.
+PyTorch runs eagerly, so a bucket's "compile" is its first run (kernel
+build, allocator growth); ``is_warm``/``warm_batch_cap`` keep their meaning
+for the batcher. The log-mel and the whole decode loop always go through
+the kernels' wrappers (``ops/kernels``): on CUDA they launch the hand-written
+kernels, on the CPU they run their plain PyTorch versions.
+
+Streaming state (prediction-net h/c, pred_out, last token) stays on the
+device between chunks in :class:`StreamState`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from amira_rust_asr_server_tpu import constants as C
+from amira_rust_asr_server_tpu.config import Config
+from amira_rust_asr_server_tpu.errors import InvalidAudioFormatError
+from amira_rust_asr_server_tpu.reliability import get_logger
+from amira_rust_asr_server_tpu.vocab import Vocabulary
+
+from ..audio import pcm16_bytes_to_f32
+from ..device import resolve_device
+from ..models import Transducer
+from ..ops.greedy import GreedyResult
+from ..ops.kernels import mel as mel_kernel
+from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
+from ..types import TokenInfo, Transcription
+
+log = get_logger("asr.pipeline")
+
+
+def check_supported(cfg: Config, device: torch.device) -> None:
+    """Reject, loudly, what this slice of the port does not serve yet."""
+    todo = []
+    if cfg.decoding_mode == "beam":
+        todo.append("decoding_mode='beam' (ROADMAP.md queue 1 item 10, "
+                    "queue 2 item 5)")
+    if cfg.quantization == "int8":
+        todo.append("quantization='int8' (ROADMAP.md queue 1 item 8, "
+                    "queue 2 item 4)")
+    if cfg.model_family != "transducer":
+        todo.append(f"model_family={cfg.model_family!r} (ROADMAP.md queue 1 "
+                    "item 11)")
+    if cfg.streaming_mode == "native":
+        todo.append("streaming_mode='native' (ROADMAP.md queue 1 item 9)")
+    if device.type == "cuda":
+        # the kernels' wrappers choose the plain version by device alone, so
+        # on the card the flags that would turn a kernel off are refused
+        if not cfg.use_pallas_mel:
+            todo.append("use_pallas_mel=False: the CUDA path always runs "
+                        "csrc/mel.cu")
+        if not cfg.use_pallas_decode_loop and cfg.use_pallas_decode_step:
+            todo.append("use_pallas_decode_step without use_pallas_decode_"
+                        "loop: joint_argmax_pallas is not ported (ROADMAP.md "
+                        "queue 2 item 2)")
+        elif not cfg.use_pallas_decode_loop:
+            todo.append("use_pallas_decode_loop=False: the CUDA path always "
+                        "runs csrc/decode_loop.cu")
+        if cfg.int8_decode_weights:
+            todo.append("int8_decode_weights (ROADMAP.md queue 2 item 4)")
+    if todo:
+        raise NotImplementedError(
+            "not ported to PyTorch/CUDA yet: " + "; ".join(todo))
+
+
+@dataclasses.dataclass
+class StreamState:
+    """Per-stream decode state, resident on the device across chunks."""
+
+    state: Tuple[torch.Tensor, torch.Tensor]  # prediction-net (h, c) [L,1,P]
+    pred_out: torch.Tensor                     # [1, P]
+    last_token: torch.Tensor                   # [1] int32
+    # session statistic only: max_total is a per-call budget
+    tokens_emitted: int = 0
+
+
+class AsrPipeline:
+    """Bucketed end-to-end ASR on one device."""
+
+    def __init__(self, model: Transducer, vocab: Vocabulary,
+                 config: Optional[Config] = None,
+                 device: Optional[torch.device] = None):
+        self.config = cfg = config or Config()
+        self.device = device or resolve_device(cfg.inference_backend)
+        check_supported(cfg, self.device)
+        self.vocab = vocab
+        # bf16 serving: params cast once here; features stay f32
+        self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                              else torch.float32)
+        self.model = model.to(device=self.device,
+                              dtype=self.compute_dtype).eval()
+        self.decode_weights = DecodeWeights.from_model(self.model,
+                                                       self.compute_dtype)
+        self._sec_buckets = sorted(cfg.audio_sec_buckets)
+        self._batch_buckets = sorted(cfg.batch_buckets)
+        # guards _compiled/_staging/_fresh_cache: the dispatch thread and
+        # the background warmup thread both touch them
+        self._lock = threading.Lock()
+        self._compiled: set = set()  # (mode, batch_bucket, len_bucket) run
+        self._staging: dict = {}
+        self._fresh_cache = None
+        self.warmed_up = False
+        self.on_compile = None  # observability hook: once per new bucket
+        self._warmup_thread: Optional[threading.Thread] = None
+        self._warmup_stop = threading.Event()
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def _forward(self, audio, audio_lens, h0, c0, pred0, last_token,
+                 token_offset, *, max_symbols: int, max_total: int):
+        mcfg = self.model.config
+        dt = self.compute_dtype
+        feats, feat_lens = mel_kernel.log_mel_features(audio, audio_lens,
+                                                       n_mels=mcfg.n_mels)
+        enc, enc_lens = self.model.encode(feats.to(dt), feat_lens)
+        enc_pre = self.model.joint_precompute_enc(enc).contiguous()
+        res = greedy_loop(
+            enc_pre, enc_lens, h0.to(dt), c0.to(dt), pred0.to(dt), last_token,
+            token_offset, self.decode_weights, blank_id=mcfg.blank_id,
+            max_symbols=max_symbols, max_total=max_total,
+            lookahead=self.config.greedy_lookahead)
+        return res, feat_lens, enc_lens
+
+    def _run(self, audio, lens: np.ndarray, h0, c0, pred0,
+             last_token: np.ndarray):
+        """One bucket dispatch (inputs as arrays or tensors). Token outputs
+        come back to the host in one copy; the carried state stays on the
+        device."""
+        dev = self.device
+        b = audio.shape[0]
+        res, feat_lens, enc_lens = self._forward(
+            torch.as_tensor(audio, device=dev),
+            torch.from_numpy(lens).to(dev),
+            torch.as_tensor(h0, device=dev), torch.as_tensor(c0, device=dev),
+            torch.as_tensor(pred0, device=dev),
+            torch.from_numpy(last_token).to(dev),
+            torch.zeros((b,), dtype=torch.int32, device=dev),
+            max_symbols=self.config.max_symbols_per_step,
+            max_total=self.config.max_total_tokens)
+        host = [x.cpu().numpy() for x in (res.tokens, res.counts,
+                                          res.frame_idx, res.confidence,
+                                          feat_lens, enc_lens)]
+        res = dataclasses.replace(res, tokens=host[0], counts=host[1],
+                                  frame_idx=host[2], confidence=host[3])
+        return res, host[4], host[5]
+
+    # ------------------------------------------------------------------
+    def _fresh_pred(self):
+        """Prediction-net output/state of a fresh (SOS) lane, computed once
+        in f32 from the served weights."""
+        with self._lock:
+            if self._fresh_cache is None:
+                mcfg = self.model.config
+                with torch.inference_mode():
+                    out, (h, c) = self.model.predict_step(
+                        torch.full((1,), mcfg.blank_id, dtype=torch.int32,
+                                   device=self.device),
+                        self.model.init_state(1, torch.float32, self.device))
+                self._fresh_cache = (out.float().cpu().numpy(),
+                                     (h.float().cpu().numpy(),
+                                      c.float().cpu().numpy()))
+            return self._fresh_cache
+
+    def _bucket_len(self, n_samples: int) -> int:
+        for sec in self._sec_buckets:
+            cap = int(sec * C.SAMPLE_RATE)
+            if n_samples <= cap:
+                return cap
+        return int(self._sec_buckets[-1] * C.SAMPLE_RATE)
+
+    def _bucket_batch(self, b: int) -> int:
+        for cap in self._batch_buckets:
+            if b <= cap:
+                return cap
+        return self._batch_buckets[-1]
+
+    def _bucket_batch_warm(self, b_real: int, n_bucket: int,
+                           mode: str) -> int:
+        """The natural batch bucket when it has run, else the smallest warm
+        bucket that fits, else the natural one."""
+        natural = self._bucket_batch(b_real)
+        with self._lock:
+            if (mode, natural, n_bucket) in self._compiled:
+                return natural
+            warm = [b for b in self._batch_buckets
+                    if b >= b_real and (mode, b, n_bucket) in self._compiled]
+        return min(warm) if warm else natural
+
+    def is_warm(self, n_requests: int, max_samples: int,
+                mode: Optional[str] = None) -> bool:
+        key = (mode or self.config.decoding_mode,
+               self._bucket_batch(n_requests), self._bucket_len(max_samples))
+        with self._lock:
+            return key in self._compiled
+
+    def warm_batch_cap(self, max_samples: int,
+                       mode: Optional[str] = None) -> int:
+        """Largest batch bucket already run for this length bucket (0 =
+        none): the batcher never packs a burst into a cold bucket."""
+        mode = mode or self.config.decoding_mode
+        n = self._bucket_len(max_samples)
+        with self._lock:
+            caps = [b for b in self._batch_buckets
+                    if (mode, b, n) in self._compiled]
+        return max(caps) if caps else 0
+
+    def _mark_compiled(self, mode: str, b: int, n: int) -> None:
+        with self._lock:
+            new = (mode, b, n) not in self._compiled
+            self._compiled.add((mode, b, n))
+        if new and self.on_compile is not None:
+            try:
+                self.on_compile()
+            except Exception:  # noqa: BLE001 — metrics must not break serving
+                log.exception("on_compile hook failed")
+
+    # ------------------------------------------------------------------
+    def decode_samples_batch(
+            self, samples: Sequence[np.ndarray],
+            stream_states: Optional[Sequence[Optional[StreamState]]] = None,
+    ) -> Tuple[GreedyResult, np.ndarray, np.ndarray, List[StreamState]]:
+        """Decode a batch of sample arrays padded to shape buckets.
+
+        Returns (GreedyResult with host token arrays, feat_lens, enc_lens,
+        new stream states); rows past len(samples) are padding lanes.
+        """
+        mcfg = self.model.config
+        b_real = len(samples)
+        if b_real == 0:
+            raise InvalidAudioFormatError("empty batch")
+        n = self._bucket_len(max(s.shape[0] for s in samples))
+        b = self._bucket_batch_warm(b_real, n, "greedy")
+
+        with self._lock:
+            audio = self._staging.get((b, n))
+            if audio is None:
+                audio = self._staging[(b, n)] = np.zeros((b, n), np.float32)
+            else:
+                audio.fill(0.0)
+            lens = np.zeros((b,), np.int32)
+            for i, s in enumerate(samples):
+                m = min(s.shape[0], n)
+                audio[i, :m] = s[:m]
+                lens[i] = m
+            # copied out under the lock: the buffer is refilled by the next
+            # dispatch of this bucket
+            audio = torch.from_numpy(audio).to(self.device, copy=True)
+
+        if stream_states is None:
+            stream_states = [None] * b_real
+        fresh_out, (fresh_h, fresh_c) = self._fresh_pred()
+        h0 = torch.as_tensor(np.tile(fresh_h, (1, b, 1)))
+        c0 = torch.as_tensor(np.tile(fresh_c, (1, b, 1)))
+        pred0 = torch.as_tensor(np.tile(fresh_out, (b, 1)))
+        last_token = np.full((b,), mcfg.blank_id, np.int32)
+        for i in range(b_real):
+            st = stream_states[i]
+            if st is not None:
+                h0[:, i] = st.state[0][:, 0].float().cpu()
+                c0[:, i] = st.state[1][:, 0].float().cpu()
+                pred0[i] = st.pred_out[0].float().cpu()
+                last_token[i] = int(st.last_token[0])
+
+        res, feat_lens, enc_lens = self._run(audio, lens, h0, c0, pred0,
+                                             last_token)
+        self._mark_compiled("greedy", b, n)
+
+        new_states: List[StreamState] = []
+        for i in range(b_real):
+            prior = stream_states[i]
+            new_states.append(StreamState(
+                state=(res.state[0][:, i:i + 1], res.state[1][:, i:i + 1]),
+                pred_out=res.pred_out[i:i + 1],
+                last_token=res.last_token[i:i + 1],
+                tokens_emitted=(prior.tokens_emitted if prior else 0)
+                + int(res.counts[i])))
+        return res, feat_lens, enc_lens, new_states
+
+    # ------------------------------------------------------------------
+    def process_batch_samples(self, samples: np.ndarray) -> Transcription:
+        res, feat_lens, enc_lens, _ = self.decode_samples_batch([samples])
+        return self._to_transcription(res, 0, samples.shape[0],
+                                      int(feat_lens[0]), int(enc_lens[0]))
+
+    def process_batch(self, audio_bytes: bytes) -> Transcription:
+        return self.process_batch_samples(self._convert(audio_bytes))
+
+    def process_stream_samples(self, samples: np.ndarray,
+                               stream_state: Optional[StreamState]
+                               ) -> Tuple[Transcription, StreamState]:
+        res, feat_lens, enc_lens, states = self.decode_samples_batch(
+            [samples], [stream_state])
+        return (self._to_transcription(res, 0, samples.shape[0],
+                                       int(feat_lens[0]), int(enc_lens[0])),
+                states[0])
+
+    def process_stream_chunk(self, audio_bytes: bytes,
+                             stream_state: Optional[StreamState]
+                             ) -> Tuple[Transcription, StreamState]:
+        return self.process_stream_samples(self._convert(audio_bytes),
+                                           stream_state)
+
+    # ------------------------------------------------------------------
+    def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
+               secs: Optional[Sequence[float]] = None) -> int:
+        """Run bucket programs once on silence (kernel build, allocator):
+        batch 1 across every length bucket by default; the remaining batch
+        buckets warm on a background thread. Returns #buckets."""
+        n = 0
+        for b in (batch_sizes or self._batch_buckets[:1]):
+            for s in (secs if secs is not None else self._sec_buckets):
+                self._warm_one(b, int(s * C.SAMPLE_RATE))
+                n += 1
+        self.warmed_up = True
+        return n
+
+    def _warm_one(self, b: int, n_samples: int) -> None:
+        """Run one (batch, length) bucket on silence with its own arrays
+        (never the shared staging pool)."""
+        mcfg = self.model.config
+        bb = self._bucket_batch(b)
+        nb = self._bucket_len(n_samples)
+        fresh_out, (fresh_h, fresh_c) = self._fresh_pred()
+        self._run(np.zeros((bb, nb), np.float32),
+                  np.full((bb,), min(n_samples, nb), np.int32),
+                  np.tile(fresh_h, (1, bb, 1)), np.tile(fresh_c, (1, bb, 1)),
+                  np.tile(fresh_out, (bb, 1)),
+                  np.full((bb,), mcfg.blank_id, np.int32))
+        self._mark_compiled("greedy", bb, nb)
+
+    def start_background_warmup(self) -> None:
+        """Warm the remaining (batch x length) buckets on a daemon thread,
+        smallest batches first, while the warm set serves."""
+        if self._warmup_thread is not None:
+            return
+        self._warmup_stop.clear()
+
+        def run():
+            for b in self._batch_buckets:
+                for s in self._sec_buckets:
+                    n = int(s * C.SAMPLE_RATE)
+                    if self._warmup_stop.is_set():
+                        return
+                    if self.is_warm(b, n, "greedy"):
+                        continue
+                    try:
+                        self._warm_one(b, n)
+                    except Exception:  # noqa: BLE001 — warmup must not crash
+                        log.exception("background warmup failed for bucket "
+                                      "(%d, %.1fs)", b, s)
+                        return
+
+        self._warmup_thread = threading.Thread(
+            target=run, name="bucket-warmup", daemon=True)
+        self._warmup_thread.start()
+
+    def stop_background_warmup(self, join: bool = False) -> None:
+        self._warmup_stop.set()
+        if join and self._warmup_thread is not None:
+            self._warmup_thread.join(timeout=30)
+        self._warmup_thread = None
+
+    # ------------------------------------------------------------------
+    def _convert(self, audio_bytes: bytes) -> np.ndarray:
+        if len(audio_bytes) == 0:
+            raise InvalidAudioFormatError("empty audio buffer")
+        if len(audio_bytes) % 2 != 0:
+            raise InvalidAudioFormatError(
+                "audio buffer length must be even for 16-bit PCM")
+        return pcm16_bytes_to_f32(audio_bytes)
+
+    def _to_transcription(self, res: GreedyResult, lane: int,
+                          n_samples: int, feat_len: int,
+                          enc_len: int) -> Transcription:
+        count = int(res.counts[lane])
+        tokens = [int(t) for t in res.tokens[lane, :count]]
+        frames = res.frame_idx[lane, :count]
+        confs = res.confidence[lane, :count]
+        sec_per_frame = (C.HOP_LENGTH * self.model.config.subsampling_factor
+                         / C.SAMPLE_RATE)
+        details = [
+            TokenInfo(id=tok, time_s=round(float(f) * sec_per_frame, 3),
+                      confidence=round(float(c), 4))
+            for tok, f, c in zip(tokens, frames, confs)]
+        return Transcription(
+            text=self.vocab.decode_tokens(tokens), tokens=tokens,
+            audio_length_samples=n_samples, features_length=feat_len,
+            encoded_length=enc_len, token_details=details)
