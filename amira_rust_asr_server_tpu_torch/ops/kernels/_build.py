@@ -1,8 +1,10 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, and loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds). The library lands in the package's ``build/``
+The sources are compiled at first use with ``nvcc``, one process per source
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds). ``-Xptxas=-v`` reports each kernel's registers, shared memory and
+spills; :data:`build_log` keeps that output per source. The library lands in the package's ``build/``
 directory under a name that carries a hash of the sources and flags, so an
 edited source is rebuilt and a stale library is never loaded. Importing this
 module needs neither ``nvcc`` nor a GPU.
@@ -23,30 +25,35 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None  # wall time of this process's build
+build_log: Dict[str, str] = {}  # source name -> nvcc's report (this build)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 I64 = ctypes.c_int64
 
-# C signatures: name -> argtypes (all entries return int, a cudaError_t)
+# C signatures: name -> argtypes. Entries return an int (a cudaError_t)
+# unless RESTYPES says otherwise.
 SIGNATURES = {
     "amira_log_mel": [P, I64, I, I, P, P, P, I, P, P],
     "amira_greedy_loop": [I, I, I, I, I, I, I, I, I, I, I,
                           P, P, P, P, P, P, P,
                           P, P, P, P, P, P, P, P, P,
                           P, P, P, P, P, P, P, P, P],
+    "amira_beam_loop_scratch_bytes": [I, I, I, I, I],
+    "amira_beam_loop": [I] * 11 + [P] * 25,
 }
+RESTYPES = {"amira_beam_loop_scratch_bytes": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:
@@ -68,7 +75,7 @@ def _sources():
 
 def _lib_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f"libamira_kernels-{h.hexdigest()[:16]}.so"
@@ -78,16 +85,31 @@ def _compile(out: Path) -> None:
     global build_seconds
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: another process never loads half a file
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = str(Path(tmp) / f"{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            objs.append(obj)
+            procs.append((src.name, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, cmd, proc in procs:
+            build_log[name] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{build_log[name]}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        so = str(Path(tmp) / "lib.so")
+        cmd = [nvcc, "-shared", "-o", so, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(so, out)  # atomic: another process never loads half a file
     build_seconds = time.perf_counter() - t0
 
 
@@ -103,7 +125,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = lib
         return _lib
 

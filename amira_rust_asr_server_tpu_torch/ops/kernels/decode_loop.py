@@ -64,6 +64,20 @@ class DecodeWeights:
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
 
+    def check(self, what: str, device: torch.device) -> None:
+        """Raise unless every weight is what the kernel ``what`` reads."""
+        v, e = self.embed.shape
+        p = self.w0.shape[1] // 4
+        j = self.wp.shape[1]
+        for name, shape in (("embed", (v, e)), ("w0", (e + p, 4 * p)),
+                            ("w1", (2 * p, 4 * p)), ("wp", (p, j)),
+                            ("wo", (j, v))):
+            check_tensor(what, name, getattr(self, name), self.dtype, shape,
+                         device)
+        for name, n in (("b0", 4 * p), ("b1", 4 * p), ("bp", j), ("bo", v)):
+            check_tensor(what, name, getattr(self, name), torch.float32, (n,),
+                         device)
+
 
 def _lstm_f32acc(w, b, x, h, c, dt):
     gates = torch.cat([x, h], dim=-1).float() @ w + b
@@ -73,11 +87,10 @@ def _lstm_f32acc(w, b, x, h, c, dt):
     return h_new.to(dt), c_new.to(dt)
 
 
-def greedy_loop_reference(enc_pre, enc_lens, h0, c0, pred0, last0,
-                          token_offset, weights: DecodeWeights, *,
-                          blank_id: int, max_symbols: int, max_total: int,
-                          lookahead: int = 8) -> GreedyResult:
-    """Plain PyTorch version of the kernel (same arguments, same result)."""
+def kernel_fns(weights: DecodeWeights, blank_id: int):
+    """``(pred_fn, joint_fn)`` that round where the decode kernels round:
+    the plain versions of both loop kernels are their decode functions
+    given these."""
     dt = weights.dtype
     w0, w1 = weights.w0.float(), weights.w1.float()
     wp, wo = weights.wp.float(), weights.wo.float()
@@ -96,6 +109,15 @@ def greedy_loop_reference(enc_pre, enc_lens, h0, c0, pred0, last0,
         hidden = torch.relu(enc_rows.float() + p).to(dt)
         return hidden.float() @ wo + weights.bo
 
+    return pred_fn, joint_fn
+
+
+def greedy_loop_reference(enc_pre, enc_lens, h0, c0, pred0, last0,
+                          token_offset, weights: DecodeWeights, *,
+                          blank_id: int, max_symbols: int, max_total: int,
+                          lookahead: int = 8) -> GreedyResult:
+    """Plain PyTorch version of the kernel (same arguments, same result)."""
+    pred_fn, joint_fn = kernel_fns(weights, blank_id)
     return greedy_decode(
         pred_fn, joint_fn, enc_pre, enc_lens, (h0, c0), blank_id,
         max_symbols=max_symbols, max_total=max_total,
@@ -103,11 +125,12 @@ def greedy_loop_reference(enc_pre, enc_lens, h0, c0, pred0, last0,
         init_last_token=last0, token_offset=token_offset)
 
 
-def _check(name, x, dtype, shape, device):
+def check_tensor(what, name, x, dtype, shape, device):
+    """Raise unless ``x`` is what the kernel ``what`` reads."""
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape \
             or not x.is_contiguous():
         raise ValueError(
-            f"greedy_loop: {name} must be a contiguous {dtype} tensor of shape "
+            f"{what}: {name} must be a contiguous {dtype} tensor of shape "
             f"{shape} on {device}, got {x.dtype} {tuple(x.shape)} on "
             f"{x.device}{'' if x.is_contiguous() else ' (non-contiguous)'}")
 
@@ -131,26 +154,20 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
     dt = weights.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"greedy_loop: working type {dt} not supported")
-    b, t_max, d_joint = enc_pre.shape
+    b, t_max, _ = enc_pre.shape
     v, d_embed = weights.embed.shape
-    d_pred = weights.w0.shape[1] // 4
-    ints =[x.to(device=dev, dtype=torch.int32).contiguous()
+    d_pred, d_joint = weights.wp.shape
+    ints = [x.to(device=dev, dtype=torch.int32).contiguous()
             for x in (enc_lens, last0, token_offset)]
     for name, x in (("enc_lens", ints[0]), ("last0", ints[1]),
                     ("token_offset", ints[2])):
-        _check(name, x, torch.int32, (b,), dev)
-    _check("enc_pre", enc_pre, dt, (b, t_max, d_joint), dev)
-    _check("h0", h0, dt, (2, b, d_pred), dev)
-    _check("c0", c0, dt, (2, b, d_pred), dev)
-    _check("pred0", pred0, dt, (b, d_pred), dev)
-    for name, shape in (("embed", (v, d_embed)),
-                        ("w0", (d_embed + d_pred, 4 * d_pred)),
-                        ("w1", (2 * d_pred, 4 * d_pred)),
-                        ("wp", (d_pred, d_joint)), ("wo", (d_joint, v))):
-        _check(name, getattr(weights, name), dt, shape, dev)
-    for name, n in (("b0", 4 * d_pred), ("b1", 4 * d_pred), ("bp", d_joint),
-                    ("bo", v)):
-        _check(name, getattr(weights, name), torch.float32, (n,), dev)
+        check_tensor("greedy_loop", name, x, torch.int32, (b,), dev)
+    for name, x, shape in (("enc_pre", enc_pre, (b, t_max, d_joint)),
+                           ("h0", h0, (2, b, d_pred)),
+                           ("c0", c0, (2, b, d_pred)),
+                           ("pred0", pred0, (b, d_pred))):
+        check_tensor("greedy_loop", name, x, dt, shape, dev)
+    weights.check("greedy_loop", dev)
 
     def new(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)

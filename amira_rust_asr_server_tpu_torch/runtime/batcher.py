@@ -1,11 +1,14 @@
-"""Continuous batching (port of runtime/batcher.py, the greedy half).
+"""Continuous batching (port of runtime/batcher.py).
 
 Requests queue up; a dispatcher packs whatever is pending, up to the largest
 batch bucket and waiting at most ``batch_window_ms`` for stragglers, into
 one padded device call of the pipeline, then fans results back out to
 per-request futures. Pending work is grouped by audio-length bucket so a
 short request is not padded to the longest one, and each group is capped at
-the largest batch bucket already warm for its length. Admission is bounded
+the largest batch bucket already warm for its length. In beam mode
+(``decoding_mode="beam"``) groups run the beam program, with
+``beam_n_best`` alternatives; stream state is not carried there (beam serves
+the batch endpoint). Admission is bounded
 (``inference_queue_size``): a full queue rejects with 503. The reference's
 second admission class, for WebSocket stream chunks, comes with the
 WebSocket route.
@@ -128,41 +131,45 @@ class ContinuousBatcher:
                     break
             await self._dispatch(self._take())
 
-    def _group_by_bucket(self, batch) -> List[list]:
+    def _group_by_bucket(self, batch, mode: str = "greedy") -> List[list]:
         """Group by length bucket; cap each group at the largest warm batch
-        bucket for its length (a fully cold length dispatches whole)."""
+        bucket for its length in ``mode`` (a fully cold length dispatches
+        whole)."""
         groups: dict = {}
         for item in batch:
             bucket = self.pipeline._bucket_len(item[0].shape[0])
             groups.setdefault(bucket, []).append(item)
         out: List[list] = []
         for bucket, group in groups.items():
-            cap = self.pipeline.warm_batch_cap(bucket, "greedy")
+            cap = self.pipeline.warm_batch_cap(bucket, mode)
             natural = self.pipeline._bucket_batch(len(group))
-            if cap == 0 or self.pipeline.is_warm(natural, bucket, "greedy"):
+            if cap == 0 or self.pipeline.is_warm(natural, bucket, mode):
                 out.append(group)
                 continue
             out.extend(group[i:i + cap] for i in range(0, len(group), cap))
         return out
 
-    def _record_dispatch(self, lanes: int, duration_s: float,
+    def _record_dispatch(self, program: str, lanes: int, duration_s: float,
                          ok: bool) -> None:
         if ok:
             self.stats.record(lanes)
         if self.prometheus is not None:
-            self.prometheus.observe_dispatch("greedy", duration_s, ok)
+            self.prometheus.observe_dispatch(program, duration_s, ok)
             if ok:
                 self.prometheus.batch_lanes.observe(lanes)
 
     async def _dispatch(self, batch) -> None:
+        beam = self.pipeline.config.decoding_mode == "beam"
+        mode = "beam" if beam else "greedy"
         loop = asyncio.get_running_loop()
         try:
-            groups = self._group_by_bucket(batch)
+            groups = self._group_by_bucket(batch, mode)
         except Exception as e:  # noqa: BLE001 — malformed submission
             for *_, fut in batch:
                 if not fut.done():
                     fut.set_exception(e)
             return
+        n_best = self.pipeline.config.beam_n_best
         for group in groups:
             samples = [item[0] for item in group]
             states = [item[1] for item in group]
@@ -171,30 +178,39 @@ class ContinuousBatcher:
             # latency, not queueing or retry backoff; None = never ran
             dev_s = [None]
 
-            def call_greedy():
+            def call():
                 ta = time.perf_counter()
                 try:
+                    if beam:
+                        return self.pipeline.decode_beam_batch(
+                            samples, n_best=n_best)
                     return self.pipeline.decode_samples_batch(samples,
                                                               states)
                 finally:
                     dev_s[0] = time.perf_counter() - ta
 
             try:
-                res, feat_lens, enc_lens, new_states = \
-                    await self._retry.run(lambda: loop.run_in_executor(
-                        self.executor, call_greedy))
+                out = await self._retry.run(lambda: loop.run_in_executor(
+                    self.executor, call))
             except Exception as e:  # noqa: BLE001 — fan the error out
                 if dev_s[0] is not None:
-                    self._record_dispatch(len(group), dev_s[0], ok=False)
+                    self._record_dispatch(mode, len(group), dev_s[0],
+                                          ok=False)
                 for fut in futures:
                     if not fut.done():
                         fut.set_exception(e)
                 continue
-            self._record_dispatch(len(group), dev_s[0], ok=True)
+            self._record_dispatch(mode, len(group), dev_s[0], ok=True)
             for i, fut in enumerate(futures):
                 if fut.done():
                     continue
-                tr = self.pipeline._to_transcription(
-                    res, i, samples[i].shape[0],
-                    int(feat_lens[i]), int(enc_lens[i]))
-                fut.set_result((tr, new_states[i]))
+                if beam:
+                    res, feat_lens, enc_lens = out
+                    fut.set_result((self.pipeline.beam_transcription(
+                        res, i, samples[i].shape[0], feat_lens[i],
+                        enc_lens[i]), None))
+                else:
+                    res, feat_lens, enc_lens, new_states = out
+                    fut.set_result((self.pipeline._to_transcription(
+                        res, i, samples[i].shape[0], int(feat_lens[i]),
+                        int(enc_lens[i])), new_states[i]))

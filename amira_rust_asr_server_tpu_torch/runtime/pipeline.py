@@ -1,15 +1,19 @@
-"""The ASR pipeline over shape buckets (port of runtime/pipeline.py, the
-greedy half).
+"""The ASR pipeline over shape buckets (port of runtime/pipeline.py).
 
     log-mel -> conformer encode -> joint_precompute_enc -> greedy decode
+                                                        -> beam search
 
 Requests are padded into (batch, length) buckets from
 ``config.batch_buckets x config.audio_sec_buckets``, as in the reference.
 PyTorch runs eagerly, so a bucket's "compile" is its first run (kernel
 build, allocator growth); ``is_warm``/``warm_batch_cap`` keep their meaning
-for the batcher. The log-mel and the whole decode loop always go through
+for the batcher. The log-mel and the whole greedy loop always go through
 the kernels' wrappers (``ops/kernels``): on CUDA they launch the hand-written
-kernels, on the CPU they run their plain PyTorch versions.
+kernels, on the CPU they run their plain PyTorch versions. Beam search
+(``decoding_mode="beam"``) shares the log-mel and encoder (the reference's
+beam path calls the plain log-mel; the two agree to 1.9e-6) and runs the
+beam kernel on CUDA, or the plain scan ``ops.beam.beam_decode`` where the
+reference runs its XLA scan (see :meth:`AsrPipeline.beam_decode_path`).
 
 Streaming state (prediction-net h/c, pred_out, last token) stays on the
 device between chunks in :class:`StreamState`.
@@ -26,15 +30,19 @@ import torch
 
 from amira_rust_asr_server_tpu import constants as C
 from amira_rust_asr_server_tpu.config import Config
-from amira_rust_asr_server_tpu.errors import InvalidAudioFormatError
+from amira_rust_asr_server_tpu.errors import (ConfigValidationError,
+                                              InvalidAudioFormatError)
 from amira_rust_asr_server_tpu.reliability import get_logger
 from amira_rust_asr_server_tpu.vocab import Vocabulary
 
 from ..audio import pcm16_bytes_to_f32
 from ..device import resolve_device
 from ..models import Transducer
+from ..ops.beam import (BeamResult, BeamTrace, TokenTrie, backtrace,
+                        beam_decode, finish_trace)
 from ..ops.greedy import GreedyResult
 from ..ops.kernels import mel as mel_kernel
+from ..ops.kernels.beam_loop import beam_loop
 from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
 from ..types import TokenInfo, Transcription
 
@@ -44,9 +52,6 @@ log = get_logger("asr.pipeline")
 def check_supported(cfg: Config, device: torch.device) -> None:
     """Reject, loudly, what this slice of the port does not serve yet."""
     todo = []
-    if cfg.decoding_mode == "beam":
-        todo.append("decoding_mode='beam' (ROADMAP.md queue 1 item 10, "
-                    "queue 2 item 5)")
     if cfg.quantization == "int8":
         todo.append("quantization='int8' (ROADMAP.md queue 1 item 8, "
                     "queue 2 item 4)")
@@ -68,6 +73,10 @@ def check_supported(cfg: Config, device: torch.device) -> None:
         elif not cfg.use_pallas_decode_loop:
             todo.append("use_pallas_decode_loop=False: the CUDA path always "
                         "runs csrc/decode_loop.cu")
+        if not cfg.use_pallas_beam_loop:
+            todo.append("use_pallas_beam_loop=False: the CUDA beam path "
+                        "always runs csrc/beam_loop.cu (ROADMAP.md queue 2 "
+                        "item 5)")
         if cfg.int8_decode_weights:
             todo.append("int8_decode_weights (ROADMAP.md queue 2 item 4)")
     if todo:
@@ -101,8 +110,16 @@ class AsrPipeline:
                               else torch.float32)
         self.model = model.to(device=self.device,
                               dtype=self.compute_dtype).eval()
-        self.decode_weights = DecodeWeights.from_model(self.model,
-                                                       self.compute_dtype)
+        # the loop kernels' weights (2-layer prediction nets); other depths
+        # decode beam through the plain scan and have no greedy path here
+        self.decode_weights = None
+        if self.model.config.pred_layers == 2:
+            self.decode_weights = DecodeWeights.from_model(
+                self.model, self.compute_dtype)
+        elif cfg.decoding_mode != "beam":
+            raise NotImplementedError(
+                "the greedy decode kernel supports 2-layer prediction nets "
+                f"only, got {self.model.config.pred_layers}")
         self._sec_buckets = sorted(cfg.audio_sec_buckets)
         self._batch_buckets = sorted(cfg.batch_buckets)
         # guards _compiled/_staging/_fresh_cache: the dispatch thread and
@@ -113,24 +130,75 @@ class AsrPipeline:
         self._fresh_cache = None
         self.warmed_up = False
         self.on_compile = None  # observability hook: once per new bucket
+        # beam routing observability (kernel vs plain scan)
+        self.on_beam_path = None
+        self.decode_path_counts = {"pallas_kernel": 0, "xla_scan": 0}
+        self.last_decode_path: Optional[str] = None
         self._warmup_thread: Optional[threading.Thread] = None
         self._warmup_stop = threading.Event()
+        self.beam_graph = self._load_grammar(cfg.beam_grammar_path)
+
+    def _load_grammar(self, path: Optional[str]) -> Optional[TokenTrie]:
+        """The optional decoding graph: an OpenFST text file
+        (``.fst``/``.fst.txt``/``.fsttxt``), or phrase lines, each
+        ``phrase`` or ``phrase<TAB>log_weight``, compiled into a weighted
+        token trie on the device."""
+        if not path:
+            return None
+        vocab_size = self.model.config.vocab_size
+        if path.endswith((".fst", ".fst.txt", ".fsttxt")):
+            from ..ops.fst_io import token_trie_from_openfst_file
+            graph = token_trie_from_openfst_file(path, vocab_size,
+                                                 vocab=self.vocab)
+            return graph.to(self.device)
+        phrases, weights, any_w = [], [], False
+        with open(path, "r", encoding="utf-8") as f:
+            for ln in f:
+                ln = ln.strip()
+                if not ln:
+                    continue
+                phrase, sep, w = ln.rpartition("\t")
+                if sep and phrase:
+                    # a tab means "phrase<TAB>weight": a junk weight is a
+                    # config error, not a phrase that contains a tab
+                    try:
+                        weights.append(float(w))
+                    except ValueError:
+                        raise ConfigValidationError(
+                            f"grammar line {ln!r} in {path}: expected "
+                            f"'phrase<TAB>log_weight', got non-numeric "
+                            f"weight {w!r}") from None
+                    phrases.append(phrase.strip())
+                    any_w = True
+                    continue
+                phrases.append(ln)
+                weights.append(0.0)
+        graph = TokenTrie.from_phrases(self.vocab, phrases, vocab_size,
+                                       weights=weights if any_w else None)
+        return graph.to(self.device)
 
     # ------------------------------------------------------------------
+    def _encode(self, audio, audio_lens):
+        """log-mel (through the mel kernel's wrapper) -> encoder -> the
+        joint's encoder projection."""
+        mcfg = self.model.config
+        feats, feat_lens = mel_kernel.log_mel_features(audio, audio_lens,
+                                                       n_mels=mcfg.n_mels)
+        enc, enc_lens = self.model.encode(feats.to(self.compute_dtype),
+                                          feat_lens)
+        return self.model.joint_precompute_enc(enc).contiguous(), \
+            feat_lens, enc_lens
+
     @torch.inference_mode()
     def _forward(self, audio, audio_lens, h0, c0, pred0, last_token,
                  token_offset, *, max_symbols: int, max_total: int):
-        mcfg = self.model.config
         dt = self.compute_dtype
-        feats, feat_lens = mel_kernel.log_mel_features(audio, audio_lens,
-                                                       n_mels=mcfg.n_mels)
-        enc, enc_lens = self.model.encode(feats.to(dt), feat_lens)
-        enc_pre = self.model.joint_precompute_enc(enc).contiguous()
+        enc_pre, feat_lens, enc_lens = self._encode(audio, audio_lens)
         res = greedy_loop(
             enc_pre, enc_lens, h0.to(dt), c0.to(dt), pred0.to(dt), last_token,
-            token_offset, self.decode_weights, blank_id=mcfg.blank_id,
-            max_symbols=max_symbols, max_total=max_total,
-            lookahead=self.config.greedy_lookahead)
+            token_offset, self.decode_weights,
+            blank_id=self.model.config.blank_id, max_symbols=max_symbols,
+            max_total=max_total, lookahead=self.config.greedy_lookahead)
         return res, feat_lens, enc_lens
 
     def _run(self, audio, lens: np.ndarray, h0, c0, pred0,
@@ -289,7 +357,151 @@ class AsrPipeline:
         return res, feat_lens, enc_lens, new_states
 
     # ------------------------------------------------------------------
+    # beam search
+    # ------------------------------------------------------------------
+    # beyond this many graph states the reference routes to its XLA scan;
+    # the port keeps the same rule, so the two report the same decode_path
+    PALLAS_GRAPH_MAX_STATES = 1024
+
+    def beam_decode_path(self, graph: Optional[TokenTrie] = None) -> str:
+        """Which program a beam decode with ``graph`` runs: "pallas_kernel"
+        (the CUDA beam kernel, csrc/beam_loop.cu) or "xla_scan" (the plain
+        scan ``ops.beam.beam_decode``, on the same device). The kernel
+        route needs a 2-layer prediction net, a graph of at most
+        PALLAS_GRAPH_MAX_STATES states and a CUDA device, as the reference's
+        needs its TPU; decode_beam_batch counts the choice and stamps it
+        into the response."""
+        if (self.config.use_pallas_beam_loop
+                and self.model.config.pred_layers == 2
+                and (graph is None
+                     or graph.n_states <= self.PALLAS_GRAPH_MAX_STATES)
+                and self.device.type == "cuda"):
+            return "pallas_kernel"
+        return "xla_scan"
+
+    def _beam_trace_via_kernel(self, enc_pre, enc_lens, bias=None, *,
+                               beam_width: int, max_expansions: int,
+                               graph: Optional[TokenTrie] = None
+                               ) -> BeamTrace:
+        """BeamTrace from the beam kernel's wrapper (its plain version on
+        the CPU, where the tests reach this wiring): a zero bias when none
+        is given, finality and final weights applied after the kernel."""
+        mcfg = self.model.config
+        h, c = self.model.init_state(enc_pre.shape[0], enc_pre.dtype,
+                                     enc_pre.device)
+        bias_vec = (torch.zeros((mcfg.vocab_size,), device=enc_pre.device)
+                    if bias is None else bias)
+        outs = beam_loop(enc_pre, enc_lens, h, c, bias_vec,
+                         self.decode_weights, beam_width=beam_width,
+                         max_expansions=max_expansions,
+                         blank_id=mcfg.blank_id, graph=graph)
+        return finish_trace(*outs, graph=graph)
+
+    @torch.inference_mode()
+    def _beam_forward(self, audio, audio_lens, bias, graph, *,
+                      beam_width: int, max_expansions: int):
+        """mel -> encode -> beam scan (kernel or plain scan); the trace
+        comes back to the host in one copy."""
+        mcfg = self.model.config
+        dev = self.device
+        enc_pre, feat_lens, enc_lens = self._encode(
+            torch.as_tensor(audio, device=dev),
+            torch.as_tensor(audio_lens, device=dev))
+        if bias is not None:
+            bias = torch.as_tensor(bias, dtype=torch.float32, device=dev)
+        if graph is not None:
+            graph = graph.to(dev)
+        if self.beam_decode_path(graph) == "pallas_kernel":
+            trace = self._beam_trace_via_kernel(
+                enc_pre, enc_lens, bias, beam_width=beam_width,
+                max_expansions=max_expansions, graph=graph)
+        else:
+            trace = beam_decode(
+                self.model.predict_step, self.model.joint_step_pre, enc_pre,
+                enc_lens, self.model.init_state(enc_pre.shape[0],
+                                                enc_pre.dtype, dev),
+                mcfg.blank_id, beam_width=beam_width,
+                max_expansions=max_expansions, bias=bias,
+                vocab_size=mcfg.vocab_size, graph=graph)
+        return (trace.numpy(), feat_lens.cpu().numpy(),
+                enc_lens.cpu().numpy())
+
+    def _beam_dispatch(self, samples: Sequence[np.ndarray], bias=None,
+                       graph: Optional[TokenTrie] = None):
+        """Count the route, pack ``samples`` into a bucket and run it:
+        (host trace over all lanes, feat_lens, enc_lens). The batch and
+        lattice paths share it, so a lattice runs the warmed bucket."""
+        b_real = len(samples)
+        if b_real == 0:
+            raise InvalidAudioFormatError("empty batch")
+        g = graph if graph is not None else self.beam_graph
+        path = self.beam_decode_path(g)
+        self.decode_path_counts[path] += 1
+        self.last_decode_path = path
+        if self.on_beam_path is not None:
+            try:
+                self.on_beam_path(path)
+            except Exception:  # noqa: BLE001 — metrics must not break serving
+                log.exception("on_beam_path hook failed")
+        n = self._bucket_len(max(s.shape[0] for s in samples))
+        b = self._bucket_batch_warm(b_real, n, "beam")
+        audio = np.zeros((b, n), np.float32)
+        lens = np.zeros((b,), np.int32)
+        for i, s in enumerate(samples):
+            m = min(s.shape[0], n)
+            audio[i, :m] = s[:m]
+            lens[i] = m
+        out = self._beam_forward(audio, lens, bias, g,
+                                 beam_width=self.config.beam_width,
+                                 max_expansions=C.BEAM_MAX_EXPANSIONS)
+        self._mark_compiled("beam", b, n)
+        return out
+
+    def decode_beam_batch(self, samples: Sequence[np.ndarray], *,
+                          bias=None, graph: Optional[TokenTrie] = None,
+                          n_best: int = 1
+                          ) -> Tuple[BeamResult, List[int], List[int]]:
+        """Beam-search decode a batch padded to shape buckets: (BeamResult
+        over all lanes, feat_lens, enc_lens of the real lanes)."""
+        trace, feat_lens, enc_lens = self._beam_dispatch(samples, bias,
+                                                         graph)
+        res = backtrace(trace, enc_lens,
+                        max_total=self.config.max_total_tokens, n_best=n_best)
+        b_real = len(samples)
+        return (res, [int(x) for x in feat_lens[:b_real]],
+                [int(x) for x in enc_lens[:b_real]])
+
+    def decode_samples_beam(self, samples: np.ndarray, *, bias=None,
+                            graph: Optional[TokenTrie] = None,
+                            n_best: int = 1):
+        """Beam-search decode of one utterance."""
+        res, fls, els = self.decode_beam_batch([samples], bias=bias,
+                                               graph=graph, n_best=n_best)
+        return res, fls[0], els[0]
+
+    def beam_transcription(self, res: BeamResult, lane: int, n_samples: int,
+                           feat_len: int, enc_len: int) -> Transcription:
+        """Lane ``lane`` of a beam result as a Transcription, with its
+        n-best alternatives and the decode path."""
+        tokens = [int(t) for t in res.tokens[lane, :int(res.counts[lane])]]
+        tr = Transcription(
+            text=self.vocab.decode_tokens(tokens), tokens=tokens,
+            audio_length_samples=n_samples, features_length=feat_len,
+            encoded_length=enc_len, decode_path=self.last_decode_path)
+        if res.n_best:
+            tr.n_best = [{"text": self.vocab.decode_tokens(seq),
+                          "score": score, "tokens": seq}
+                         for score, seq in res.n_best[lane]]
+        return tr
+
+    # ------------------------------------------------------------------
     def process_batch_samples(self, samples: np.ndarray) -> Transcription:
+        """Full decode of one utterance; greedy or beam per the config."""
+        if self.config.decoding_mode == "beam":
+            res, feat_len, enc_len = self.decode_samples_beam(
+                samples, n_best=self.config.beam_n_best)
+            return self.beam_transcription(res, 0, samples.shape[0],
+                                           feat_len, enc_len)
         res, feat_lens, enc_lens, _ = self.decode_samples_batch([samples])
         return self._to_transcription(res, 0, samples.shape[0],
                                       int(feat_lens[0]), int(enc_lens[0]))
@@ -327,11 +539,21 @@ class AsrPipeline:
         return n
 
     def _warm_one(self, b: int, n_samples: int) -> None:
-        """Run one (batch, length) bucket on silence with its own arrays
-        (never the shared staging pool)."""
+        """Run one (batch, length) bucket on silence in the configured mode,
+        with its own arrays (never the shared staging pool). Beam warms the
+        natural bucket directly: decode_beam_batch's warm-bucket redirect
+        would send it to a warm larger bucket and never warm this one."""
         mcfg = self.model.config
         bb = self._bucket_batch(b)
         nb = self._bucket_len(n_samples)
+        if self.config.decoding_mode == "beam":
+            self._beam_forward(np.zeros((bb, nb), np.float32),
+                               np.full((bb,), min(n_samples, nb), np.int32),
+                               None, self.beam_graph,
+                               beam_width=self.config.beam_width,
+                               max_expansions=C.BEAM_MAX_EXPANSIONS)
+            self._mark_compiled("beam", bb, nb)
+            return
         fresh_out, (fresh_h, fresh_c) = self._fresh_pred()
         self._run(np.zeros((bb, nb), np.float32),
                   np.full((bb,), min(n_samples, nb), np.int32),
@@ -348,12 +570,13 @@ class AsrPipeline:
         self._warmup_stop.clear()
 
         def run():
+            mode = self.config.decoding_mode
             for b in self._batch_buckets:
                 for s in self._sec_buckets:
                     n = int(s * C.SAMPLE_RATE)
                     if self._warmup_stop.is_set():
                         return
-                    if self.is_warm(b, n, "greedy"):
+                    if self.is_warm(b, n, mode):
                         continue
                     try:
                         self._warm_one(b, n)

@@ -1,6 +1,8 @@
 """HTTP front-end on aiohttp (port of server/app.py, the batch surface).
 
-    POST /v2/decode/batch/{model}    batch transcription
+    POST /v2/decode/batch/{model}    batch transcription (greedy or beam;
+                                     beam adds n_best, decode_path and, on
+                                     request, a lattice)
     GET  /health                     health check (?deep=1 probes the device)
     GET  /metrics                    JSON metrics (or prometheus)
     POST /admin/reset-batch-count    zombie-request reset
@@ -41,6 +43,7 @@ from ..audio import pcm16_bytes_to_f32
 from ..convert import load_npz
 from ..device import resolve_device
 from ..models import Transducer
+from ..ops.lattice import decode_beam_lattice
 from ..runtime import AsrPipeline
 from ..runtime.pipeline import check_supported
 from ..types import AsrResponse, StreamStatus
@@ -121,9 +124,20 @@ async def handle_batch(request: web.Request) -> web.Response:
             raise RequestValidationError("request body must be an object")
         audio, opaque = parse_batch_request(
             body, state.config.max_batch_audio_length_secs)
-        if body.get("lattice", False):
+        want_lattice = bool(body.get("lattice", False))
+        if want_lattice and state.config.decoding_mode != "beam":
             raise RequestValidationError(
                 "lattice output requires decoding_mode=beam")
+        if want_lattice and state.config.model_family != "transducer":
+            raise RequestValidationError(
+                "lattice output requires the transducer model family")
+        lattice_n_best = body.get("n_best", state.config.beam_width)
+        if want_lattice:
+            try:
+                lattice_n_best = max(1, int(lattice_n_best))
+            except (TypeError, ValueError):
+                raise RequestValidationError(
+                    "n_best must be an integer") from None
         with request_span("batch", model=request.match_info.get("model")):
             warm = state.pipeline.is_warm(1, len(audio) // 2)
             budget = (state.config.inference_timeout_secs * 6 if warm
@@ -135,8 +149,26 @@ async def handle_batch(request: web.Request) -> web.Response:
                     state.prometheus.audio_conversion.observe(
                         time.perf_counter() - tc)
                     state.prometheus.audio_chunk_bytes.observe(len(audio))
-                tr, _ = await state.breaker.call_async(
-                    asyncio.wait_for(state.batcher.submit(samples), budget))
+                if want_lattice:
+                    # lattices need the trace, which the batcher's results
+                    # do not carry: the request bypasses it but runs on the
+                    # dispatch thread, behind the breaker and the budget,
+                    # through the pipeline's own beam dispatch
+                    loop = asyncio.get_running_loop()
+                    res, lattices, feat_lens, enc_lens = (
+                        await state.breaker.call_async(asyncio.wait_for(
+                            loop.run_in_executor(
+                                state.inference_executor,
+                                lambda: decode_beam_lattice(
+                                    state.pipeline, [samples],
+                                    n_best=lattice_n_best)),
+                            budget)))
+                    tr = state.pipeline.beam_transcription(
+                        res, 0, samples.shape[0], feat_lens[0], enc_lens[0])
+                else:
+                    tr, _ = await state.breaker.call_async(
+                        asyncio.wait_for(state.batcher.submit(samples),
+                                         budget))
 
         metadata = {
             "audio_length_samples": tr.audio_length_samples,
@@ -149,6 +181,18 @@ async def handle_batch(request: web.Request) -> web.Response:
                 {"id": d.id, "time_s": d.time_s,
                  "confidence": d.confidence} for d in tr.token_details]
             metadata["words"] = state.vocab.decode_words(tr.token_details)
+        if tr.n_best:
+            metadata["n_best"] = tr.n_best
+        if tr.decode_path:
+            # kernel-vs-scan routing (a grammar past the kernel's state cap
+            # runs the slower plain scan)
+            metadata["decode_path"] = tr.decode_path
+        if want_lattice:
+            sec_per_frame = (C.HOP_LENGTH
+                             * state.pipeline.model.config.subsampling_factor
+                             / C.SAMPLE_RATE)
+            metadata["lattice"] = lattices[0].to_dict(
+                vocab=state.vocab, sec_per_frame=sec_per_frame)
         response = AsrResponse(transcription=tr.text,
                                status=StreamStatus.COMPLETE,
                                metadata=metadata, opaque=opaque)
@@ -213,6 +257,8 @@ async def metrics_handler(request: web.Request) -> web.Response:
     payload = state.metrics.to_json()
     payload["circuit_breaker"] = state.breaker.stats()
     payload["batcher"] = state.batcher.stats.to_json()
+    if state.config.decoding_mode == "beam":
+        payload["beam_decode_paths"] = dict(state.pipeline.decode_path_counts)
     return web.json_response(payload)
 
 

@@ -127,6 +127,10 @@ class PrometheusMetrics:
             "asr_inference_queue_depth", "Batcher admission queue depth",
             registry=r)
         self.queue_depth_fn = None
+        self.beam_path = Counter(
+            "asr_beam_decode_path_total",
+            "Beam decodes by program (graphs past the kernel's state cap "
+            "run the plain scan)", ["path"], registry=r)
 
     def observe_request(self, kind: str, status: str,
                         duration_s: Optional[float] = None,

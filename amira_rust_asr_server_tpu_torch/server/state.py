@@ -59,6 +59,8 @@ class AppState:
         if self.prometheus:
             self.batcher.prometheus = self.prometheus
             pipeline.on_compile = self.prometheus.compile_count.inc
+            pipeline.on_beam_path = (
+                lambda p: self.prometheus.beam_path.labels(path=p).inc())
             self.breaker.on_state_change = self._on_breaker_state
             self.prometheus.queue_depth_fn = self.batcher.queue_depth
 

@@ -37,6 +37,10 @@ class Transcription:
     features_length: int
     encoded_length: int
     token_details: Optional[List[TokenInfo]] = None
+    n_best: Optional[List[Dict[str, Any]]] = None  # beam alternatives
+    # which decode program ran a beam decode: "pallas_kernel" (the CUDA
+    # kernel) or "xla_scan" (the plain scan; graphs past the kernel's cap)
+    decode_path: Optional[str] = None
 
 
 @dataclasses.dataclass

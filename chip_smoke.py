@@ -14,13 +14,23 @@ the hand-written kernels against their plain PyTorch versions:
      bf16: must transcribe "two five nine"
   F  build_state(preset=large) with seeded random weights behind the HTTP
      server on a free local port: 2 s, 8 s and 30 s requests must return
-     200/COMPLETE in the reference schema, and both kernels' launch
-     counters must rise during those requests
+     200/COMPLETE in the reference schema, and the log-mel and greedy
+     kernels' launch counters must rise during those requests
+  G  beam kernel vs plain version at flagship widths (B=16, K=10, S=3,
+     T'=376), with a shallow-fusion bias and with a weighted decoding graph
+     of 500-1024 states: f32 identical best tokens and best scores within
+     rtol 1e-4, bf16 >= 90% identical best tokens
+  H  the beam path: tiny-digits in beam mode on the card, with and without
+     a grammar file, must transcribe "two five nine" through the kernel;
+     then build_state(preset=large, decoding_mode=beam) behind the HTTP
+     server: 2 s and 30 s requests and a lattice request must return
+     200/COMPLETE with n_best, decode_path "pallas_kernel" and the lattice,
+     and the log-mel and beam kernels' counters must rise
 
 Any failure raises and exits non-zero. The line before the last holds the
 kernels' measurements as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (no result
-lines then).
+lines then): ``--phases GH`` runs the beam phases alone.
 """
 
 from __future__ import annotations
@@ -36,11 +46,14 @@ import time
 
 import numpy as np
 
+ALL_PHASES = "ABCDEFGH"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
     "greedy_loop": ("amira_rust_asr_server_tpu_torch/csrc/decode_loop.cu",
                     "amira_rust_asr_server_tpu/ops/pallas/decode_loop.py:367"),
+    "beam_loop": ("amira_rust_asr_server_tpu_torch/csrc/beam_loop.cu",
+                  "amira_rust_asr_server_tpu/ops/pallas/beam_loop.py:477"),
 }
 
 
@@ -83,6 +96,10 @@ def phase_b():
     took = time.perf_counter() - t0
     say("B", f"kernels built and loaded in {took:.2f} s "
         f"(nvcc {_build.build_seconds} s)")
+    for src, log in sorted(_build.build_log.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                say("B", f"{src}: {line.strip()}")
 
 
 def digits_audio(n_utts: int, secs: float, seed: int) -> np.ndarray:
@@ -185,16 +202,16 @@ def flagship_decode_inputs(dtype, seed: int = 0):
             x.to(dtype), last, off, w, cfg)
 
 
-def token_agreement(rk, rp) -> float:
-    tk, tp = rk.tokens.cpu().numpy(), rp.tokens.cpu().numpy()
-    ck, cp = rk.counts.cpu().numpy(), rp.counts.cpu().numpy()
+def token_agreement(tk, ck, tp, cp) -> float:
+    """Share of identical tokens between two decodes (host arrays of tokens
+    [B, N] and counts [B])."""
     same = total = 0
     for i in range(tk.shape[0]):
         n = max(int(ck[i]), int(cp[i]))
         m = min(int(ck[i]), int(cp[i]))
         same += int((tk[i, :m] == tp[i, :m]).sum())
         total += n
-    return same / max(total, 1)
+    return same / total if total else 1.0
 
 
 def phase_d(results):
@@ -229,12 +246,111 @@ def phase_d(results):
                 f"kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
             results["greedy_loop"] = {"max_abs_err": err}
         else:
-            share = token_agreement(rk, rp)
+            share = token_agreement(
+                *(x.cpu().numpy() for x in (rk.tokens, rk.counts, rp.tokens,
+                                            rp.counts)))
             say("D", f"{name}: identical-token share {share:.4f} (>= 0.9); "
                 f"counts {counts}; kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
             if share < 0.9:
                 raise AssertionError("[D] bf16 token agreement below 0.9")
             results["greedy_loop"].update(ms=ms_k, plain_ms=ms_p)
+
+
+def beam_bias_and_graph(cfg, seed: int = 3):
+    """A shallow-fusion bias that boosts 50 tokens by 5.5 + N(0, 1) each
+    (random weights alone make the empty hypothesis win: every frame pays
+    its blank; boosts that differ keep the boosted tokens from tying), and a
+    weighted decoding graph of seeded random sequences over those tokens
+    with 500 to 1024 states (under the kernel route's cap)."""
+    from amira_rust_asr_server_tpu_torch.ops.beam import TokenTrie
+    rng = np.random.default_rng(seed)
+    bias = (rng.standard_normal(cfg.vocab_size) * 0.3).astype(np.float32)
+    boosted = rng.choice(cfg.blank_id, 50, replace=False)
+    bias[boosted] += 5.5 + rng.standard_normal(50).astype(np.float32)
+    seqs = [rng.choice(boosted, int(n)).tolist()
+            for n in rng.integers(2, 9, 150)]
+    graph = TokenTrie.from_token_seqs(
+        seqs, cfg.vocab_size,
+        weights=rng.standard_normal(len(seqs)).tolist(),
+        final_weights=rng.standard_normal(len(seqs)).tolist())
+    if not 500 <= graph.n_states <= 1024:
+        raise AssertionError(f"[G] graph has {graph.n_states} states")
+    return bias, graph
+
+
+def same_rows_share(got, want, lens) -> float:
+    """Share of identical backtrace entries over the rows t < enc_len."""
+    same = total = 0
+    for i, n in enumerate(lens):
+        for a, b_ in ((got[2], want[2]), (got[3], want[3]),
+                      (got[4], want[4]), (got[5], want[5])):
+            x, y = a[:n, ..., i, :], b_[:n, ..., i, :]
+            same += int((x == y).sum())
+            total += x.size
+    return same / max(total, 1)
+
+
+def phase_g(results):
+    """The beam kernel against its plain version at flagship widths."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.ops.beam import (backtrace,
+                                                          finish_trace)
+    from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
+        beam_loop, beam_loop_reference)
+    dev = torch.device("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        enc_pre, lens, *_, w, cfg = flagship_decode_inputs(dtype)
+        b, p = enc_pre.shape[0], cfg.d_pred
+        zeros = torch.zeros((2, b, p), dtype=dtype, device=dev)
+        bias, graph = beam_bias_and_graph(cfg)
+        bias, graph = torch.from_numpy(bias).to(dev), graph.to(dev)
+        name = str(dtype).replace("torch.", "")
+        lens_np = lens.cpu().numpy()
+        for variant, g in (("bias", None), ("graph", graph)):
+            kw = dict(beam_width=10, max_expansions=3, blank_id=cfg.blank_id,
+                      graph=g)
+            args = (enc_pre, lens, zeros, zeros, bias, w)
+            rk = beam_loop(*args, **kw)
+            rp = beam_loop_reference(*args, **kw)
+            torch.cuda.synchronize()
+            hk = [x.cpu().numpy() for x in rk]
+            hp = [x.cpu().numpy() for x in rp]
+            bk = backtrace(finish_trace(*rk, graph=g), lens_np)
+            bp = backtrace(finish_trace(*rp, graph=g), lens_np)
+            ms_k = cuda_ms(lambda: beam_loop(*args, **kw), 2)
+            ms_p = cuda_ms(lambda: beam_loop_reference(*args, **kw), 1)
+            counts = bk.counts.tolist()
+            rows = same_rows_share(hk, hp, lens_np)
+            if dtype == torch.float32:
+                ok_tok = (np.array_equal(bk.counts, bp.counts)
+                          and np.array_equal(bk.tokens, bp.tokens))
+                err = float(np.abs(bk.scores - bp.scores).max())
+                ok_sc = np.allclose(bk.scores, bp.scores, rtol=1e-4, atol=0)
+                say("G", f"{name} {variant}: best tokens identical {ok_tok}, "
+                    f"max|d best score| {err:.3e} (rtol 1e-4) {ok_sc}; "
+                    f"identical backtrace entries (t < len) {rows:.4f}; "
+                    f"counts {counts}; kernel {ms_k:.3f} ms, plain "
+                    f"{ms_p:.3f} ms")
+                if not (ok_tok and ok_sc):
+                    raise AssertionError(f"[G] f32 {variant} disagrees")
+                res = results.setdefault("beam_loop", {"max_abs_err": 0.0})
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+            else:
+                share = token_agreement(bk.tokens, bk.counts, bp.tokens,
+                                        bp.counts)
+                say("G", f"{name} {variant}: identical-token share "
+                    f"{share:.4f} (>= 0.9); identical backtrace entries "
+                    f"(t < len) {rows:.4f}; counts {counts}; kernel "
+                    f"{ms_k:.3f} ms, plain {ms_p:.3f} ms")
+                if share < 0.9:
+                    raise AssertionError(f"[G] bf16 {variant} token "
+                                         "agreement below 0.9")
+                if variant == "bias":
+                    results["beam_loop"].update(ms=ms_k, plain_ms=ms_p)
+                else:
+                    results["beam_loop"].update(graph_ms=ms_k,
+                                                graph_plain_ms=ms_p)
 
 
 def phase_e():
@@ -267,7 +383,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-async def _serve_and_post(state, port: int, secs_list):
+async def _serve_and_post(state, port: int, reqs):
+    """Serve ``state`` on ``port`` and post one request per ``(secs,
+    extra body fields)`` of random PCM; returns the responses and the
+    kernels' launch counts over the requests alone."""
     import aiohttp
 
     from amira_rust_asr_server_tpu_torch.ops import kernels
@@ -287,72 +406,161 @@ async def _serve_and_post(state, port: int, secs_list):
                     pass
                 await asyncio.sleep(0.1)
             kernels.reset_launch_counts()
-            for secs in secs_list:
+            for secs, extra in reqs:
                 n = int(secs * 16000)
                 pcm = (rng.standard_normal(n) * 3000).astype("<i2").tobytes()
                 t0 = time.perf_counter()
                 async with session.post(
                         f"{url}/v2/decode/batch/default",
-                        json={"audio_buffer": list(pcm)}) as r:
+                        json={"audio_buffer": list(pcm), **extra}) as r:
                     status, body = r.status, await r.json()
                 out.append((secs, n, status, body, time.perf_counter() - t0))
             counts = kernels.launch_counts()
+            async with session.get(f"{url}/metrics") as r:
+                metrics = await r.json()
     finally:
         state.shutdown.trigger()
         await server
-    return out, counts
+    return out, counts, metrics
 
 
-def phase_f(results):
-    from amira_rust_asr_server_tpu_torch.config import Config
+def response_ok(mcfg, n: int, status: int, body: dict, keys: set) -> bool:
+    """HTTP 200 COMPLETE in the reference schema: metadata holds exactly
+    ``keys`` and the lengths of ``n`` samples, tokens in range."""
+    md = body.get("metadata", {})
+    n_feat = 1 + n // 160
+    n_enc = n_feat
+    for _ in range(int(math.log2(mcfg.subsampling_factor))):
+        n_enc = (n_enc + 1) // 2
+    return (status == 200 and body.get("status") == "COMPLETE"
+            and isinstance(body.get("transcription"), str)
+            and set(md) == keys
+            and md["audio_length_samples"] == n
+            and md["features_length"] == n_feat
+            and md["encoded_length"] == n_enc
+            and all(0 <= t < mcfg.vocab_size and t != mcfg.blank_id
+                    for t in md["tokens"])
+            and all(math.isfinite(d["confidence"])
+                    for d in md.get("token_details", [])))
+
+
+def serve_large(phase: str, cfg, reqs, keys_for, kernel_names):
+    """build_state(preset=large) with seeded random weights, every bucket
+    warmed, then ``reqs`` over HTTP; each response must pass
+    :func:`response_ok` with ``keys_for(extra)`` and each kernel of
+    ``kernel_names`` must have launched during the requests."""
     from amira_rust_asr_server_tpu_torch.server.app import build_state
     t0 = time.perf_counter()
-    cfg = Config(vocabulary_path="model-repo/vocab.txt",
-                 inference_backend="tpu")
     state = build_state(cfg, preset="large")
     warm = state.pipeline._warmup_thread
     if warm is not None:
         warm.join(timeout=600)
-    say("F", f"large: {state.pipeline.model.param_count()} params on "
-        f"{state.pipeline.device}, {state.pipeline.compute_dtype}; built and "
-        f"warmed every bucket in {time.perf_counter() - t0:.1f} s")
+    say(phase, f"large: {state.pipeline.model.param_count()} params on "
+        f"{state.pipeline.device}, {state.pipeline.compute_dtype}, "
+        f"{cfg.decoding_mode}; built and warmed every bucket in "
+        f"{time.perf_counter() - t0:.1f} s")
     mcfg = state.pipeline.model.config
-    out, counts = asyncio.run(_serve_and_post(state, free_port(),
-                                              (2.0, 8.0, 30.0)))
-    for secs, n, status, body, wall in out:
+    out, counts, metrics = asyncio.run(_serve_and_post(state, free_port(),
+                                                       reqs))
+    for (secs, n, status, body, wall), (_, extra) in zip(out, reqs):
         md = body.get("metadata", {})
-        n_feat = 1 + n // 160
-        n_enc = n_feat
-        for _ in range(int(math.log2(mcfg.subsampling_factor))):
-            n_enc = (n_enc + 1) // 2
-        ok = (status == 200 and body.get("status") == "COMPLETE"
-              and isinstance(body.get("transcription"), str)
-              and md.get("audio_length_samples") == n
-              and md.get("features_length") == n_feat
-              and md.get("encoded_length") == n_enc
-              and isinstance(md.get("tokens"), list)
-              and len(md.get("token_details", [])) == len(md["tokens"])
-              and all(0 <= t < mcfg.vocab_size and t != mcfg.blank_id
-                      for t in md["tokens"])
-              and all(math.isfinite(d["confidence"])
-                      for d in md.get("token_details", [])))
-        say("F", f"POST {secs:.0f} s: HTTP {status} {body.get('status')} "
-            f"{len(md.get('tokens', []))} tokens, wall {wall * 1e3:.1f} ms")
-        if not ok:
-            raise AssertionError(f"[F] bad response for {secs} s: "
-                                 f"{json.dumps(body)[:400]}")
-    say("F", f"kernel launches during the requests: {counts}")
-    for name, n in counts.items():
-        if n < 1:
-            raise AssertionError(f"[F] kernel {name} was not launched")
-        results.setdefault(name, {})["launches"] = n
+        say(phase, f"POST {secs:.0f} s {extra or ''}: HTTP {status} "
+            f"{body.get('status')} {len(md.get('tokens', []))} tokens "
+            f"{md.get('decode_path', '')}, wall {wall * 1e3:.1f} ms")
+        if not response_ok(mcfg, n, status, body, keys_for(extra)):
+            raise AssertionError(f"[{phase}] bad response for {secs} s: "
+                                 f"{json.dumps(body)[:600]}")
+    say(phase, f"kernel launches during the requests: {counts}")
+    for name in kernel_names:
+        if counts[name] < 1:
+            raise AssertionError(f"[{phase}] kernel {name} was not launched")
+    return out, counts, metrics
+
+
+def phase_f(results):
+    from amira_rust_asr_server_tpu_torch.config import Config
+    cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                 inference_backend="tpu")
+    keys = {"audio_length_samples", "features_length", "encoded_length",
+            "tokens", "token_details", "words"}
+    out, counts, _ = serve_large(
+        "F", cfg, [(2.0, {}), (8.0, {}), (30.0, {})],
+        lambda extra: keys, ("log_mel", "greedy_loop"))
+    for name in ("log_mel", "greedy_loop"):
+        results.setdefault(name, {})["launches"] = counts[name]
     results["requests_ms"] = {f"{s:.0f}s": w * 1e3
                               for s, _, _, _, w in out}
 
 
+def phase_h(results):
+    """The beam path end to end: tiny-digits on the card (with and without
+    a grammar file), then the large preset behind the HTTP server."""
+    import tempfile
+    from pathlib import Path
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.server.app import build_state
+    from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
+                                                         TINY_DIGITS_VOCAB,
+                                                         pcm16_digits)
+    with tempfile.TemporaryDirectory() as tmp:
+        grammar = Path(tmp) / "digits.txt"
+        grammar.write_text("two\nfive\nnine\nseven\t-1.0\none\t-0.5\n",
+                           encoding="utf-8")
+        for path in (None, str(grammar)):
+            cfg = Config(audio_sec_buckets=[2.0], batch_buckets=[1, 2],
+                         checkpoint_path=str(TINY_DIGITS_NPZ),
+                         vocabulary_path=str(TINY_DIGITS_VOCAB),
+                         inference_backend="tpu", decoding_mode="beam",
+                         beam_n_best=3, beam_grammar_path=path)
+            state = build_state(cfg, preset="tiny", warmup=False)
+            try:
+                tr = state.pipeline.process_batch(
+                    pcm16_digits(["two", "five", "nine"]))
+            finally:
+                state.close()
+            say("H", f"tiny-digits beam, grammar {path is not None}: "
+                f"{tr.text!r} tokens {tr.tokens} via {tr.decode_path}, "
+                f"{len(tr.n_best or [])} alternatives")
+            if (tr.text != "two five nine" or tr.tokens != [3, 6, 10]
+                    or tr.decode_path != "pallas_kernel" or not tr.n_best):
+                raise AssertionError("[H] tiny-digits beam golden mismatch")
+
+    cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                 inference_backend="tpu", decoding_mode="beam",
+                 beam_n_best=3, audio_sec_buckets=[2.0, 30.0],
+                 batch_buckets=[1, 16])
+    keys = {"audio_length_samples", "features_length", "encoded_length",
+            "tokens", "n_best", "decode_path"}
+    out, counts, metrics = serve_large(
+        "H", cfg,
+        [(2.0, {}), (30.0, {}), (2.0, {"lattice": True, "n_best": 4})],
+        lambda extra: keys | ({"lattice"} if extra else set()),
+        ("log_mel", "beam_loop"))
+    for _, _, _, body, _ in out:
+        md = body["metadata"]
+        if md["decode_path"] != "pallas_kernel" or not md["n_best"]:
+            raise AssertionError("[H] beam metadata: "
+                                 f"{json.dumps(md)[:400]}")
+    lattice = out[-1][3]["metadata"]["lattice"]
+    if not {"n_nodes", "arcs", "finals", "arc_times_s", "pieces"} <= \
+            set(lattice) or not lattice["finals"]:
+        raise AssertionError(f"[H] lattice: {json.dumps(lattice)[:400]}")
+    paths = metrics.get("beam_decode_paths", {})
+    say("H", f"/metrics beam_decode_paths {paths}; lattice "
+        f"{lattice['n_nodes']} nodes, {len(lattice['arcs'])} arcs")
+    if paths.get("pallas_kernel", 0) < len(out) or paths.get("xla_scan"):
+        raise AssertionError("[H] beam_decode_paths do not count the "
+                             "kernel route")
+    results.setdefault("beam_loop", {})["launches"] = counts["beam_loop"]
+    results["beam_requests_ms"] = {
+        f"{s:.0f}s{'-lattice' if i == 2 else ''}": w * 1e3
+        for i, (s, _, _, _, w) in enumerate(out)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="ABCDEF")
+    ap.add_argument("--phases", default=ALL_PHASES)
     phases = ap.parse_args(argv).phases.upper()
     results: dict = {}
     smi = phase_a()
@@ -362,21 +570,26 @@ def main(argv=None) -> int:
         phase_c(results)
     if "D" in phases:
         phase_d(results)
+    if "G" in phases:
+        phase_g(results)
     if "E" in phases:
         phase_e()
     if "F" in phases:
         phase_f(results)
+    if "H" in phases:
+        phase_h(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    if phases != "ABCDEF":
+    if phases != ALL_PHASES:
         print(json.dumps(results))
         return 0
     import torch
     kernels = [{"name": name, "route": "cuda", "source": REPLACES[name][0],
                 "replaces": REPLACES[name][1], **results[name]}
-               for name in ("log_mel", "greedy_loop")]
+               for name in REPLACES]
     print(json.dumps({"kernels": kernels,
-                      "requests_ms": results["requests_ms"]}))
+                      "requests_ms": results["requests_ms"],
+                      "beam_requests_ms": results["beam_requests_ms"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ Tolerances: the log-mel kernel sums in another order than cuBLAS, which
 shows in log space where the power is small (1e-3 absolute on raw log-mel);
 the decode loop in f32 makes identical decisions (tokens, frames, counts,
 last token exact; carried state within 1e-4 relative), and in bf16 rounds
-at the same points, so at least 90% of tokens agree.
+at the same points, so at least 90% of tokens agree. The beam kernel, with
+a bias and with a weighted graph: in f32 the best hypotheses' tokens are
+identical and their scores within 1e-4 relative; in bf16 at least 90% of
+their tokens agree.
 """
 
 import dataclasses
@@ -18,7 +21,11 @@ import torch
 
 from amira_rust_asr_server_tpu_torch.models import Transducer, get_preset
 from amira_rust_asr_server_tpu_torch.ops import features
+from amira_rust_asr_server_tpu_torch.ops.beam import (TokenTrie, backtrace,
+                                                      finish_trace)
 from amira_rust_asr_server_tpu_torch.ops.kernels import mel
+from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
+    beam_loop, beam_loop_reference)
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
     DecodeWeights, greedy_loop, greedy_loop_reference)
 
@@ -144,4 +151,104 @@ def test_pipeline_golden_on_gpu(dev):
     finally:
         state.close()
     assert tr.text == "two five nine" and tr.tokens == [3, 6, 10]
-    assert kernels.launch_counts() == {"log_mel": 1, "greedy_loop": 1}
+    assert kernels.launch_counts() == {"log_mel": 1, "greedy_loop": 1,
+                                       "beam_loop": 0}
+
+
+def beam_case(preset: str, dtype, dev, graph: bool, b=4, t=40, seed=0):
+    """The decode case's weights and enc_pre, a bias that boosts 20 tokens
+    (so the best hypotheses emit), and optionally a weighted graph over
+    those tokens."""
+    args, kw = decode_case(preset, dtype, dev, b=b, t=t, seed=seed)
+    enc_pre, lens, w = args[0], args[1], args[7]
+    v, blank = w.bo.shape[0], kw["blank_id"]
+    rng = np.random.default_rng(seed)
+    bias = (rng.standard_normal(v) * 0.3).astype(np.float32)
+    boosted = rng.choice(blank, min(20, blank), replace=False)
+    bias[boosted] += 5.5 + rng.standard_normal(boosted.shape[0])
+    g = None
+    if graph:
+        seqs = [rng.choice(boosted, int(n)).tolist()
+                for n in rng.integers(1, 5, 30)]
+        g = TokenTrie.from_token_seqs(
+            seqs, v, weights=rng.standard_normal(30).tolist()).to(dev)
+    zeros = torch.zeros((2, b, w.wp.shape[0]), dtype=dtype, device=dev)
+    return ((enc_pre, lens, zeros, zeros, torch.from_numpy(bias).to(dev), w),
+            dict(beam_width=10, max_expansions=3, blank_id=blank, graph=g),
+            lens.cpu().numpy())
+
+
+def best(outs, graph, lens):
+    return backtrace(finish_trace(*outs, graph=graph), lens)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("preset", ["tiny", "large"])
+def test_beam_loop_f32_matches_plain(dev, preset, graph):
+    args, kw, lens = beam_case(preset, torch.float32, dev, graph)
+    before = beam_loop.launches
+    got = best(beam_loop(*args, **kw), kw["graph"], lens)
+    assert beam_loop.launches == before + 1
+    ref = best(beam_loop_reference(*args, **kw), kw["graph"], lens)
+    np.testing.assert_array_equal(got.counts, ref.counts)
+    np.testing.assert_array_equal(got.tokens, ref.tokens)
+    np.testing.assert_allclose(got.scores, ref.scores, rtol=1e-4)
+    assert got.counts.sum() > 0
+
+
+@pytest.mark.parametrize("beam_width", [3, 16])
+def test_beam_loop_chunks_and_empty_lane(dev, beam_width):
+    """Beam widths that take the 4-slot chunk (3) and two 12-slot chunks
+    (16, more hypotheses than the tiny vocabulary), with a zero-length lane:
+    every backtrace array and the pool scores equal the plain version's."""
+    args, kw, _ = beam_case("tiny", torch.float32, dev, graph=True)
+    args = (args[0], torch.tensor([40, 0, 17, 1], dtype=torch.int32,
+                                  device=dev)) + args[2:]
+    kw["beam_width"] = beam_width
+    got = beam_loop(*args, **kw)
+    ref = beam_loop_reference(*args, **kw)
+    for i in range(1, 7):
+        assert torch.equal(got[i], ref[i]), i
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("graph", [False, True])
+def test_beam_loop_bf16_agrees_with_plain(dev, graph):
+    args, kw, lens = beam_case("large", torch.bfloat16, dev, graph)
+    got = best(beam_loop(*args, **kw), kw["graph"], lens)
+    ref = best(beam_loop_reference(*args, **kw), kw["graph"], lens)
+    same = total = 0
+    for i in range(got.counts.shape[0]):
+        n, m = (max(int(got.counts[i]), int(ref.counts[i])),
+                min(int(got.counts[i]), int(ref.counts[i])))
+        same += int((got.tokens[i, :m] == ref.tokens[i, :m]).sum())
+        total += n
+    assert same >= 0.9 * total
+
+
+def test_beam_pipeline_golden_on_gpu(dev, tmp_path):
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.server import build_state
+    from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
+                                                         TINY_DIGITS_VOCAB,
+                                                         pcm16_digits)
+    grammar = tmp_path / "digits.txt"
+    grammar.write_text("two\nfive\nnine\none\t-1.0\n", encoding="utf-8")
+    for path in (None, str(grammar)):
+        cfg = Config(audio_sec_buckets=[2.0], batch_buckets=[1, 2],
+                     checkpoint_path=str(TINY_DIGITS_NPZ),
+                     vocabulary_path=str(TINY_DIGITS_VOCAB),
+                     inference_backend="tpu", decoding_mode="beam",
+                     beam_n_best=3, beam_grammar_path=path)
+        state = build_state(cfg, preset="tiny", warmup=False)
+        kernels.reset_launch_counts()
+        try:
+            tr = state.pipeline.process_batch(pcm16_digits(["two", "five",
+                                                            "nine"]))
+        finally:
+            state.close()
+        assert tr.text == "two five nine" and tr.tokens == [3, 6, 10]
+        assert tr.decode_path == "pallas_kernel" and tr.n_best
+        assert kernels.launch_counts() == {"log_mel": 1, "greedy_loop": 0,
+                                           "beam_loop": 1}

@@ -8,7 +8,8 @@
 - the committed weights asset equals a fresh conversion of the orbax tree;
 - the port imports without jax (in a subprocess: this test process has jax
   loaded already by tests/conftest.py);
-- what the slice does not serve yet is refused loudly.
+- what the port does not serve yet is refused loudly (beam search is
+  served: tests/test_torch_beam_pipeline.py).
 """
 
 import asyncio
@@ -240,7 +241,7 @@ def test_pcm16_conversion_matches_reference():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(decoding_mode="beam"), dict(quantization="int8"),
+    dict(model_family="aed"), dict(quantization="int8"),
     dict(model_family="ctc"), dict(streaming_mode="native")])
 def test_unported_options_are_refused(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -252,7 +253,11 @@ def test_unported_options_are_refused(overrides):
     (dict(use_pallas_decode_loop=False, use_pallas_decode_step=False),
      "csrc/decode_loop.cu"),
     (dict(use_pallas_decode_loop=False), "joint_argmax_pallas"),
-    (dict(int8_decode_weights=True), "ROADMAP.md")])
+    (dict(int8_decode_weights=True), "ROADMAP.md"),
+    (dict(use_pallas_beam_loop=False, decoding_mode="beam"),
+     "csrc/beam_loop.cu .ROADMAP.md queue 2 item 5"),
+    (dict(int8_decode_weights=True, decoding_mode="beam"),
+     "ROADMAP.md queue 2 item 4")])
 def test_kernel_off_flags_are_refused_on_cuda(overrides, reason):
     """On the card the kernels always run: a flag that would turn one off
     is refused, on the CPU it changes nothing (the wrappers choose the
@@ -278,6 +283,10 @@ def test_port_imports_without_jax():
             "import amira_rust_asr_server_tpu_torch.server\n"
             "import amira_rust_asr_server_tpu_torch.ops.kernels\n"
             "import amira_rust_asr_server_tpu_torch.testing\n"
+            "import amira_rust_asr_server_tpu_torch.runtime.pipeline\n"
+            "import amira_rust_asr_server_tpu_torch.ops.beam\n"
+            "import amira_rust_asr_server_tpu_torch.ops.fst_io\n"
+            "import amira_rust_asr_server_tpu_torch.ops.lattice\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'flax' not in sys.modules, 'flax was imported'\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
