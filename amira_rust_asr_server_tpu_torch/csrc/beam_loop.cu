@@ -47,6 +47,20 @@
 // log-softmax in f32; h, c (and so the prediction output) stored in the
 // working type T; layer 1 reads layer 0's h as T; the joint hidden vector
 // is rounded to T before the output matrix.
+//
+// The int8 branch (Q, the TPU kernel's quant=True, int8_decode_weights):
+// each LSTM matrix arrives split at the x/h boundary as int8 with
+// per-output-column scales, in words of four consecutive rows
+// ([rows / 4, 4P] int32). Per layer, each hypothesis gets one scale for the
+// x half of its input and one for the h half (amax / 127 + 1e-12 over the
+// whole half); the chunk's inputs are quantized into shared memory as
+// [rows / 4][KC] words, so one int4 load feeds four hypotheses' __dp4a.
+// Gates are (acc_x * (s_x * ws_x) + acc_h * (s_h * ws_h)) + b with every
+// product and sum rounded on its own, as the Pallas kernel computes them.
+// A thread computes its unit's four gates one at a time (f, i, g, o) and
+// stages the cell update, so KC int32 and 3 x KC f32 accumulators are live.
+// Layer 1 reads layer 0's new h unrounded (f32, kept in shared memory), as
+// the TPU kernel's int8 branch does; the stored state is rounded to T.
 
 #include "common.cuh"
 
@@ -57,6 +71,7 @@ using namespace amira;
 constexpr int THREADS = 640;
 constexpr int WARPS = THREADS / 32;
 constexpr int KMAX = 128;  // largest beam (the config allows 100)
+constexpr int KC_MAX = 12;  // largest chunk of hypotheses (launch_kc)
 constexpr float NEG_INF = -1e30f;
 constexpr int NONE = 0x7fffffff;
 enum { H0 = 0, H1 = 1, C0 = 2, C1 = 3 };
@@ -72,6 +87,7 @@ struct Book {
       p_g[KMAX], e_par[KMAX], e_tok[KMAX], row_c[KMAX], top_idx[KMAX],
       n_len[KMAX], n_g[KMAX], np_len[KMAX], np_ps[KMAX], np_pk[KMAX],
       np_g[KMAX];
+  float qs_x[KC_MAX], qs_h[KC_MAX];  // int8 branch: the chunk's scales
 };
 
 struct Dims {
@@ -105,6 +121,16 @@ struct Args {
   int* pool_pk;           // [T', B, K]
   int* g_final;           // [B, K]
   unsigned char* scratch;
+  // int8 branch: the halves of w0 (x: E rows, h: P rows) and of w1 (P, P)
+  // as [rows / 4, 4P] words of four int8 rows, with their column scales
+  const int* wx0;
+  const float* sx0;       // [4P]
+  const int* wh0;
+  const float* sh0;
+  const int* wx1;
+  const float* sx1;
+  const int* wh1;
+  const float* sh1;
 };
 
 __host__ __device__ inline size_t align256(size_t x) {
@@ -120,9 +146,12 @@ __host__ __device__ inline size_t block_bytes(const Dims& d, size_t elem) {
 __host__ __device__ inline int xs_rows(const Dims& d) {
   return d.d_embed > d.d_pred ? d.d_embed + d.d_pred : 2 * d.d_pred;
 }
-// dynamic shared-memory floats: xs [rows][KC], hs [J][KC]
-__host__ __device__ inline size_t smem_floats(const Dims& d, int kc) {
-  return (size_t)(xs_rows(d) + d.d_joint) * kc;
+// dynamic shared-memory floats: xs [rows][KC], hs [J][KC]; the int8
+// branch adds hf [P][KC] (layer 0's unrounded h) and xq [rows / 4][KC] words
+__host__ __device__ inline size_t smem_floats(const Dims& d, int kc,
+                                              bool quant) {
+  return (size_t)(xs_rows(d) + d.d_joint) * kc +
+         (quant ? (size_t)d.d_pred * kc + (size_t)xs_rows(d) * kc / 4 : 0);
 }
 
 template <typename T>
@@ -295,13 +324,118 @@ __device__ void lstm_layer(const float* xs, int rows, const T* __restrict__ w,
   }
 }
 
+// int8 branch: per hypothesis kk of the chunk, the scales of the x half
+// (rows [0, dx)) and the h half (rows [dx, dx + dh)) of xs [rows][KC], then
+// the whole input quantized into xq as [rows / 4][KC] words of four rows
+template <int KC>
+__device__ void quantize_chunk(const float* xs, int dx, int dh, int* xq,
+                               float* qs_x, float* qs_h) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int kk = warp; kk < KC; kk += WARPS) {
+    float ax = 0.f, ah = 0.f;
+    for (int r = lane; r < dx; r += 32) ax = fmaxf(ax, fabsf(xs[r * KC + kk]));
+    for (int r = lane; r < dh; r += 32)
+      ah = fmaxf(ah, fabsf(xs[(dx + r) * KC + kk]));
+    ax = warp_max(ax);
+    ah = warp_max(ah);
+    if (lane == 0) {
+      qs_x[kk] = quant_scale(ax);
+      qs_h[kk] = quant_scale(ah);
+    }
+  }
+  __syncthreads();
+  signed char* q = reinterpret_cast<signed char*>(xq);
+  for (int i = threadIdx.x; i < (dx + dh) * KC; i += THREADS) {
+    const int r = i / KC, kk = i - r * KC;
+    q[((r >> 2) * KC + kk) * 4 + (r & 3)] =
+        quant_int8(xs[i], r < dx ? qs_x[kk] : qs_h[kk]);
+  }
+  __syncthreads();
+}
+
+// sum over rows 4r..4r+3 of one int8 column w [rows / 4, stride] words
+// against the KC hypotheses' quantized inputs xq [rows / 4][KC]
+template <int KC>
+__device__ __forceinline__ void dot4_rows(const int* xq, int n_words,
+                                          const int* __restrict__ w,
+                                          int stride, int* acc) {
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) acc[kk] = 0;
+#pragma unroll 4
+  for (int r = 0; r < n_words; ++r) {
+    const int wv = __ldg(w + (size_t)r * stride);
+    const int4* x4 = reinterpret_cast<const int4*>(xq + r * KC);
+#pragma unroll
+    for (int q = 0; q < KC / 4; ++q) {
+      const int4 v = x4[q];
+      acc[4 * q] = __dp4a(wv, v.x, acc[4 * q]);
+      acc[4 * q + 1] = __dp4a(wv, v.y, acc[4 * q + 1]);
+      acc[4 * q + 2] = __dp4a(wv, v.z, acc[4 * q + 2]);
+      acc[4 * q + 3] = __dp4a(wv, v.w, acc[4 * q + 3]);
+    }
+  }
+}
+
+// one LSTM layer of the int8 branch for hypotheses k0 .. k0 + kc: the input
+// quantized in xq (dx rows of x, then dh rows of h) with the scales qs_x,
+// qs_h; cell state from set `src` at the parents, h and c into set `dst`,
+// and h unrounded into hf [P][KC] when hf is not null
+template <typename T, int KC>
+__device__ void lstm_layer_q(const int* xq, int dx, int dh,
+                             const int* __restrict__ wx,
+                             const float* __restrict__ swx,
+                             const int* __restrict__ wh,
+                             const float* __restrict__ swh,
+                             const float* __restrict__ b, int P,
+                             const float* qs_x, const float* qs_h,
+                             const Sets<T>& st, int src, int dst, int layer,
+                             const int* par, int k0, int kc, float* hf) {
+  const int G = 4 * P;
+  for (int j = threadIdx.x; j < P; j += THREADS) {
+    float c[KC] = {}, si[KC] = {};
+#pragma unroll 1
+    for (int step = 0; step < 4; ++step) {
+      const int gate = step < 2 ? 1 - step : step;  // f, i, g, o
+      const int col = gate * P + j;
+      float pre[KC];
+      int acc[KC];
+      dot4_rows<KC>(xq, dx / 4, wx + col, G, acc);
+      const float sxc = swx[col], shc = swh[col], bc = b[col];
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) pre[kk] = dequant(acc[kk], qs_x[kk], sxc);
+      dot4_rows<KC>(xq + (dx / 4) * KC, dh / 4, wh + col, G, acc);
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        pre[kk] = __fadd_rn(__fadd_rn(pre[kk], dequant(acc[kk], qs_h[kk], shc)),
+                            bc);
+        if (kk >= kc) continue;
+        const int k = k0 + kk;
+        // the cell update rounded as common.cuh's cell() rounds it
+        if (gate == 1) {
+          c[kk] = __fmul_rn(sigmoid(pre[kk] + 1.f),
+                            to_f(st.at(src, C0 + layer, par[k])[j]));
+        } else if (gate == 0) {
+          si[kk] = sigmoid(pre[kk]);
+        } else if (gate == 2) {
+          c[kk] = __fadd_rn(c[kk], __fmul_rn(si[kk], tanhf(pre[kk])));
+        } else {
+          const float h = sigmoid(pre[kk]) * tanhf(c[kk]);
+          st.at(dst, C0 + layer, k)[j] = from_f<T>(c[kk]);
+          st.at(dst, H0 + layer, k)[j] = from_f<T>(h);
+          if (hf != nullptr) hf[j * KC + kk] = h;
+        }
+      }
+    }
+  }
+}
+
 // prediction-net step of hypotheses k0 .. k0 + kc on tokens tok from the
 // parents par in set src, into set dst (blank embeds to zero)
-template <typename T, int KC>
+template <typename T, int KC, bool Q>
 __device__ void lstm_chunk(const Dims& d, const Args<T>& a,
                            const Sets<T>& st, int src, int dst,
                            const int* par, const int* tok, int k0, int kc,
-                           float* xs) {
+                           float* xs, float* hf, int* xq, Book& bk) {
   const int E = d.d_embed, P = d.d_pred;
   for (int kk = 0; kk < KC; ++kk) {
     const int k = k0 + min(kk, kc - 1);
@@ -317,22 +451,43 @@ __device__ void lstm_chunk(const Dims& d, const Args<T>& a,
     }
   }
   __syncthreads();
-  lstm_layer<T, KC>(xs, E + P, a.w0, a.b0, P, st, src, dst, 0, par, k0, kc);
+  if constexpr (Q) {
+    quantize_chunk<KC>(xs, E, P, xq, bk.qs_x, bk.qs_h);
+    lstm_layer_q<T, KC>(xq, E, P, a.wx0, a.sx0, a.wh0, a.sh0, a.b0, P,
+                        bk.qs_x, bk.qs_h, st, src, dst, 0, par, k0, kc, hf);
+  } else {
+    lstm_layer<T, KC>(xs, E + P, a.w0, a.b0, P, st, src, dst, 0, par, k0,
+                      kc);
+  }
   __syncthreads();
   for (int kk = 0; kk < KC; ++kk) {
     const int k = k0 + min(kk, kc - 1);
     const T* h0n = st.at(dst, H0, k);
     const T* hp = st.at(src, H1, par[k]);
-    for (int r = threadIdx.x; r < 2 * P; r += THREADS)
-      xs[r * KC + kk] =
-          kk < kc ? to_f(r < P ? h0n[r] : hp[r - P]) : 0.f;
+    for (int r = threadIdx.x; r < 2 * P; r += THREADS) {
+      float x = 0.f;
+      if (kk < kc) {
+        // the int8 branch feeds layer 1 the unrounded h of layer 0
+        if (r >= P) x = to_f(hp[r - P]);
+        else x = Q ? hf[r * KC + kk] : to_f(h0n[r]);
+      }
+      xs[r * KC + kk] = x;
+    }
   }
   __syncthreads();
-  lstm_layer<T, KC>(xs, 2 * P, a.w1, a.b1, P, st, src, dst, 1, par, k0, kc);
+  if constexpr (Q) {
+    quantize_chunk<KC>(xs, P, P, xq, bk.qs_x, bk.qs_h);
+    lstm_layer_q<T, KC>(xq, P, P, a.wx1, a.sx1, a.wh1, a.sh1, a.b1, P,
+                        bk.qs_x, bk.qs_h, st, src, dst, 1, par, k0, kc,
+                        nullptr);
+  } else {
+    lstm_layer<T, KC>(xs, 2 * P, a.w1, a.b1, P, st, src, dst, 1, par, k0,
+                      kc);
+  }
   __syncthreads();
 }
 
-template <typename T, int KC>
+template <typename T, int KC, bool Q>
 __global__ void __launch_bounds__(THREADS, 1)
 beam_loop_kernel(Dims d, Args<T> a) {
   extern __shared__ __align__(16) float smem[];
@@ -341,6 +496,8 @@ beam_loop_kernel(Dims d, Args<T> a) {
             S = d.s_max, B = d.batch, TT = d.t_max;
   float* xs = smem;                       // [rows][KC]
   float* hs = xs + xs_rows(d) * KC;       // [J][KC]
+  float* hf = hs + d.d_joint * KC;        // int8 branch: [P][KC]
+  int* xq = reinterpret_cast<int*>(hf + d.d_pred * KC);  // [rows / 4][KC]
   float* const c_sc = bk.c_sc;
   float* const p_sc = bk.p_sc;
   float* const e_sc = bk.e_sc;
@@ -391,7 +548,8 @@ beam_loop_kernel(Dims d, Args<T> a) {
   }
   __syncthreads();
   for (int k0 = 0; k0 < K; k0 += KC)
-    lstm_chunk<T, KC>(d, a, st, 0, 1, e_par, e_tok, k0, min(KC, K - k0), xs);
+    lstm_chunk<T, KC, Q>(d, a, st, 0, 1, e_par, e_tok, k0, min(KC, K - k0),
+                         xs, hf, xq, bk);
   int cur = 1;
 
   for (int t = 0; t < TT; ++t) {
@@ -537,8 +695,8 @@ beam_loop_kernel(Dims d, Args<T> a) {
       const int nc = free_set(pool, cur, np);
       if (active)
         for (int k0 = 0; k0 < K; k0 += KC)
-          lstm_chunk<T, KC>(d, a, st, cur, nc, e_par, e_tok, k0,
-                            min(KC, K - k0), xs);
+          lstm_chunk<T, KC, Q>(d, a, st, cur, nc, e_par, e_tok, k0,
+                               min(KC, K - k0), xs, hf, xq, bk);
       __syncthreads();
       for (int k = tid; k < K; k += THREADS) {
         p_sc[k] = top_sc[k];
@@ -576,7 +734,7 @@ beam_loop_kernel(Dims d, Args<T> a) {
   }
 }
 
-template <typename T, int KC>
+template <typename T, int KC, bool Q>
 int launch(const Dims& d, void* const* p, void* stream) {
   Args<T> a{(const T*)p[0],      (const int*)p[1],   (const T*)p[2],
             (const T*)p[3],      (const float*)p[4], (const T*)p[5],
@@ -585,25 +743,28 @@ int launch(const Dims& d, void* const* p, void* stream) {
             (const T*)p[12],     (const float*)p[13], (const int*)p[14],
             (const float*)p[15], (float*)p[16],      (int*)p[17],
             (int*)p[18],         (int*)p[19],        (int*)p[20],
-            (int*)p[21],         (int*)p[22],        (unsigned char*)p[23]};
-  const size_t smem = sizeof(float) * smem_floats(d, KC);
+            (int*)p[21],         (int*)p[22],        (unsigned char*)p[23],
+            (const int*)p[24],   (const float*)p[25], (const int*)p[26],
+            (const float*)p[27], (const int*)p[28],  (const float*)p[29],
+            (const int*)p[30],   (const float*)p[31]};
+  const size_t smem = sizeof(float) * smem_floats(d, KC, Q);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        beam_loop_kernel<T, KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        beam_loop_kernel<T, KC, Q>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  beam_loop_kernel<T, KC><<<d.batch, THREADS, smem, (cudaStream_t)stream>>>(
-      d, a);
+  beam_loop_kernel<T, KC, Q>
+      <<<d.batch, THREADS, smem, (cudaStream_t)stream>>>(d, a);
   return (int)cudaGetLastError();
 }
 
 // hypotheses go through the matrix-vector products in chunks of KC
-template <typename T>
+template <typename T, bool Q>
 int launch_kc(const Dims& d, void* const* p, void* stream) {
-  if (d.beam <= 4) return launch<T, 4>(d, p, stream);
-  if (d.beam <= 8) return launch<T, 8>(d, p, stream);
-  return launch<T, 12>(d, p, stream);
+  if (d.beam <= 4) return launch<T, 4, Q>(d, p, stream);
+  if (d.beam <= 8) return launch<T, 8, Q>(d, p, stream);
+  return launch<T, KC_MAX, Q>(d, p, stream);
 }
 
 }  // namespace
@@ -620,20 +781,25 @@ extern "C" long long amira_beam_loop_scratch_bytes(int is_bf16, int batch,
   return (long long)batch * (long long)block_bytes(d, is_bf16 ? 2 : 4);
 }
 
-// is_bf16 selects the working type T (1: __nv_bfloat16, 0: float). Pointer
-// order is the Args struct's; biases are f32, lens int32; g_next/g_weight
-// are read only when has_graph is 1.
+// is_bf16 selects the working type T (1: __nv_bfloat16, 0: float); quant 1
+// runs the int8 branch, which reads wx0 .. sh1 in place of w0 and w1.
+// Pointer order is the Args struct's; biases and scales are f32, lens
+// int32; g_next/g_weight are read only when has_graph is 1.
 extern "C" int amira_beam_loop(
-    int is_bf16, int batch, int t_max, int d_joint, int d_pred, int d_embed,
-    int vocab, int beam, int s_max, int blank_id, int has_graph,
+    int is_bf16, int quant, int batch, int t_max, int d_joint, int d_pred,
+    int d_embed, int vocab, int beam, int s_max, int blank_id, int has_graph,
     void* enc_pre, void* enc_lens, void* h0, void* c0, void* bias,
     void* embed, void* w0, void* b0, void* w1, void* b1, void* wp, void* bp,
     void* wo, void* bo, void* g_next, void* g_weight, void* pool_scores,
     void* pool_lens, void* exp_parent, void* exp_token, void* pool_ps,
-    void* pool_pk, void* g_final, void* scratch, void* stream) {
+    void* pool_pk, void* g_final, void* scratch, void* wx0, void* sx0,
+    void* wh0, void* sh0, void* wx1, void* sx1, void* wh1, void* sh1,
+    void* stream) {
   if (batch <= 0) return 0;
-  // matvec_pair reads weight columns in pairs; Book holds KMAX hypotheses
-  if (((d_joint | vocab) & 1) || beam < 1 || beam > KMAX || s_max < 1)
+  // matvec_pair reads weight columns in pairs; Book holds KMAX hypotheses;
+  // the int8 words hold four rows
+  if (((d_joint | vocab) & 1) || beam < 1 || beam > KMAX || s_max < 1 ||
+      (quant && ((d_embed | d_pred) & 3)))
     return (int)cudaErrorInvalidValue;
   const Dims d{batch, t_max, d_joint,  d_pred,   d_embed,
                vocab, beam,  s_max,    blank_id, has_graph};
@@ -641,7 +807,12 @@ extern "C" int amira_beam_loop(
                      embed,    w0,       b0,          w1,        b1,
                      wp,       bp,       wo,          bo,        g_next,
                      g_weight, pool_scores, pool_lens, exp_parent, exp_token,
-                     pool_ps,  pool_pk,  g_final,     scratch};
-  return is_bf16 ? launch_kc<__nv_bfloat16>(d, p, stream)
-                 : launch_kc<float>(d, p, stream);
+                     pool_ps,  pool_pk,  g_final,     scratch,   wx0,
+                     sx0,      wh0,      sh0,         wx1,       sx1,
+                     wh1,      sh1};
+  if (quant)
+    return is_bf16 ? launch_kc<__nv_bfloat16, true>(d, p, stream)
+                   : launch_kc<float, true>(d, p, stream);
+  return is_bf16 ? launch_kc<__nv_bfloat16, false>(d, p, stream)
+                 : launch_kc<float, false>(d, p, stream);
 }

@@ -8,9 +8,10 @@
 // carried prediction-net state (h, c, pred_out, last token) returned.
 //
 // What bounds it on the card: bytes of weights read per step. Each emission
-// reads both LSTM layers (2 x (E+P) x 4P, 13 MB in bf16 at 640 wide) and
-// pred_proj; each joint evaluation reads the output matrix (J x V). The
-// arithmetic is matrix-vector work that the tensor cores cannot help.
+// reads both LSTM layers (2 x (E+P) x 4P, 13 MB in bf16 at 640 wide, 6.6 MB
+// as int8) and pred_proj; each joint evaluation reads the output matrix
+// (J x V). The arithmetic is matrix-vector work that the tensor cores cannot
+// help.
 //
 // Design: one thread block per lane, looping on the device until its own
 // lane is done. Lanes are independent (an inactive lane changes nothing in
@@ -28,6 +29,18 @@
 // Rounding points follow the TPU kernel: gates, cell update and joint in
 // f32; h, c and pred_out stored in the working type T (float or bf16); the
 // joint hidden vector rounded to T before the output matrix.
+//
+// The int8 branch (Q, the TPU kernel's quant=True, int8_decode_weights):
+// each LSTM matrix arrives split at the x/h boundary as int8 with
+// per-output-column scales, in words of four consecutive rows
+// ([rows / 4, 4P] int32) so one __dp4a takes four rows of a column. Per
+// layer and step, each half of the input gets its own scale (block-wide
+// amax / 127 + 1e-12, over the whole half before any element is quantized),
+// is quantized to int8 in shared memory (x / s rounded half to even), and
+// gates = (acc_x * (s_x * ws_x) + acc_h * (s_h * ws_h)) + b with every
+// product and sum rounded on its own, as the Pallas kernel computes them.
+// Layer 1 reads layer 0's new h unrounded (f32), as the TPU kernel's int8
+// branch does; the stored state is rounded to T as in the other branch.
 
 #include "common.cuh"
 
@@ -37,75 +50,6 @@ using namespace amira;
 
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
-
-// y[n] = bias[n] + sum_k x[k] * W[k, n] for n < n_cols (even); x, y in
-// shared memory, W row-major [k_dim, n_cols] in global memory
-template <typename T>
-__device__ void matvec(const float* x, int k_dim, const T* __restrict__ w,
-                       int n_cols, const float* __restrict__ bias, float* y) {
-  for (int jp = threadIdx.x; jp < n_cols / 2; jp += THREADS) {
-    const T* col = w + 2 * jp;
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll 8
-    for (int k = 0; k < k_dim; ++k) {
-      const float2 wv = load2(col + (int64_t)k * n_cols);
-      const float xv = x[k];
-      a0 = fmaf(xv, wv.x, a0);
-      a1 = fmaf(xv, wv.y, a1);
-    }
-    y[2 * jp] = a0 + bias[2 * jp];
-    y[2 * jp + 1] = a1 + bias[2 * jp + 1];
-  }
-}
-
-// block-wide (max, first index of the max) over v[0..n)
-__device__ void block_argmax(const float* v, int n, float* red_v, int* red_i,
-                             float* out_m, int* out_k) {
-  float best = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const float x = v[i];
-    if (x > best) { best = x; bi = i; }  // ascending i: ties keep the first
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off; off >>= 1) {
-    const float ov = __shfl_down_sync(FULL, best, off);
-    const int oi = __shfl_down_sync(FULL, bi, off);
-    if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-  }
-  if (lane == 0) { red_v[warp] = best; red_i[warp] = bi; }
-  __syncthreads();
-  if (warp == 0) {
-    best = lane < WARPS ? red_v[lane] : -INFINITY;
-    bi = lane < WARPS ? red_i[lane] : 0x7fffffff;
-    for (int off = 16; off; off >>= 1) {
-      const float ov = __shfl_down_sync(FULL, best, off);
-      const int oi = __shfl_down_sync(FULL, bi, off);
-      if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-    }
-    if (lane == 0) { red_v[WARPS] = best; red_i[WARPS] = bi; }
-  }
-  __syncthreads();
-  *out_m = red_v[WARPS];
-  *out_k = red_i[WARPS];
-  __syncthreads();  // red_* are reused by the next reduction
-}
-
-__device__ float block_sum(float s, float* red_v) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int off = 16; off; off >>= 1) s += __shfl_down_sync(FULL, s, off);
-  if (lane == 0) red_v[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    s = lane < WARPS ? red_v[lane] : 0.f;
-    for (int off = 16; off; off >>= 1) s += __shfl_down_sync(FULL, s, off);
-    if (lane == 0) red_v[WARPS] = s;
-  }
-  __syncthreads();
-  const float total = red_v[WARPS];
-  __syncthreads();
-  return total;
-}
 
 struct Dims {
   int batch, t_max, d_joint, d_pred, d_embed, vocab, max_total, lookahead,
@@ -138,16 +82,74 @@ struct Args {
   T* c_out;             // [2, B, P]
   T* pred_out;          // [B, P]
   int* last_out;        // [B]
+  // int8 branch: the halves of w0 (x: E rows, h: P rows) and of w1 (P, P)
+  // as [rows / 4, 4P] words of four int8 rows, with their column scales
+  const int* wx0;
+  const float* sx0;     // [4P]
+  const int* wh0;
+  const float* sh0;
+  const int* wx1;
+  const float* sx1;
+  const int* wh1;
+  const float* sh1;
 };
 
-// shared-memory floats needed for one lane
-__host__ __device__ inline int smem_floats(const Dims& d) {
+// shared-memory floats needed for one lane (the int8 branch adds the
+// quantized layer inputs: E + P and 2P bytes)
+__host__ __device__ inline int smem_floats(const Dims& d, bool quant) {
   const int P = d.d_pred;
   return (d.d_embed + P) + 2 * P + 2 * P + P + 4 * P + 2 * d.d_joint +
-         d.vocab + 2 * (WARPS + 1);
+         d.vocab + 2 * (WARPS + 1) + (quant ? (d.d_embed + 3 * P) / 4 : 0);
 }
 
-template <typename T>
+// gates[n] = (qdot(x) + qdot(h)) + b[n] for n < n_cols (even), the W8A8
+// product of one LSTM layer: x [dx] and h [dh] (both multiples of 4) in
+// shared memory are quantized into xq (dx + dh bytes), each with its own
+// scale; wx / wh are [d / 4, n_cols] words of four int8 rows
+__device__ void quant_gates(const float* x, int dx, const float* h, int dh,
+                            const int* __restrict__ wx,
+                            const float* __restrict__ swx,
+                            const int* __restrict__ wh,
+                            const float* __restrict__ swh,
+                            const float* __restrict__ b, int n_cols,
+                            signed char* xq, float* red, float* gates) {
+  float ax = 0.f, ah = 0.f;
+  for (int k = threadIdx.x; k < dx; k += THREADS) ax = fmaxf(ax, fabsf(x[k]));
+  for (int k = threadIdx.x; k < dh; k += THREADS) ah = fmaxf(ah, fabsf(h[k]));
+  const float s_x = quant_scale(block_reduce<THREADS, true>(ax, red));
+  const float s_h = quant_scale(block_reduce<THREADS, true>(ah, red));
+  for (int k = threadIdx.x; k < dx; k += THREADS) xq[k] = quant_int8(x[k], s_x);
+  for (int k = threadIdx.x; k < dh; k += THREADS)
+    xq[dx + k] = quant_int8(h[k], s_h);
+  __syncthreads();
+  const int* xw = reinterpret_cast<const int*>(xq);
+  const int* hw = reinterpret_cast<const int*>(xq + dx);
+  for (int jp = threadIdx.x; jp < n_cols / 2; jp += THREADS) {
+    const int n = 2 * jp;
+    int x0 = 0, x1 = 0, h0 = 0, h1 = 0;
+#pragma unroll 8
+    for (int r = 0; r < dx / 4; ++r) {
+      const int2 w = __ldg(
+          reinterpret_cast<const int2*>(wx + (int64_t)r * n_cols + n));
+      x0 = __dp4a(w.x, xw[r], x0);
+      x1 = __dp4a(w.y, xw[r], x1);
+    }
+#pragma unroll 8
+    for (int r = 0; r < dh / 4; ++r) {
+      const int2 w = __ldg(
+          reinterpret_cast<const int2*>(wh + (int64_t)r * n_cols + n));
+      h0 = __dp4a(w.x, hw[r], h0);
+      h1 = __dp4a(w.y, hw[r], h1);
+    }
+    gates[n] = __fadd_rn(
+        __fadd_rn(dequant(x0, s_x, swx[n]), dequant(h0, s_h, swh[n])), b[n]);
+    gates[n + 1] = __fadd_rn(__fadd_rn(dequant(x1, s_x, swx[n + 1]),
+                                       dequant(h1, s_h, swh[n + 1])),
+                             b[n + 1]);
+  }
+}
+
+template <typename T, bool Q>
 __global__ void __launch_bounds__(THREADS)
 greedy_loop_kernel(Dims d, Args<T> a) {
   extern __shared__ float smem[];
@@ -162,6 +164,9 @@ greedy_loop_kernel(Dims d, Args<T> a) {
   float* logits = hj + J;     // [V]
   float* red_v = logits + V;  // [WARPS + 1]
   int* red_i = reinterpret_cast<int*>(red_v + WARPS + 1);
+  // int8 branch: the quantized inputs of layer 0 (E + P) and layer 1 (2P)
+  signed char* xq0 = reinterpret_cast<signed char*>(red_i + WARPS + 1);
+  signed char* xq1 = xq0 + E + P;
 
   const int lane = blockIdx.x, tid = threadIdx.x;
   const int B = d.batch;
@@ -182,7 +187,7 @@ greedy_loop_kernel(Dims d, Args<T> a) {
     a.confs[(int64_t)lane * d.max_total + s] = 0.f;
   }
   __syncthreads();
-  matvec(pred, P, a.wp, J, a.bp, pj);
+  matvec<THREADS>(pred, P, a.wp, J, a.bp, pj);
   __syncthreads();
 
   int t = 0, counts = off, sym = 0;
@@ -201,15 +206,15 @@ greedy_loop_kernel(Dims d, Args<T> a) {
       for (int j = tid; j < J; j += THREADS)
         hj[j] = round_to<T>(fmaxf(to_f(enc_row[j]) + pj[j], 0.f));
       __syncthreads();
-      matvec(hj, J, a.wo, V, a.bo, logits);
+      matvec<THREADS>(hj, J, a.wo, V, a.bo, logits);
       __syncthreads();
       float m;
       int kf;
-      block_argmax(logits, V, red_v, red_i, &m, &kf);
+      block_argmax<THREADS>(logits, V, red_v, red_i, &m, &kf);
       if (kf != d.blank_id) {
         float s = 0.f;
         for (int v = tid; v < V; v += THREADS) s += expf(logits[v] - m);
-        s = block_sum(s, red_v);
+        s = block_sum<THREADS>(s, red_v);
         const float lse = m + logf(s);
         hit = f;
         k = kf;
@@ -238,29 +243,36 @@ greedy_loop_kernel(Dims d, Args<T> a) {
     for (int e = tid; e < E; e += THREADS)
       xh0[e] = k == d.blank_id ? 0.f : to_f(a.embed[(int64_t)k * E + e]);
     __syncthreads();
-    matvec(xh0, E + P, a.w0, 4 * P, a.b0, gates);
+    if constexpr (Q)
+      quant_gates(xh0, E, xh0 + E, P, a.wx0, a.sx0, a.wh0, a.sh0, a.b0,
+                  4 * P, xq0, red_v, gates);
+    else
+      matvec<THREADS>(xh0, E + P, a.w0, 4 * P, a.b0, gates);
     __syncthreads();
     for (int j = tid; j < P; j += THREADS) {
-      const float c = sigmoid(gates[P + j] + 1.f) * cst[j] +
-                      sigmoid(gates[j]) * tanhf(gates[2 * P + j]);
-      const float h = round_to<T>(sigmoid(gates[3 * P + j]) * tanhf(c));
+      const float c = cell(gates[P + j], cst[j], gates[j], gates[2 * P + j]);
+      const float h = sigmoid(gates[3 * P + j]) * tanhf(c);
       cst[j] = round_to<T>(c);
-      xh0[E + j] = h;
-      xh1[j] = h;
+      xh0[E + j] = round_to<T>(h);
+      xh1[j] = Q ? h : round_to<T>(h);  // the int8 branch feeds f32 h
     }
     __syncthreads();
-    matvec(xh1, 2 * P, a.w1, 4 * P, a.b1, gates);
+    if constexpr (Q)
+      quant_gates(xh1, P, xh1 + P, P, a.wx1, a.sx1, a.wh1, a.sh1, a.b1,
+                  4 * P, xq1, red_v, gates);
+    else
+      matvec<THREADS>(xh1, 2 * P, a.w1, 4 * P, a.b1, gates);
     __syncthreads();
     for (int j = tid; j < P; j += THREADS) {
-      const float c = sigmoid(gates[P + j] + 1.f) * cst[P + j] +
-                      sigmoid(gates[j]) * tanhf(gates[2 * P + j]);
+      const float c =
+          cell(gates[P + j], cst[P + j], gates[j], gates[2 * P + j]);
       const float h = round_to<T>(sigmoid(gates[3 * P + j]) * tanhf(c));
       cst[P + j] = round_to<T>(c);
       xh1[P + j] = h;
       pred[j] = h;
     }
     __syncthreads();
-    matvec(pred, P, a.wp, J, a.bp, pj);
+    matvec<THREADS>(pred, P, a.wp, J, a.bp, pj);
     __syncthreads();
   }
 
@@ -277,7 +289,7 @@ greedy_loop_kernel(Dims d, Args<T> a) {
   }
 }
 
-template <typename T>
+template <typename T, bool Q>
 int launch(const Dims& d, void* const* p, void* stream) {
   Args<T> a{
       (const T*)p[0], (const int*)p[1], (const T*)p[2], (const T*)p[3],
@@ -286,41 +298,53 @@ int launch(const Dims& d, void* const* p, void* stream) {
       (const float*)p[11], (const T*)p[12], (const float*)p[13],
       (const T*)p[14], (const float*)p[15], (int*)p[16], (int*)p[17],
       (int*)p[18], (float*)p[19], (T*)p[20], (T*)p[21], (T*)p[22],
-      (int*)p[23]};
-  const size_t smem = sizeof(float) * (size_t)smem_floats(d);
+      (int*)p[23], (const int*)p[24], (const float*)p[25],
+      (const int*)p[26], (const float*)p[27], (const int*)p[28],
+      (const float*)p[29], (const int*)p[30], (const float*)p[31]};
+  const size_t smem = sizeof(float) * (size_t)smem_floats(d, Q);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        greedy_loop_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        greedy_loop_kernel<T, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  greedy_loop_kernel<T><<<d.batch, THREADS, smem, (cudaStream_t)stream>>>(
+  greedy_loop_kernel<T, Q><<<d.batch, THREADS, smem, (cudaStream_t)stream>>>(
       d, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// is_bf16 selects the working type T (1: __nv_bfloat16, 0: float). Pointer
-// order is the Args struct's; biases are f32, lens/last/offset int32.
+// is_bf16 selects the working type T (1: __nv_bfloat16, 0: float); quant 1
+// runs the int8 branch, which reads wx0 .. sh1 in place of w0 and w1.
+// Pointer order is the Args struct's; biases and scales are f32,
+// lens/last/offset int32.
 extern "C" int amira_greedy_loop(
-    int is_bf16, int batch, int t_max, int d_joint, int d_pred, int d_embed,
-    int vocab, int max_total, int lookahead, int blank_id, int max_symbols,
-    void* enc_pre, void* enc_lens, void* h0, void* c0, void* pred0,
-    void* last0, void* offset, void* embed, void* w0, void* b0, void* w1,
-    void* b1, void* wp, void* bp, void* wo, void* bo, void* tokens,
+    int is_bf16, int quant, int batch, int t_max, int d_joint, int d_pred,
+    int d_embed, int vocab, int max_total, int lookahead, int blank_id,
+    int max_symbols, void* enc_pre, void* enc_lens, void* h0, void* c0,
+    void* pred0, void* last0, void* offset, void* embed, void* w0, void* b0,
+    void* w1, void* b1, void* wp, void* bp, void* wo, void* bo, void* tokens,
     void* counts, void* frames, void* confs, void* h_out, void* c_out,
-    void* pred_out, void* last_out, void* stream) {
+    void* pred_out, void* last_out, void* wx0, void* sx0, void* wh0,
+    void* sh0, void* wx1, void* sx1, void* wh1, void* sh1, void* stream) {
   if (batch <= 0) return 0;
-  // matvec reads weight columns in pairs; a lane that needs more shared
-  // memory than the card offers is refused by cudaFuncSetAttribute
+  // matvec reads weight columns in pairs and the int8 words hold four rows;
+  // a lane that needs more shared memory than the card offers is refused
+  // by cudaFuncSetAttribute
   if ((d_joint | vocab) & 1) return (int)cudaErrorInvalidValue;
+  if (quant && ((d_embed | d_pred) & 3)) return (int)cudaErrorInvalidValue;
   const Dims d{batch,    t_max,    d_joint,  d_pred,   d_embed,
                vocab,    max_total, lookahead, blank_id, max_symbols};
   void* const p[] = {enc_pre, enc_lens, h0,     c0,     pred0,  last0,
                      offset,  embed,    w0,     b0,     w1,     b1,
                      wp,      bp,       wo,     bo,     tokens, counts,
-                     frames,  confs,    h_out,  c_out,  pred_out, last_out};
-  return is_bf16 ? launch<__nv_bfloat16>(d, p, stream)
-                 : launch<float>(d, p, stream);
+                     frames,  confs,    h_out,  c_out,  pred_out, last_out,
+                     wx0,     sx0,      wh0,    sh0,    wx1,    sx1,
+                     wh1,     sh1};
+  if (quant)
+    return is_bf16 ? launch<__nv_bfloat16, true>(d, p, stream)
+                   : launch<float, true>(d, p, stream);
+  return is_bf16 ? launch<__nv_bfloat16, false>(d, p, stream)
+                 : launch<float, false>(d, p, stream);
 }

@@ -18,6 +18,11 @@ Parity points with the reference, each pinned by tests/test_torch_models.py:
 - ``glu`` is ``a * sigmoid(b)`` over the two halves of the last dim.
 
 Attention is a plain matmul + softmax, as XLA ran it in the reference.
+
+The eight dense layers of each conformer block are :class:`QLinear`, the
+reference's ``QDense``: with ``ModelConfig.quant_int8`` they run W8A8
+through ``ops.quant.quant_dense`` (the W8A8 kernel's wrapper). The
+subsampler's and the output projection stay plain, as in the reference.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quant import pack_weight_int8, quant_dense
 from .presets import ModelConfig
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
@@ -86,6 +92,37 @@ class ChannelLastConv(nn.Module):
         return y.transpose(1, 2)
 
 
+class QLinear(nn.Linear):
+    """``nn.Linear`` with the reference ``QDense``'s int8 serving path. The
+    parameters keep ``nn.Linear``'s names, so converted weights load as they
+    are; the int8 weight, its scales and the f32 bias are non-persistent
+    buffers made once by :meth:`freeze_int8` from the served weights
+    (quantized on the fly until then, as the reference does inside its
+    program)."""
+
+    def __init__(self, n_in: int, n_out: int, quant: bool = False):
+        super().__init__(n_in, n_out)
+        self.quant = quant
+        self.register_buffer("wq", None, persistent=False)
+        self.register_buffer("w_scale", None, persistent=False)
+        self.register_buffer("bias32", None, persistent=False)
+
+    def freeze_int8(self) -> None:
+        """Quantize the current weight for the int8 path, once. Call it
+        after any dtype cast: a later cast would round ``w_scale``."""
+        self.quant = True
+        self.wq, self.w_scale = pack_weight_int8(self.weight)
+        self.bias32 = self.bias.detach().float().contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.quant:
+            return super().forward(x)
+        if self.wq is None:
+            return quant_dense(x, self.weight, self.bias)
+        return quant_dense(x, self.weight, self.bias32,
+                           packed=(self.wq, self.w_scale))
+
+
 class MHSA(nn.Module):
     """Multi-head self-attention with RoPE and padding/band masks."""
 
@@ -93,8 +130,8 @@ class MHSA(nn.Module):
         super().__init__()
         d = cfg.d_model
         self.cfg = cfg
-        self.qkv = nn.Linear(d, 3 * d)
-        self.out = nn.Linear(d, d)
+        self.qkv = QLinear(d, 3 * d, cfg.quant_int8)
+        self.out = QLinear(d, d, cfg.quant_int8)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -139,12 +176,12 @@ class ConvModule(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d = cfg.d_model
-        self.pw1 = nn.Linear(d, 2 * d)
+        self.pw1 = QLinear(d, 2 * d, cfg.quant_int8)
         self.dw = ChannelLastConv(
             d, d, cfg.conv_kernel, groups=d,
             causal_pad=cfg.conv_kernel - 1 if cfg.causal else -1)
         self.norm = LayerNorm(d)
-        self.pw2 = nn.Linear(d, d)
+        self.pw2 = QLinear(d, d, cfg.quant_int8)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
         x = F.glu(self.pw1(x), dim=-1)
@@ -158,8 +195,8 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         d = cfg.d_model
-        self.w1 = nn.Linear(d, cfg.ff_expansion * d)
-        self.w2 = nn.Linear(cfg.ff_expansion * d, d)
+        self.w1 = QLinear(d, cfg.ff_expansion * d, cfg.quant_int8)
+        self.w2 = QLinear(cfg.ff_expansion * d, d, cfg.quant_int8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.w2(F.silu(self.w1(x)))
@@ -242,6 +279,12 @@ class ConformerEncoder(nn.Module):
         for i in range(cfg.n_layers):
             self.add_module(f"block{i}", ConformerBlock(cfg))
         self.out_proj = nn.Linear(cfg.d_model, cfg.d_enc)
+
+    def freeze_int8(self) -> None:
+        """The int8 serving path for every block's dense layers."""
+        for mod in self.modules():
+            if isinstance(mod, QLinear):
+                mod.freeze_int8()
 
     def forward(self, features: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,6 +4,7 @@ models/transducer.py), as one ``nn.Module`` whose state dict is what
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +44,15 @@ class Transducer(nn.Module):
                 mod.bias.zero_()
         init_pred_params(self.predictor, self.config, generator)
         init_joint_params(self.joint, generator)
+        return self
+
+    def freeze_int8(self) -> "Transducer":
+        """Serve the encoder's block dense layers int8 (W8A8), from the
+        current weights: the reference's ``quantization="int8"`` flag flip
+        (``quant_int8``), with the int8 weights made here once."""
+        self.config = dataclasses.replace(self.config, quant_int8=True)
+        self.encoder.cfg = self.config
+        self.encoder.freeze_int8()
         return self
 
     # -- apply functions ----------------------------------------------------

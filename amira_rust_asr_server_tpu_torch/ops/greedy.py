@@ -10,8 +10,9 @@ from ``token_offset``. The prediction-net state (h, c), its output and the
 last token carry across calls.
 
 The joint and prediction functions are injectable, the testing seam the
-reference uses. The fused CUDA loop (``ops/kernels/decode_loop.py``) is
-held against this loop.
+reference uses; ``fused_step_fn`` replaces the joint, argmax and confidence
+of one iteration (the per-step kernel, ``ops/kernels/decode_step.py``). The
+fused CUDA loop (``ops/kernels/decode_loop.py``) is held against this loop.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ def greedy_decode(pred_fn: PredFn, joint_fn: JointFn, enc: torch.Tensor,
                   enc_lens: torch.Tensor, init_state, blank_id: int, *,
                   max_symbols: int = MAX_SYMBOLS_PER_STEP,
                   max_total: int = MAX_TOTAL_TOKENS, lookahead: int = 8,
+                  fused_step_fn: Optional[Callable] = None,
                   init_pred_out: Optional[torch.Tensor] = None,
                   init_last_token: Optional[torch.Tensor] = None,
                   token_offset: Optional[torch.Tensor] = None
@@ -57,6 +59,9 @@ def greedy_decode(pred_fn: PredFn, joint_fn: JointFn, enc: torch.Tensor,
     ``init_pred_out``/``init_last_token`` None means a fresh decode (the
     blank/SOS step runs first); ``token_offset [B]`` pre-counts tokens
     toward this call's ``max_total`` (0 from every serving caller).
+    ``fused_step_fn(enc_win [B, F, D], pred_out [B, P]) -> (k [B, F],
+    conf [B, F])`` takes the place of ``joint_fn``, the argmax and the
+    confidence.
     """
     b, t_max, d = enc.shape
     dev = enc.device
@@ -90,13 +95,17 @@ def greedy_decode(pred_fn: PredFn, joint_fn: JointFn, enc: torch.Tensor,
         valid = t_win < enc_lens[:, None]
         t_safe = torch.clamp(t_win, max=t_max - 1)
         enc_win = torch.gather(enc, 1, t_safe[:, :, None].expand(-1, -1, d))
-        logits = joint_fn(enc_win.reshape(b * lookahead, d),
-                          pred_out.repeat_interleave(lookahead, dim=0)
-                          ).reshape(b, lookahead, -1).float()
-        k_win = logits.argmax(dim=-1)                         # first index
-        lse = torch.logsumexp(logits, dim=-1)
-        conf_all = torch.exp(
-            torch.gather(logits, 2, k_win[:, :, None])[:, :, 0] - lse)
+        if fused_step_fn is not None:
+            k_win, conf_all = fused_step_fn(enc_win, pred_out)
+            k_win = k_win.long()
+        else:
+            logits = joint_fn(enc_win.reshape(b * lookahead, d),
+                              pred_out.repeat_interleave(lookahead, dim=0)
+                              ).reshape(b, lookahead, -1).float()
+            k_win = logits.argmax(dim=-1)                     # first index
+            lse = torch.logsumexp(logits, dim=-1)
+            conf_all = torch.exp(
+                torch.gather(logits, 2, k_win[:, :, None])[:, :, 0] - lse)
         nonblank = (k_win != blank_id) & valid
         any_nb = nonblank.any(dim=1)
         j = nonblank.to(torch.int32).argmax(dim=1)            # first hit

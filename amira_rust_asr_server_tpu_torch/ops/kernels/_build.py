@@ -46,12 +46,11 @@ I64 = ctypes.c_int64
 # unless RESTYPES says otherwise.
 SIGNATURES = {
     "amira_log_mel": [P, I64, I, I, P, P, P, I, P, P],
-    "amira_greedy_loop": [I, I, I, I, I, I, I, I, I, I, I,
-                          P, P, P, P, P, P, P,
-                          P, P, P, P, P, P, P, P, P,
-                          P, P, P, P, P, P, P, P, P],
+    "amira_greedy_loop": [I] * 12 + [P] * 33,
     "amira_beam_loop_scratch_bytes": [I, I, I, I, I],
-    "amira_beam_loop": [I] * 11 + [P] * 25,
+    "amira_beam_loop": [I] * 12 + [P] * 33,
+    "amira_quant_matmul": [I] * 5 + [P] * 8,
+    "amira_joint_argmax": [I] * 6 + [P] * 9,
 }
 RESTYPES = {"amira_beam_loop_scratch_bytes": ctypes.c_longlong}
 
@@ -133,3 +132,11 @@ def library() -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+class LaunchCount:
+    """The launch count of one branch of a kernel (a wrapper's own count is
+    an attribute of the function)."""
+
+    def __init__(self) -> None:
+        self.launches = 0

@@ -18,6 +18,10 @@ type; layer 1 reads layer 0's h in the working type; the joint hidden vector
 is rounded to the working type before the output matrix. In f32 this is the
 model's own arithmetic.
 
+With ``weights.quant`` set (``int8_decode_weights``) the kernel and its
+plain version run the int8 branch of the LSTM (see ``decode_loop``); its
+launches count in ``beam_loop_int8.launches``.
+
 Frames at or past a lane's length skip the joint and LSTM work in the
 kernel; the pool rows (scores, lengths, parents) still equal the scan's, and
 so do the backtrace rows of those frames, although ``backtrace`` never reads
@@ -33,7 +37,7 @@ import torch
 
 from ..beam import TokenTrie, beam_scan
 from . import _build
-from .decode_loop import DecodeWeights, check_tensor, kernel_fns
+from .decode_loop import DecodeWeights, check_tensor, int8_pointers, kernel_fns
 
 _count_lock = threading.Lock()
 
@@ -112,8 +116,9 @@ def beam_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
                                                      v),), torch.uint8)
     w = weights
     err = lib.amira_beam_loop(
-        is_bf16, b, t_max, d_joint, d_pred, d_embed, v, k, s_max, blank_id,
-        int(graph is not None), enc_pre.data_ptr(), lens.data_ptr(),
+        is_bf16, int(w.quant is not None), b, t_max, d_joint, d_pred,
+        d_embed, v, k, s_max, blank_id, int(graph is not None),
+        enc_pre.data_ptr(), lens.data_ptr(),
         init_h.data_ptr(), init_c.data_ptr(), bias.data_ptr(),
         w.embed.data_ptr(), w.w0.data_ptr(), w.b0.data_ptr(),
         w.w1.data_ptr(), w.b1.data_ptr(), w.wp.data_ptr(), w.bp.data_ptr(),
@@ -121,11 +126,12 @@ def beam_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
         None if g_next is None else g_next.data_ptr(),
         None if g_weight is None else g_weight.data_ptr(),
         *(x.data_ptr() for x in outs), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *int8_pointers(w), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_beam_loop")
     with _count_lock:
-        beam_loop.launches += 1
+        (beam_loop if w.quant is None else beam_loop_int8).launches += 1
     return outs
 
 
 beam_loop.launches = 0
+beam_loop_int8 = _build.LaunchCount()  # launches of the int8 branch

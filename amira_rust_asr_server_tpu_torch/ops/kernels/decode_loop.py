@@ -10,12 +10,20 @@ Rounding points (those of the TPU kernel): the gate and joint products
 accumulate in f32 with f32 biases; h, c and pred_out are stored in the
 working type; the joint hidden vector is rounded to the working type before
 the output matrix. In f32 this is exactly the model's own arithmetic.
+
+The int8 branch (``int8_decode_weights``; the TPU kernel's ``quant=True``)
+runs when the weights carry :func:`quantize_pred_lstm`'s output
+(:meth:`DecodeWeights.with_int8_lstm`): each LSTM layer is W8A8,
+``qdot(x) + qdot(h) + b`` with each half of the input quantized on its own
+scale, and layer 1 reads layer 0's new h unrounded, as the TPU kernel does.
+Its launches count in ``greedy_loop_int8.launches``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -23,6 +31,44 @@ from ..greedy import GreedyResult, greedy_decode
 from . import _build
 
 _count_lock = threading.Lock()
+INT8_KEYS = ("wx0", "wh0", "wx1", "wh1")  # the four int8 LSTM halves
+
+
+def quant_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale ``amax / 127 + 1e-12``, divided as IEEE
+    division on every device: PyTorch multiplies a CUDA tensor by the
+    reciprocal of a Python scalar divisor, an ulp off on some values."""
+    return amax / torch.full_like(amax, 127.0) + 1e-12
+
+
+def quantize_pred_lstm(lstm_w: Sequence[torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """Per-output-channel symmetric int8 of the LSTM weights ``[in + P, 4P]``
+    (port of ops/pallas/decode_loop.py ``quantize_pred_lstm``), split at the
+    x/h boundary (E rows of layer 0, P rows of layer 1), each half with its
+    own scales ``amax / 127 + 1e-12`` and clipped to +-127. Keys as the
+    reference's: ``wx0_q``, ``sx0``, ``wh0_q``, ``sh0``, ... ."""
+    out = {}
+    for li, w in enumerate(lstm_w):
+        w = w.detach().float()
+        d_p = w.shape[1] // 4
+        d_x = w.shape[0] - d_p
+        for tag, part in (("x", w[:d_x]), ("h", w[d_x:])):
+            s = quant_scale(part.abs().amax(dim=0))
+            q = torch.clamp(torch.round(part / s[None, :]), -127, 127)
+            out[f"w{tag}{li}_q"] = q.to(torch.int8).contiguous()
+            out[f"s{tag}{li}"] = s.contiguous()
+    return out
+
+
+def pack_rows4(q: torch.Tensor) -> torch.Tensor:
+    """int8 ``[K, N]`` -> int32 ``[K / 4, N]``: each word holds rows 4r ..
+    4r + 3 of a column (lowest byte first), the operand of one ``__dp4a``."""
+    k, n = q.shape
+    if k % 4:
+        raise ValueError(f"the int8 decode kernels take rows in fours, got {k}")
+    return (q.reshape(k // 4, 4, n).permute(0, 2, 1).contiguous()
+            .view(torch.int32).reshape(k // 4, n))
 
 
 @dataclasses.dataclass
@@ -39,6 +85,10 @@ class DecodeWeights:
     bp: torch.Tensor      # [J] f32
     wo: torch.Tensor      # [J, V]
     bo: torch.Tensor      # [V] f32
+    # int8 branch: quantize_pred_lstm's output, and its four halves packed
+    # for the kernels (pack_rows4), keyed "wx0", "wh0", "wx1", "wh1"
+    quant: Optional[Dict[str, torch.Tensor]] = None
+    quant_words: Optional[Dict[str, torch.Tensor]] = None
 
     @classmethod
     def from_model(cls, model, dtype: torch.dtype) -> "DecodeWeights":
@@ -60,6 +110,15 @@ class DecodeWeights:
                    bp=vec(joint.pred_proj.b), wo=mat(joint.out.w),
                    bo=vec(joint.out.b))
 
+    def with_int8_lstm(self) -> "DecodeWeights":
+        """These weights with the LSTM quantized for the int8 branch, from
+        the served (already cast) matrices, as the reference quantizes its
+        cast params once at pipeline build."""
+        q = quantize_pred_lstm([self.w0, self.w1])
+        return dataclasses.replace(
+            self, quant=q,
+            quant_words={k: pack_rows4(q[f"{k}_q"]) for k in INT8_KEYS})
+
     @property
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
@@ -77,39 +136,81 @@ class DecodeWeights:
         for name, n in (("b0", 4 * p), ("b1", 4 * p), ("bp", j), ("bo", v)):
             check_tensor(what, name, getattr(self, name), torch.float32, (n,),
                          device)
+        if self.quant is None:
+            return
+        for key, rows in (("wx0", e), ("wh0", p), ("wx1", p), ("wh1", p)):
+            if rows % 4:
+                raise ValueError(f"{what}: int8 LSTM halves need rows in "
+                                 f"fours, got {rows}")
+            check_tensor(what, key, self.quant_words[key], torch.int32,
+                         (rows // 4, 4 * p), device)
+            scale = "s" + key[1:]
+            check_tensor(what, scale, self.quant[scale], torch.float32,
+                         (4 * p,), device)
 
 
-def _lstm_f32acc(w, b, x, h, c, dt):
-    gates = torch.cat([x, h], dim=-1).float() @ w + b
+def _cell(gates, c):
+    """The LSTM cell in f32 from the gate pre-activations: (h, c)."""
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f + 1.0) * c.float() + torch.sigmoid(i) * torch.tanh(g)
-    h_new = torch.sigmoid(o) * torch.tanh(c_new)
-    return h_new.to(dt), c_new.to(dt)
+    return torch.sigmoid(o) * torch.tanh(c_new), c_new
+
+
+def _qdot(x32, wq, ws):
+    """The TPU kernels' ``_qdot``: per-row activation quant, the int8
+    product summed exactly (float64), ``acc * (s * ws)``."""
+    s = quant_scale(x32.abs().amax(dim=1, keepdim=True))
+    acc = (torch.round(x32 / s).double() @ wq).float()
+    return acc * (s * ws)
 
 
 def kernel_fns(weights: DecodeWeights, blank_id: int):
     """``(pred_fn, joint_fn)`` that round where the decode kernels round:
     the plain versions of both loop kernels are their decode functions
-    given these."""
+    given these. With ``weights.quant`` the LSTM is the int8 branch's."""
     dt = weights.dtype
     w0, w1 = weights.w0.float(), weights.w1.float()
-    wp, wo = weights.wp.float(), weights.wo.float()
     embed = weights.embed
+    q = weights.quant
+    if q is not None:
+        qw = {k: q[f"{k}_q"].double() for k in INT8_KEYS}
 
     def pred_fn(tokens, state):
         h, c = state
         x = torch.where((tokens != blank_id)[:, None], embed[tokens.long()],
                         torch.zeros((), dtype=dt, device=embed.device))
-        h0n, c0n = _lstm_f32acc(w0, weights.b0, x, h[0], c[0], dt)
-        h1n, c1n = _lstm_f32acc(w1, weights.b1, h0n, h[1], c[1], dt)
+        if q is None:
+            h0n, c0n = _cell(torch.cat([x, h[0]], dim=-1).float() @ w0
+                             + weights.b0, c[0])
+            # layer 1 reads layer 0's h in the working type
+            h1n, c1n = _cell(torch.cat([h0n.to(dt), h[1]], dim=-1).float()
+                             @ w1 + weights.b1, c[1])
+        else:
+            h0n, c0n = _cell(_qdot(x.float(), qw["wx0"], q["sx0"])
+                             + _qdot(h[0].float(), qw["wh0"], q["sh0"])
+                             + weights.b0, c[0])
+            # layer 1 reads layer 0's h unrounded (f32)
+            h1n, c1n = _cell(_qdot(h0n, qw["wx1"], q["sx1"])
+                             + _qdot(h[1].float(), qw["wh1"], q["sh1"])
+                             + weights.b1, c[1])
+        h0n, h1n, c0n, c1n = (v.to(dt) for v in (h0n, h1n, c0n, c1n))
         return h1n, (torch.stack([h0n, h1n]), torch.stack([c0n, c1n]))
 
-    def joint_fn(enc_rows, pred_rows):
+    return pred_fn, joint_fn(weights)
+
+
+def joint_fn(weights: DecodeWeights):
+    """The joint as the decode kernels round it: f32 accumulation, the
+    hidden vector rounded to the working type before the output matrix."""
+    dt = weights.dtype
+    wp, wo = weights.wp.float(), weights.wo.float()
+
+    def fn(enc_rows, pred_rows):
         p = pred_rows.float() @ wp + weights.bp
         hidden = torch.relu(enc_rows.float() + p).to(dt)
         return hidden.float() @ wo + weights.bo
 
-    return pred_fn, joint_fn
+    return fn
 
 
 def greedy_loop_reference(enc_pre, enc_lens, h0, c0, pred0, last0,
@@ -142,7 +243,8 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
                 max_total: int, lookahead: int = 8) -> GreedyResult:
     """The whole greedy decode of ``enc_pre [B, T', J]`` (the joint's
     precomputed encoder projection) from carried state ``h0, c0 [2, B, P]``,
-    ``pred0 [B, P]``, ``last0 [B]``; one kernel launch on CUDA."""
+    ``pred0 [B, P]``, ``last0 [B]``; one kernel launch on CUDA, in the int8
+    branch when ``weights.quant`` is set."""
     dev = enc_pre.device
     if dev.type == "cpu":
         return greedy_loop_reference(
@@ -181,8 +283,9 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
     w = weights
     lib = _build.library()
     err = lib.amira_greedy_loop(
-        int(dt == torch.bfloat16), b, t_max, d_joint, d_pred, d_embed, v,
-        max_total, min(lookahead, t_max), blank_id, max_symbols,
+        int(dt == torch.bfloat16), int(w.quant is not None), b, t_max,
+        d_joint, d_pred, d_embed, v, max_total, min(lookahead, t_max),
+        blank_id, max_symbols,
         enc_pre.data_ptr(), ints[0].data_ptr(), h0.data_ptr(), c0.data_ptr(),
         pred0.data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
         w.embed.data_ptr(), w.w0.data_ptr(), w.b0.data_ptr(),
@@ -190,13 +293,24 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
         w.wo.data_ptr(), w.bo.data_ptr(), tokens.data_ptr(),
         counts.data_ptr(), frames.data_ptr(), confs.data_ptr(),
         h_out.data_ptr(), c_out.data_ptr(), pred_out.data_ptr(),
-        last_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        last_out.data_ptr(), *int8_pointers(w),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_greedy_loop")
     with _count_lock:
-        greedy_loop.launches += 1
+        (greedy_loop if w.quant is None else greedy_loop_int8).launches += 1
     return GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
                         confidence=confs, state=(h_out, c_out),
                         pred_out=pred_out, last_token=last_out)
 
 
+def int8_pointers(w: DecodeWeights):
+    """The int8 branch's arguments of both loop kernels (wx0, sx0, wh0, sh0,
+    wx1, sx1, wh1, sh1), or nulls."""
+    if w.quant is None:
+        return [None] * 8
+    return [x.data_ptr() for k in INT8_KEYS
+            for x in (w.quant_words[k], w.quant["s" + k[1:]])]
+
+
 greedy_loop.launches = 0
+greedy_loop_int8 = _build.LaunchCount()  # launches of the int8 branch

@@ -7,9 +7,17 @@ Requests are padded into (batch, length) buckets from
 ``config.batch_buckets x config.audio_sec_buckets``, as in the reference.
 PyTorch runs eagerly, so a bucket's "compile" is its first run (kernel
 build, allocator growth); ``is_warm``/``warm_batch_cap`` keep their meaning
-for the batcher. The log-mel and the whole greedy loop always go through
-the kernels' wrappers (``ops/kernels``): on CUDA they launch the hand-written
-kernels, on the CPU they run their plain PyTorch versions. Beam search
+for the batcher. The log-mel and the greedy decode always go through the
+kernels' wrappers (``ops/kernels``): on CUDA they launch the hand-written
+kernels, on the CPU they run their plain PyTorch versions. The greedy
+decode is the whole-loop kernel, or, with ``use_pallas_decode_loop=False``
+and ``use_pallas_decode_step``, the host loop ``ops.greedy.greedy_decode``
+with the per-step joint-argmax kernel. ``quantization="int8"`` runs the
+encoder's block dense layers W8A8 (the int8 matmul kernel), and
+``int8_decode_weights`` the int8 branch of both loop kernels. Unlike the
+reference, which applies the last two flags and ``use_pallas_decode_step``
+on its TPU only, the port applies them on every device (the CPU through
+the plain versions), so the CPU tests reach the same wiring. Beam search
 (``decoding_mode="beam"``) shares the log-mel and encoder (the reference's
 beam path calls the plain log-mel; the two agree to 1.9e-6) and runs the
 beam kernel on CUDA, or the plain scan ``ops.beam.beam_decode`` where the
@@ -40,10 +48,11 @@ from ..device import resolve_device
 from ..models import Transducer
 from ..ops.beam import (BeamResult, BeamTrace, TokenTrie, backtrace,
                         beam_decode, finish_trace)
-from ..ops.greedy import GreedyResult
+from ..ops.greedy import GreedyResult, greedy_decode
 from ..ops.kernels import mel as mel_kernel
 from ..ops.kernels.beam_loop import beam_loop
 from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
+from ..ops.kernels.decode_step import make_fused_step_fn
 from ..types import TokenInfo, Transcription
 
 log = get_logger("asr.pipeline")
@@ -52,9 +61,6 @@ log = get_logger("asr.pipeline")
 def check_supported(cfg: Config, device: torch.device) -> None:
     """Reject, loudly, what this slice of the port does not serve yet."""
     todo = []
-    if cfg.quantization == "int8":
-        todo.append("quantization='int8' (ROADMAP.md queue 1 item 8, "
-                    "queue 2 item 4)")
     if cfg.model_family != "transducer":
         todo.append(f"model_family={cfg.model_family!r} (ROADMAP.md queue 1 "
                     "item 11)")
@@ -66,19 +72,14 @@ def check_supported(cfg: Config, device: torch.device) -> None:
         if not cfg.use_pallas_mel:
             todo.append("use_pallas_mel=False: the CUDA path always runs "
                         "csrc/mel.cu")
-        if not cfg.use_pallas_decode_loop and cfg.use_pallas_decode_step:
-            todo.append("use_pallas_decode_step without use_pallas_decode_"
-                        "loop: joint_argmax_pallas is not ported (ROADMAP.md "
-                        "queue 2 item 2)")
-        elif not cfg.use_pallas_decode_loop:
-            todo.append("use_pallas_decode_loop=False: the CUDA path always "
-                        "runs csrc/decode_loop.cu")
+        if not (cfg.use_pallas_decode_loop or cfg.use_pallas_decode_step):
+            todo.append("use_pallas_decode_loop=False with use_pallas_"
+                        "decode_step=False: the CUDA greedy path runs "
+                        "csrc/decode_loop.cu or csrc/decode_step.cu")
         if not cfg.use_pallas_beam_loop:
             todo.append("use_pallas_beam_loop=False: the CUDA beam path "
                         "always runs csrc/beam_loop.cu (ROADMAP.md queue 2 "
                         "item 5)")
-        if cfg.int8_decode_weights:
-            todo.append("int8_decode_weights (ROADMAP.md queue 2 item 4)")
     if todo:
         raise NotImplementedError(
             "not ported to PyTorch/CUDA yet: " + "; ".join(todo))
@@ -110,12 +111,22 @@ class AsrPipeline:
                               else torch.float32)
         self.model = model.to(device=self.device,
                               dtype=self.compute_dtype).eval()
+        if cfg.quantization == "int8" or self.model.config.quant_int8:
+            # int8 weights from the cast ones, as the reference quantizes
+            # its cast params inside its program
+            self.model.freeze_int8()
         # the loop kernels' weights (2-layer prediction nets); other depths
         # decode beam through the plain scan and have no greedy path here
         self.decode_weights = None
         if self.model.config.pred_layers == 2:
             self.decode_weights = DecodeWeights.from_model(
                 self.model, self.compute_dtype)
+            if cfg.int8_decode_weights and (cfg.use_pallas_decode_loop
+                                            or cfg.use_pallas_beam_loop):
+                # the reference's pred_quant: read by the loop kernels'
+                # routes only (the step route and the plain beam scan use
+                # the model's own weights)
+                self.decode_weights = self.decode_weights.with_int8_lstm()
         elif cfg.decoding_mode != "beam":
             raise NotImplementedError(
                 "the greedy decode kernel supports 2-layer prediction nets "
@@ -193,7 +204,20 @@ class AsrPipeline:
     def _forward(self, audio, audio_lens, h0, c0, pred0, last_token,
                  token_offset, *, max_symbols: int, max_total: int):
         dt = self.compute_dtype
+        cfg = self.config
         enc_pre, feat_lens, enc_lens = self._encode(audio, audio_lens)
+        if not cfg.use_pallas_decode_loop and cfg.use_pallas_decode_step:
+            # the per-step route: the host loop, the model's prediction
+            # net, the joint + argmax kernel
+            res = greedy_decode(
+                self.model.predict_step, self.model.joint_step_pre, enc_pre,
+                enc_lens, (h0.to(dt), c0.to(dt)), self.model.config.blank_id,
+                max_symbols=max_symbols, max_total=max_total,
+                lookahead=cfg.greedy_lookahead,
+                fused_step_fn=make_fused_step_fn(self.decode_weights),
+                init_pred_out=pred0.to(dt), init_last_token=last_token,
+                token_offset=token_offset)
+            return res, feat_lens, enc_lens
         res = greedy_loop(
             enc_pre, enc_lens, h0.to(dt), c0.to(dt), pred0.to(dt), last_token,
             token_offset, self.decode_weights,

@@ -26,11 +26,30 @@ the hand-written kernels against their plain PyTorch versions:
      server: 2 s and 30 s requests and a lattice request must return
      200/COMPLETE with n_best, decode_path "pallas_kernel" and the lattice,
      and the log-mel and beam kernels' counters must rise
+  I  W8A8 matmul kernel vs plain version: the encoder's five K x N shapes
+     at M = 25 (1 x 2 s) and M = 6016 (16 x 30 s), f32 (rtol 1e-6) and bf16
+     inputs (one bf16 ulp); times beside the bf16 torch.matmul's
+  J  the int8 branches of the greedy and beam kernels vs their plain
+     versions at flagship widths: greedy B=16, T'=376 (f32 >= 99%, bf16
+     >= 90% identical tokens); beam B=16, K=10, S=3 with the phase-G bias
+     and graph (f32 identical best tokens on >= 15 of 16 lanes, bf16 >= 90%
+     identical best tokens); times beside the bf16-weight kernels'
+  K  joint-argmax kernel vs plain version, B=16, F=8, flagship widths: f32
+     identical ids and confidences within 1e-5, bf16 >= 99% identical ids
+  L  the int8 and per-step paths end to end: tiny-digits on the card must
+     transcribe "two five nine" with quantization="int8" +
+     int8_decode_weights (greedy and beam) and with
+     use_pallas_decode_loop=False; then build_state(preset=large) behind
+     the HTTP server, buckets limited to what is posted: int8 + int8
+     decode weights greedy (2 s, 30 s) and beam (2 s), and int8 on the
+     per-step route (2 s); 200/COMPLETE, and the counters of quant_matmul,
+     greedy_loop_int8, beam_loop_int8 and joint_argmax must rise
 
 Any failure raises and exits non-zero. The line before the last holds the
 kernels' measurements as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (no result
-lines then): ``--phases GH`` runs the beam phases alone.
+lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
+the int8 and per-step phases.
 """
 
 from __future__ import annotations
@@ -46,7 +65,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGH"
+ALL_PHASES = "ABCDEFGHIJKL"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -54,7 +73,22 @@ REPLACES = {
                     "amira_rust_asr_server_tpu/ops/pallas/decode_loop.py:367"),
     "beam_loop": ("amira_rust_asr_server_tpu_torch/csrc/beam_loop.cu",
                   "amira_rust_asr_server_tpu/ops/pallas/beam_loop.py:477"),
+    "quant_matmul": ("amira_rust_asr_server_tpu_torch/csrc/quant_matmul.cu",
+                     "amira_rust_asr_server_tpu/ops/pallas/quant_matmul.py:88"),
+    "joint_argmax": ("amira_rust_asr_server_tpu_torch/csrc/decode_step.cu",
+                     "amira_rust_asr_server_tpu/ops/pallas/decode_step.py:80"),
+    # the int8 branches (quant=True) inside the loop kernels' pallas_call
+    "greedy_loop_int8": (
+        "amira_rust_asr_server_tpu_torch/csrc/decode_loop.cu",
+        "amira_rust_asr_server_tpu/ops/pallas/decode_loop.py:116"),
+    "beam_loop_int8": ("amira_rust_asr_server_tpu_torch/csrc/beam_loop.cu",
+                       "amira_rust_asr_server_tpu/ops/pallas/beam_loop.py:172"),
 }
+# the encoder's W8A8 shapes (K, N) and how often one conformer block runs
+# each: qkv, attention out, conv pw1, conv pw2, and both feed-forward
+# modules' two layers
+QMM_SHAPES = {(1024, 3072): 1, (1024, 1024): 2, (1024, 2048): 1,
+              (1024, 4096): 2, (4096, 1024): 2}
 
 
 def say(phase: str, msg: str) -> None:
@@ -177,7 +211,7 @@ def flagship_decode_inputs(dtype, seed: int = 0):
         b1=torch.zeros(4 * p, device=dev), wp=normal(p, j, fan_in=p),
         bp=torch.zeros(j, device=dev), wo=normal(j, v, fan_in=j), bo=bo)
     w32 = w
-    w = DecodeWeights(**{k: (x.to(dtype) if k[0] != "b" else x)
+    w = DecodeWeights(**{k: (x if x is None or k[0] == "b" else x.to(dtype))
                          for k, x in vars(w).items()})
     b, t = 16, 376
     enc_pre = torch.from_numpy(rng.standard_normal((b, t, j)).astype(
@@ -558,6 +592,259 @@ def phase_h(results):
         for i, (s, _, _, _, w) in enumerate(out)}
 
 
+def phase_i(results):
+    """The W8A8 matmul kernel against its plain version at the encoder's
+    shapes. The headline times are one conformer block's eight calls at
+    16 x 30 s (M = 6016) with bf16 activations, as the served encoder runs
+    them."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.ops.kernels.quant_matmul import (
+        quant_matmul, quant_matmul_reference)
+    from amira_rust_asr_server_tpu_torch.ops.quant import pack_weight_int8
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    res = results["quant_matmul"] = {"max_abs_err": 0.0, "ms": 0.0,
+                                     "plain_ms": 0.0, "matmul_bf16_ms": 0.0,
+                                     "shapes_ms": {}}
+    for (k, n), per_block in QMM_SHAPES.items():
+        w = torch.from_numpy((rng.standard_normal((n, k)) / math.sqrt(k))
+                             .astype(np.float32)).to(dev)
+        bias = torch.from_numpy((0.1 * rng.standard_normal(n))
+                                .astype(np.float32)).to(dev)
+        w_mm = w.t().contiguous().bfloat16()
+        for m in (25, 6016):
+            x32 = torch.from_numpy(rng.standard_normal((m, k)).astype(
+                np.float32)).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x32.to(dtype)
+                wq, ws = pack_weight_int8(w.to(dtype))
+                yk = quant_matmul(x, wq, ws, bias)
+                yp = quant_matmul_reference(x, wq, ws, bias)
+                torch.cuda.synchronize()
+                if yk.shape != (m, n) or not torch.isfinite(yk).all():
+                    raise AssertionError(f"[I] bad output {tuple(yk.shape)}")
+                diff = (yk.float() - yp.float()).abs()
+                err = diff.max().item()
+                name = str(dtype).replace("torch.", "")
+                if dtype == torch.float32:
+                    ok = bool((diff <= 1e-6 * yp.abs()).all())
+                    res["max_abs_err"] = max(res["max_abs_err"], err)
+                else:  # one bf16 ulp: 2^-7 of the value at most
+                    ok = bool((diff <= 2 ** -7 * yp.float().abs()).all())
+                ms_k = cuda_ms(lambda: quant_matmul(x, wq, ws, bias), 20)
+                ms_p = cuda_ms(lambda: quant_matmul_reference(x, wq, ws,
+                                                              bias), 3)
+                xb = x.bfloat16()
+                ms_mm = cuda_ms(lambda: xb @ w_mm, 20)
+                say("I", f"{m}x{k}x{n} {name}: max|kernel-plain| {err:.3e} "
+                    f"({'rtol 1e-6' if dtype == torch.float32 else '1 ulp'})"
+                    f" {ok}; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+                    f"bf16 matmul {ms_mm:.4f} ms")
+                if not ok:
+                    raise AssertionError(f"[I] {m}x{k}x{n} {name} disagrees")
+                res["shapes_ms"][f"{m}x{k}x{n}-{name}"] = [ms_k, ms_p, ms_mm]
+                if m == 6016 and dtype == torch.bfloat16:
+                    res["ms"] += per_block * ms_k
+                    res["plain_ms"] += per_block * ms_p
+                    res["matmul_bf16_ms"] += per_block * ms_mm
+    say("I", f"one block's eight calls at M=6016, bf16: kernel "
+        f"{res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, bf16 matmul "
+        f"{res['matmul_bf16_ms']:.3f} ms")
+
+
+def phase_j(results):
+    """The int8 branches of both loop kernels against their plain versions
+    at flagship widths, timed beside the bf16-weight kernels."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.ops.beam import (backtrace,
+                                                          finish_trace)
+    from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
+        beam_loop, beam_loop_reference)
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
+        greedy_loop, greedy_loop_reference)
+    dev = torch.device("cuda")
+    g_res = results["greedy_loop_int8"] = {"max_abs_err": 0.0}
+    b_res = results["beam_loop_int8"] = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        *args, w, cfg = flagship_decode_inputs(dtype)
+        wq = w.with_int8_lstm()
+        kw = dict(blank_id=cfg.blank_id, max_symbols=30, max_total=200,
+                  lookahead=8)
+        rk = greedy_loop(*args, wq, **kw)
+        rp = greedy_loop_reference(*args, wq, **kw)
+        torch.cuda.synchronize()
+        tk, ck, fk, qk, tp, cp, fp, qp = (
+            x.cpu().numpy() for x in (rk.tokens, rk.counts, rk.frame_idx,
+                                      rk.confidence, rp.tokens, rp.counts,
+                                      rp.frame_idx, rp.confidence))
+        share = token_agreement(tk, ck, tp, cp)
+        # confidences where both emitted the same token at the same frame
+        same = (tk == tp) & (fk == fp) & (qk > 0) & (qp > 0)
+        err = float(np.abs(qk - qp)[same].max()) if same.any() else 0.0
+        ms_k = cuda_ms(lambda: greedy_loop(*args, wq, **kw), 5)
+        ms_p = cuda_ms(lambda: greedy_loop_reference(*args, wq, **kw), 2)
+        ms_w = cuda_ms(lambda: greedy_loop(*args, w, **kw), 5)
+        need = 0.99 if dtype == torch.float32 else 0.9
+        say("J", f"greedy int8 {name}: identical-token share {share:.4f} "
+            f"(>= {need}); max|d conf| (same token) {err:.3e}; counts "
+            f"{ck.tolist()}; int8 kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms,"
+            f" {name}-weight kernel {ms_w:.3f} ms")
+        if share < need:
+            raise AssertionError(f"[J] greedy int8 {name} agreement {share}")
+        if dtype == torch.float32:
+            g_res["max_abs_err"] = err
+        else:
+            g_res.update(ms=ms_k, plain_ms=ms_p, bf16_weights_ms=ms_w)
+
+        enc_pre, lens = args[0], args[1]
+        zeros = torch.zeros((2, enc_pre.shape[0], cfg.d_pred), dtype=dtype,
+                            device=dev)
+        bias, graph = beam_bias_and_graph(cfg)
+        bias, graph = torch.from_numpy(bias).to(dev), graph.to(dev)
+        lens_np = lens.cpu().numpy()
+        for variant, g in (("bias", None), ("graph", graph)):
+            kwb = dict(beam_width=10, max_expansions=3,
+                       blank_id=cfg.blank_id, graph=g)
+            bargs = (enc_pre, lens, zeros, zeros, bias)
+            bk = backtrace(finish_trace(*beam_loop(*bargs, wq, **kwb),
+                                        graph=g), lens_np)
+            bp = backtrace(finish_trace(*beam_loop_reference(*bargs, wq,
+                                                             **kwb),
+                                        graph=g), lens_np)
+            ms_k = cuda_ms(lambda: beam_loop(*bargs, wq, **kwb), 2)
+            ms_p = cuda_ms(lambda: beam_loop_reference(*bargs, wq, **kwb), 1)
+            ms_w = cuda_ms(lambda: beam_loop(*bargs, w, **kwb), 2)
+            lanes = [i for i in range(len(lens_np))
+                     if bk.counts[i] == bp.counts[i] and np.array_equal(
+                         bk.tokens[i, :bk.counts[i]],
+                         bp.tokens[i, :bp.counts[i]])]
+            err = (float(np.abs(bk.scores[lanes] - bp.scores[lanes]).max())
+                   if lanes else 0.0)
+            share = token_agreement(bk.tokens, bk.counts, bp.tokens,
+                                    bp.counts)
+            say("J", f"beam int8 {name} {variant}: lanes with identical best "
+                f"tokens {len(lanes)}/16, identical-token share {share:.4f};"
+                f" max|d best score| (those lanes) {err:.3e}; counts "
+                f"{bk.counts.tolist()}; int8 kernel {ms_k:.3f} ms, plain "
+                f"{ms_p:.3f} ms, {name}-weight kernel {ms_w:.3f} ms")
+            if dtype == torch.float32:
+                if len(lanes) < 15:
+                    raise AssertionError(f"[J] beam int8 f32 {variant}: "
+                                         f"{len(lanes)} identical lanes")
+                b_res["max_abs_err"] = max(b_res["max_abs_err"], err)
+            else:
+                if share < 0.9:
+                    raise AssertionError(f"[J] beam int8 bf16 {variant} "
+                                         f"agreement {share}")
+                if variant == "bias":
+                    b_res.update(ms=ms_k, plain_ms=ms_p,
+                                 bf16_weights_ms=ms_w)
+                else:
+                    b_res.update(graph_ms=ms_k, graph_plain_ms=ms_p,
+                                 graph_bf16_weights_ms=ms_w)
+
+
+def phase_k(results):
+    """The joint-argmax kernel against its plain version: the greedy
+    loop's window of 8 frames for 16 lanes at flagship widths."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_step import (
+        joint_argmax, joint_argmax_reference)
+    res = results["joint_argmax"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        enc_pre, _, _, _, pred0, _, _, w, _ = flagship_decode_inputs(dtype)
+        enc_win = enc_pre[:, :8].contiguous()
+        kk, ck = joint_argmax(enc_win, pred0, w)
+        kp, cp = joint_argmax_reference(enc_win, pred0, w)
+        torch.cuda.synchronize()
+        if kk.shape != (16, 8) or not torch.isfinite(ck).all():
+            raise AssertionError(f"[K] bad output {tuple(kk.shape)}")
+        share = (kk == kp).float().mean().item()
+        err = (ck - cp).abs().max().item()
+        ms_k = cuda_ms(lambda: joint_argmax(enc_win, pred0, w), 50)
+        ms_p = cuda_ms(lambda: joint_argmax_reference(enc_win, pred0, w), 20)
+        say("K", f"{name}: identical ids {share:.4f}, max|d conf| {err:.3e};"
+            f" {len(torch.unique(kk))} distinct ids; kernel {ms_k:.4f} ms, "
+            f"plain {ms_p:.4f} ms")
+        if dtype == torch.float32:
+            if share < 1.0 or err > 1e-5:
+                raise AssertionError("[K] f32 joint argmax disagrees")
+            res["max_abs_err"] = err
+        else:
+            if share < 0.99:
+                raise AssertionError(f"[K] bf16 id agreement {share}")
+            res.update(ms=ms_k, plain_ms=ms_p)
+
+
+def phase_l(results):
+    """The int8 and per-step paths end to end: tiny-digits on the card,
+    then the large preset behind the HTTP server."""
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.server.app import build_state
+    from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
+                                                         TINY_DIGITS_VOCAB,
+                                                         pcm16_digits)
+    int8 = dict(quantization="int8", int8_decode_weights=True)
+    setups = (
+        ("int8 greedy", int8, ("quant_matmul", "greedy_loop_int8")),
+        ("int8 beam", dict(int8, decoding_mode="beam", beam_n_best=3),
+         ("quant_matmul", "beam_loop_int8")),
+        ("per-step", dict(use_pallas_decode_loop=False), ("joint_argmax",)))
+    for label, overrides, names in setups:
+        cfg = Config(audio_sec_buckets=[2.0], batch_buckets=[1, 2],
+                     checkpoint_path=str(TINY_DIGITS_NPZ),
+                     vocabulary_path=str(TINY_DIGITS_VOCAB),
+                     inference_backend="tpu", **overrides)
+        state = build_state(cfg, preset="tiny", warmup=False)
+        kernels.reset_launch_counts()
+        try:
+            tr = state.pipeline.process_batch(
+                pcm16_digits(["two", "five", "nine"]))
+        finally:
+            state.close()
+        counts = kernels.launch_counts()
+        say("L", f"tiny-digits {label}: {tr.text!r} tokens {tr.tokens}; "
+            f"launches {counts}")
+        if tr.text != "two five nine" or tr.tokens != [3, 6, 10] or any(
+                counts[n] < 1 for n in ("log_mel", *names)):
+            raise AssertionError(f"[L] tiny-digits {label} golden mismatch")
+
+    greedy_keys = {"audio_length_samples", "features_length",
+                   "encoded_length", "tokens", "token_details", "words"}
+    beam_keys = {"audio_length_samples", "features_length", "encoded_length",
+                 "tokens", "n_best", "decode_path"}
+    runs = (
+        ("int8-greedy", dict(int8, audio_sec_buckets=[2.0, 30.0]),
+         (2.0, 30.0), greedy_keys, ("quant_matmul", "greedy_loop_int8")),
+        ("int8-beam", dict(int8, decoding_mode="beam", beam_n_best=3,
+                           audio_sec_buckets=[2.0]),
+         (2.0,), beam_keys, ("quant_matmul", "beam_loop_int8")),
+        ("int8-step", dict(quantization="int8", use_pallas_decode_loop=False,
+                           audio_sec_buckets=[2.0]),
+         (2.0,), greedy_keys, ("quant_matmul", "joint_argmax")))
+    req_ms = results["int8_requests_ms"] = {}
+    for name in ("quant_matmul", "joint_argmax", "greedy_loop_int8",
+                 "beam_loop_int8"):
+        results.setdefault(name, {})["launches"] = 0
+    for label, overrides, secs, keys, names in runs:
+        cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                     inference_backend="tpu", batch_buckets=[1],
+                     **overrides)
+        out, counts, _ = serve_large(
+            "L", cfg, [(s, {}) for s in secs], lambda extra: keys, names)
+        for name in ("quant_matmul", "joint_argmax", "greedy_loop_int8",
+                     "beam_loop_int8"):
+            results[name]["launches"] += counts[name]
+        for s, _, _, _, wall in out:
+            req_ms[f"{label}-{s:.0f}s"] = wall * 1e3
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -578,6 +865,14 @@ def main(argv=None) -> int:
         phase_f(results)
     if "H" in phases:
         phase_h(results)
+    if "I" in phases:
+        phase_i(results)
+    if "J" in phases:
+        phase_j(results)
+    if "K" in phases:
+        phase_k(results)
+    if "L" in phases:
+        phase_l(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -589,7 +884,8 @@ def main(argv=None) -> int:
                for name in REPLACES]
     print(json.dumps({"kernels": kernels,
                       "requests_ms": results["requests_ms"],
-                      "beam_requests_ms": results["beam_requests_ms"]}))
+                      "beam_requests_ms": results["beam_requests_ms"],
+                      "int8_requests_ms": results["int8_requests_ms"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

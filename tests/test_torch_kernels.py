@@ -10,7 +10,15 @@ last token exact; carried state within 1e-4 relative), and in bf16 rounds
 at the same points, so at least 90% of tokens agree. The beam kernel, with
 a bias and with a weighted graph: in f32 the best hypotheses' tokens are
 identical and their scores within 1e-4 relative; in bf16 at least 90% of
-their tokens agree.
+their tokens agree. The W8A8 matmul computes the plain version's arithmetic
+in its order (IEEE division, round half to even, exact int32 sums, the
+dequant unfused): identical outputs in f32 and bf16. The joint-argmax kernel
+sums in another order than cuBLAS: f32 ids identical and confidences within
+1e-5, bf16 at least 99% identical ids. The int8 branches of the loop
+kernels quantize values that went through the kernel's own sigmoid and
+tanh, so a value at a rounding tie may quantize a step apart and the decode
+drift from there: greedy f32 needs 99% identical tokens, bf16 90%; beam f32
+identical best tokens on all lanes but at most one, bf16 90%.
 """
 
 import dataclasses
@@ -25,9 +33,18 @@ from amira_rust_asr_server_tpu_torch.ops.beam import (TokenTrie, backtrace,
                                                       finish_trace)
 from amira_rust_asr_server_tpu_torch.ops.kernels import mel
 from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
-    beam_loop, beam_loop_reference)
+    beam_loop, beam_loop_int8, beam_loop_reference)
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
-    DecodeWeights, greedy_loop, greedy_loop_reference)
+    DecodeWeights, greedy_loop, greedy_loop_int8, greedy_loop_reference)
+from amira_rust_asr_server_tpu_torch.ops.kernels.decode_step import (
+    joint_argmax, joint_argmax_reference)
+from amira_rust_asr_server_tpu_torch.ops.kernels.quant_matmul import (
+    quant_matmul, quant_matmul_reference)
+from amira_rust_asr_server_tpu_torch.ops.quant import pack_weight_int8
+
+NO_LAUNCHES = {"log_mel": 0, "greedy_loop": 0, "beam_loop": 0,
+               "quant_matmul": 0, "joint_argmax": 0, "greedy_loop_int8": 0,
+               "beam_loop_int8": 0}
 
 
 @pytest.fixture
@@ -89,6 +106,16 @@ def decode_case(preset: str, dtype, dev, b=6, t=60, seed=0):
     return args, dict(blank_id=cfg.blank_id, max_symbols=30, max_total=200)
 
 
+def share_same_tokens(got, ref) -> float:
+    same = total = 0
+    for i in range(got.counts.shape[0]):
+        n, m = (max(int(got.counts[i]), int(ref.counts[i])),
+                min(int(got.counts[i]), int(ref.counts[i])))
+        same += int((got.tokens[i, :m] == ref.tokens[i, :m]).sum())
+        total += n
+    return same / max(total, 1)
+
+
 @pytest.mark.parametrize("preset", ["tiny", "large"])
 def test_decode_loop_f32_matches_plain(dev, preset):
     args, kw = decode_case(preset, torch.float32, dev)
@@ -110,13 +137,64 @@ def test_decode_loop_bf16_agrees_with_plain(dev, preset):
     args, kw = decode_case(preset, torch.bfloat16, dev)
     got = greedy_loop(*args, **kw)
     ref = greedy_loop_reference(*args, **kw)
-    same = total = 0
-    for i in range(got.counts.shape[0]):
-        n, m = (max(int(got.counts[i]), int(ref.counts[i])),
-                min(int(got.counts[i]), int(ref.counts[i])))
-        same += int((got.tokens[i, :m] == ref.tokens[i, :m]).sum())
-        total += n
-    assert same >= 0.9 * total
+    assert share_same_tokens(got, ref) >= 0.9
+
+
+@pytest.mark.parametrize("dtype, share", [(torch.float32, 0.99),
+                                          (torch.bfloat16, 0.9)])
+@pytest.mark.parametrize("preset", ["tiny", "large"])
+def test_decode_loop_int8_agrees_with_plain(dev, preset, dtype, share):
+    args, kw = decode_case(preset, dtype, dev)
+    args = (*args[:7], args[7].with_int8_lstm())
+    before = (greedy_loop.launches, greedy_loop_int8.launches)
+    got = greedy_loop(*args, **kw)
+    assert (greedy_loop.launches, greedy_loop_int8.launches) == \
+        (before[0], before[1] + 1)
+    ref = greedy_loop_reference(*args, **kw)
+    assert got.counts.sum() > 0
+    assert share_same_tokens(got, ref) >= share
+    for g in (got.state[0], got.state[1], got.pred_out):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [25, 300])
+@pytest.mark.parametrize("k, n", [(64, 128), (144, 48), (1024, 3072),
+                                  (4096, 1024)])
+def test_quant_matmul_kernel_matches_plain(dev, k, n, m, dtype):
+    """Ragged M, K that is not a multiple of the kernel's 64-byte step, N
+    that is not a multiple of its 128-column tile: identical outputs."""
+    rng = np.random.default_rng(k + n + m)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+        np.float32)).to(dev, dtype)
+    w = torch.from_numpy((rng.standard_normal((n, k)) / np.sqrt(k)).astype(
+        np.float32)).to(dev, dtype)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    wq, ws = pack_weight_int8(w)
+    before = quant_matmul.launches
+    got = quant_matmul(x, wq, ws, bias)
+    assert quant_matmul.launches == before + 1
+    ref = quant_matmul_reference(x, wq, ws, bias)
+    assert got.dtype == dtype and got.shape == (m, n)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("preset", ["tiny", "large"])
+def test_joint_argmax_kernel_matches_plain(dev, preset, dtype):
+    args, _ = decode_case(preset, dtype, dev, b=16)
+    enc_pre, pred0, w = args[0], args[4], args[7]
+    enc_win = enc_pre[:, :8].contiguous()
+    before = joint_argmax.launches
+    k, conf = joint_argmax(enc_win, pred0, w)
+    assert joint_argmax.launches == before + 1
+    k_ref, conf_ref = joint_argmax_reference(enc_win, pred0, w)
+    assert k.shape == conf.shape == (16, 8) and k.dtype == torch.int32
+    if dtype == torch.float32:
+        assert torch.equal(k, k_ref)
+        torch.testing.assert_close(conf, conf_ref, rtol=0, atol=1e-5)
+    else:
+        assert (k == k_ref).float().mean().item() >= 0.99
 
 
 def test_decode_loop_token_offset_and_budget(dev):
@@ -151,8 +229,8 @@ def test_pipeline_golden_on_gpu(dev):
     finally:
         state.close()
     assert tr.text == "two five nine" and tr.tokens == [3, 6, 10]
-    assert kernels.launch_counts() == {"log_mel": 1, "greedy_loop": 1,
-                                       "beam_loop": 0}
+    assert kernels.launch_counts() == {**NO_LAUNCHES, "log_mel": 1,
+                                       "greedy_loop": 1}
 
 
 def beam_case(preset: str, dtype, dev, graph: bool, b=4, t=40, seed=0):
@@ -196,6 +274,28 @@ def test_beam_loop_f32_matches_plain(dev, preset, graph):
     assert got.counts.sum() > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("preset", ["tiny", "large"])
+def test_beam_loop_int8_agrees_with_plain(dev, preset, graph, dtype):
+    args, kw, lens = beam_case(preset, dtype, dev, graph)
+    args = (*args[:5], args[5].with_int8_lstm())
+    before = (beam_loop.launches, beam_loop_int8.launches)
+    got = best(beam_loop(*args, **kw), kw["graph"], lens)
+    assert (beam_loop.launches, beam_loop_int8.launches) == \
+        (before[0], before[1] + 1)
+    ref = best(beam_loop_reference(*args, **kw), kw["graph"], lens)
+    assert got.counts.sum() > 0
+    if dtype == torch.float32:
+        same_lanes = sum(
+            np.array_equal(got.tokens[i, :got.counts[i]],
+                           ref.tokens[i, :ref.counts[i]])
+            for i in range(len(lens)))
+        assert same_lanes >= len(lens) - 1
+    else:
+        assert share_same_tokens(got, ref) >= 0.9
+
+
 @pytest.mark.parametrize("beam_width", [3, 16])
 def test_beam_loop_chunks_and_empty_lane(dev, beam_width):
     """Beam widths that take the 4-slot chunk (3) and two 12-slot chunks
@@ -217,13 +317,7 @@ def test_beam_loop_bf16_agrees_with_plain(dev, graph):
     args, kw, lens = beam_case("large", torch.bfloat16, dev, graph)
     got = best(beam_loop(*args, **kw), kw["graph"], lens)
     ref = best(beam_loop_reference(*args, **kw), kw["graph"], lens)
-    same = total = 0
-    for i in range(got.counts.shape[0]):
-        n, m = (max(int(got.counts[i]), int(ref.counts[i])),
-                min(int(got.counts[i]), int(ref.counts[i])))
-        same += int((got.tokens[i, :m] == ref.tokens[i, :m]).sum())
-        total += n
-    assert same >= 0.9 * total
+    assert share_same_tokens(got, ref) >= 0.9
 
 
 def test_beam_pipeline_golden_on_gpu(dev, tmp_path):
@@ -250,5 +344,34 @@ def test_beam_pipeline_golden_on_gpu(dev, tmp_path):
             state.close()
         assert tr.text == "two five nine" and tr.tokens == [3, 6, 10]
         assert tr.decode_path == "pallas_kernel" and tr.n_best
-        assert kernels.launch_counts() == {"log_mel": 1, "greedy_loop": 0,
+        assert kernels.launch_counts() == {**NO_LAUNCHES, "log_mel": 1,
                                            "beam_loop": 1}
+
+
+@pytest.mark.parametrize("overrides, launched", [
+    (dict(quantization="int8", int8_decode_weights=True),
+     ("quant_matmul", "greedy_loop_int8")),
+    (dict(quantization="int8", int8_decode_weights=True,
+          decoding_mode="beam"), ("quant_matmul", "beam_loop_int8")),
+    (dict(use_pallas_decode_loop=False), ("joint_argmax",))])
+def test_int8_and_step_pipeline_golden_on_gpu(dev, overrides, launched):
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.server import build_state
+    from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
+                                                         TINY_DIGITS_VOCAB,
+                                                         pcm16_digits)
+    cfg = Config(audio_sec_buckets=[2.0], batch_buckets=[1, 2],
+                 checkpoint_path=str(TINY_DIGITS_NPZ),
+                 vocabulary_path=str(TINY_DIGITS_VOCAB),
+                 inference_backend="tpu", **overrides)
+    state = build_state(cfg, preset="tiny", warmup=False)
+    kernels.reset_launch_counts()
+    try:
+        tr = state.pipeline.process_batch(pcm16_digits(["two", "five",
+                                                        "nine"]))
+    finally:
+        state.close()
+    assert tr.text == "two five nine" and tr.tokens == [3, 6, 10]
+    counts = kernels.launch_counts()
+    assert all(counts[name] > 0 for name in ("log_mel", *launched)), counts

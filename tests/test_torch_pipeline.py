@@ -8,8 +8,10 @@
 - the committed weights asset equals a fresh conversion of the orbax tree;
 - the port imports without jax (in a subprocess: this test process has jax
   loaded already by tests/conftest.py);
-- what the port does not serve yet is refused loudly (beam search is
-  served: tests/test_torch_beam_pipeline.py).
+- what the port does not serve yet is refused loudly, and what it serves
+  is accepted on the card (beam search: tests/test_torch_beam_pipeline.py;
+  int8: tests/test_torch_quant.py; the per-step greedy route:
+  tests/test_torch_decode_step.py).
 """
 
 import asyncio
@@ -241,8 +243,8 @@ def test_pcm16_conversion_matches_reference():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(model_family="aed"), dict(quantization="int8"),
-    dict(model_family="ctc"), dict(streaming_mode="native")])
+    dict(model_family="aed"), dict(model_family="ctc"),
+    dict(streaming_mode="native")])
 def test_unported_options_are_refused(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_state(digits_config(**overrides), preset="tiny", warmup=False)
@@ -252,12 +254,8 @@ def test_unported_options_are_refused(overrides):
     (dict(use_pallas_mel=False), "csrc/mel.cu"),
     (dict(use_pallas_decode_loop=False, use_pallas_decode_step=False),
      "csrc/decode_loop.cu"),
-    (dict(use_pallas_decode_loop=False), "joint_argmax_pallas"),
-    (dict(int8_decode_weights=True), "ROADMAP.md"),
     (dict(use_pallas_beam_loop=False, decoding_mode="beam"),
-     "csrc/beam_loop.cu .ROADMAP.md queue 2 item 5"),
-    (dict(int8_decode_weights=True, decoding_mode="beam"),
-     "ROADMAP.md queue 2 item 4")])
+     "csrc/beam_loop.cu .ROADMAP.md queue 2 item 5")])
 def test_kernel_off_flags_are_refused_on_cuda(overrides, reason):
     """On the card the kernels always run: a flag that would turn one off
     is refused, on the CPU it changes nothing (the wrappers choose the
@@ -266,6 +264,23 @@ def test_kernel_off_flags_are_refused_on_cuda(overrides, reason):
     with pytest.raises(NotImplementedError, match=reason):
         check_supported(cfg, torch.device("cuda"))
     check_supported(cfg, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(quantization="int8"),
+    dict(quantization="int8", decoding_mode="beam"),
+    dict(int8_decode_weights=True),
+    dict(int8_decode_weights=True, decoding_mode="beam"),
+    dict(quantization="int8", int8_decode_weights=True,
+         decoding_mode="beam"),
+    dict(use_pallas_decode_loop=False),
+    dict(use_pallas_decode_loop=False, quantization="int8")])
+def test_ported_configurations_are_accepted_on_cuda(overrides):
+    """The int8 encoder (W8A8 kernel), the int8 branches of both loop
+    kernels and the per-step greedy route (joint-argmax kernel) are served
+    on the card."""
+    check_supported(digits_config(**overrides), torch.device("cuda"))
+    check_supported(digits_config(**overrides), torch.device("cpu"))
 
 
 def test_accelerator_backend_requires_cuda(monkeypatch):
@@ -287,6 +302,9 @@ def test_port_imports_without_jax():
             "import amira_rust_asr_server_tpu_torch.ops.beam\n"
             "import amira_rust_asr_server_tpu_torch.ops.fst_io\n"
             "import amira_rust_asr_server_tpu_torch.ops.lattice\n"
+            "import amira_rust_asr_server_tpu_torch.ops.quant\n"
+            "import amira_rust_asr_server_tpu_torch.ops.kernels.quant_matmul\n"
+            "import amira_rust_asr_server_tpu_torch.ops.kernels.decode_step\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'flax' not in sys.modules, 'flax was imported'\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

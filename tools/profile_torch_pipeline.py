@@ -10,7 +10,13 @@ their summed device time with ``torch.profiler``, and times how long the
 host takes to issue the call: the device's idle share inside the encoder is
 1 - busy / span. Prints one JSON object. Needs a CUDA device.
 
-    python tools/profile_torch_pipeline.py [--reps 5]
+``--quantization int8`` runs the encoder's block dense layers W8A8 (the
+int8 matmul kernel) and ``--int8-decode-weights`` the int8 branch of the
+decode-loop kernel, as the server's flags of the same names do;
+``--buckets`` picks the (batch x seconds) buckets.
+
+    python tools/profile_torch_pipeline.py [--reps 5] [--quantization int8]
+        [--int8-decode-weights] [--buckets 1x2,16x30]
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from amira_rust_asr_server_tpu_torch.ops.kernels import (  # noqa: E402
 from amira_rust_asr_server_tpu_torch.server.app import (  # noqa: E402
     build_state, parse_batch_request)
 
-BUCKETS = ((1, 2.0), (1, 8.0), (1, 30.0), (16, 30.0))
+BUCKETS = "1x2,1x8,1x30,16x30"
 
 
 def stage_times(pipe, b: int, secs: float, reps: int) -> dict:
@@ -143,23 +149,35 @@ def request_host_ms(secs: float, reps: int) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
-    reps = ap.parse_args(argv).reps
+    ap.add_argument("--quantization", choices=("none", "int8"),
+                    default="none")
+    ap.add_argument("--int8-decode-weights", action="store_true")
+    ap.add_argument("--buckets", default=BUCKETS,
+                    help="comma-separated BATCHxSECONDS")
+    args = ap.parse_args(argv)
+    reps = args.reps
+    buckets = [(int(b), float(s)) for b, s in
+               (x.split("x") for x in args.buckets.split(","))]
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     state = build_state(Config(inference_backend="tpu",
-                               vocabulary_path="model-repo/vocab.txt"),
+                               vocabulary_path="model-repo/vocab.txt",
+                               quantization=args.quantization,
+                               int8_decode_weights=args.int8_decode_weights),
                         preset="large", warmup=False)
+    pipe = state.pipeline
     try:
-        result = {"device": smi, "stages_ms": {
-            f"{b}x{secs:.0f}s": stage_times(state.pipeline, b, secs, reps)
-            for b, secs in BUCKETS},
+        result = {
+            "device": smi, "quantization": args.quantization,
+            "int8_decode_weights": args.int8_decode_weights,
+            "stages_ms": {f"{b}x{secs:.0f}s": stage_times(pipe, b, secs, reps)
+                          for b, secs in buckets},
             "encoder_trace": {
-                f"{b}x{secs:.0f}s": encoder_trace(state.pipeline, b, secs,
-                                                  reps)
-                for b, secs in BUCKETS},
+                f"{b}x{secs:.0f}s": encoder_trace(pipe, b, secs, reps)
+                for b, secs in buckets},
             "request_host_ms": {f"{s:.0f}s": request_host_ms(s, reps)
                                 for s in (2.0, 8.0, 30.0)}}
     finally:
