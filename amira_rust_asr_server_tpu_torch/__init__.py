@@ -7,10 +7,12 @@ to find, and serves the same HTTP surface from PyTorch on an NVIDIA GPU
 by hand in CUDA C++ (``csrc/``), built with ``nvcc`` at first use and bound
 with ``ctypes`` (``ops/kernels/``); everything else is plain PyTorch.
 
-Importing the package needs neither ``nvcc`` nor a GPU, and never imports
-``jax``. The JAX-free leaf modules of the reference (``constants``,
-``config``, ``errors``, ``vocab``, ``reliability``, ``testing.digits``) are
-shared by import.
+Importing the package needs neither ``nvcc`` nor a GPU, and imports neither
+``jax`` nor any module of the JAX package. The reference's leaf modules
+(``constants``, ``config``, ``errors``, ``vocab``, ``reliability``, the
+spoken-digits audio of ``testing``) have copies here. The port reads a
+config or vocabulary by its fields and methods alone, so the tests may hand
+it either package's objects.
 
 Layout:
 

@@ -7,24 +7,43 @@
 // per-call budget of max_total tokens counted from token_offset, and the
 // carried prediction-net state (h, c, pred_out, last token) returned.
 //
-// What bounds it on the card: bytes of weights read per step. Each emission
-// reads both LSTM layers (2 x (E+P) x 4P, 13 MB in bf16 at 640 wide, 6.6 MB
-// as int8) and pred_proj; each joint evaluation reads the output matrix
-// (J x V). The arithmetic is matrix-vector work that the tensor cores cannot
-// help.
+// What bounds it on the card: not bytes (the weights, ~16.5 MB in bf16, are
+// read from device memory once per launch) and not operations (~0.1 GFLOP
+// per emission of 16 lanes), but the chain of dependent phases: every
+// emission needs layer 0, then layer 1, then pred_proj, then the joint,
+// each reading all of the previous phase's output. Measured per round
+// (tools/profile_torch_decode_loop.py, PERF.md): a grid barrier costs 1-2
+// us; what remains of each phase is mostly staging, every block reading
+// the same input rows from L2.
 //
-// Design: one thread block per lane, looping on the device until its own
-// lane is done. Lanes are independent (an inactive lane changes nothing in
-// the TPU kernel's lockstep loop), so per-lane loops give the same results,
-// and a lane stops evaluating the joint at its first non-blank frame. The
-// weights are read from global memory at every step and stay resident in
-// the 50 MB L2 across steps and lanes; h, c, pred_out, the joint hidden
-// vector and the logits live in shared memory. A matrix-vector product
-// gives each thread two adjacent output columns (one 4- or 8-byte load per
-// row, coalesced across the warp). The TPU kernel's one-hot matmul gathers
-// and its explicit min-index argmax were Mosaic lowering workarounds:
-// here the embedding and the window rows are direct reads, and the vocab
-// argmax keeps the first index on ties, as XLA and torch.argmax do.
+// Design: one persistent cooperative launch, one block of 512 threads per
+// SM, all lanes in lockstep as in the TPU kernel's batch loop. Block g owns
+// hidden units [g*pb, (g+1)*pb) of both LSTM layers (the four gate columns
+// of each unit, so the cell update stays in the block), jb columns of
+// pred_proj and vb columns of the joint's output matrix (ops/kernels/
+// decode_loop.py:slice_plan; at flagship widths in bf16 107 blocks of 6
+// units, 8 and 16 columns, else 128 blocks of 5 units, 6 and 10). The
+// wrapper packs those slices per block ([blocks, rows, cols]); in bf16 (and
+// in the int8 branch) the block copies its slices into shared memory once
+// and keeps them for the whole loop, in f32 they do not fit and are read
+// from L2. A phase computes the block's columns for all
+// lanes that need it as a tile product (16 rows x the block's columns, the
+// rows' inputs staged in shared memory): in bf16 on
+// the tensor cores (mma.sync m16n8k16, warps splitting K), otherwise with
+// FMAs (K cut into slices across threads), the biases read from shared
+// memory; it ends in a grid-wide barrier (cooperative groups). The phases
+// of one emission: layer 0, layer 1, pred_proj (each only for lanes that
+// emitted), then the joint for the next window. The joint first evaluates a
+// lane's window frame 0 alone and only then, if that was blank, the rest of
+// the window: the decision is the same as evaluating all F frames, and a
+// frame that emits (the common case right after a blank frame) costs one
+// frame's product instead of F. The vocab argmax is reduced across blocks
+// with a 64-bit atomicMax on (ordered logit, ~index): the max and, on ties,
+// the smallest index, as torch.argmax. The softmax sum for the confidence
+// is combined from each block's (max, sum) by the lane's owner block. Every
+// block keeps the lanes' bookkeeping (t, counts, symbols, window scan) in
+// shared memory and updates it identically after each joint, so all
+// blocks agree on which phases run and when the loop ends.
 //
 // Rounding points follow the TPU kernel: gates, cell update and joint in
 // f32; h, c and pred_out stored in the working type T (float or bf16); the
@@ -32,28 +51,77 @@
 //
 // The int8 branch (Q, the TPU kernel's quant=True, int8_decode_weights):
 // each LSTM matrix arrives split at the x/h boundary as int8 with
-// per-output-column scales, in words of four consecutive rows
-// ([rows / 4, 4P] int32) so one __dp4a takes four rows of a column. Per
-// layer and step, each half of the input gets its own scale (block-wide
-// amax / 127 + 1e-12, over the whole half before any element is quantized),
-// is quantized to int8 in shared memory (x / s rounded half to even), and
-// gates = (acc_x * (s_x * ws_x) + acc_h * (s_h * ws_h)) + b with every
-// product and sum rounded on its own, as the Pallas kernel computes them.
-// Layer 1 reads layer 0's new h unrounded (f32), as the TPU kernel's int8
-// branch does; the stored state is rounded to T as in the other branch.
+// per-output-column scales, in words of four consecutive rows so one
+// __dp4a takes four rows of a column. Per layer and lane, each half of the
+// input gets its own scale (amax / 127 + 1e-12 over the whole half; every
+// block holds the lane's whole input, so no extra barrier), is quantized
+// to int8 (x / s rounded half to even), and gates = (acc_x * (s_x * ws_x) +
+// acc_h * (s_h * ws_h)) + b with every product and sum rounded on its own,
+// as the Pallas kernel computes them. Layer 1 reads layer 0's new h
+// unrounded (f32), as the TPU kernel's int8 branch does.
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
+
+// Built with -DAMIRA_PROFILE_PHASES (tools/profile_torch_decode_loop.py),
+// block 0's thread 0 adds each phase's nanoseconds (%globaltimer) and the
+// rounds to amira_greedy_loop_phase_ns; otherwise PHASE_MARK is empty.
+#ifdef AMIRA_PROFILE_PHASES
+__device__ unsigned long long g_phase_ns[12];
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE_MARK(i)                                \
+  do {                                               \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {       \
+      const unsigned long long t_ = now_ns();        \
+      g_phase_ns[i] += t_ - t_mark;                  \
+      t_mark = t_;                                   \
+    }                                                \
+  } while (0)
+#define PHASE_START unsigned long long t_mark = now_ns()
+#define PHASE_COUNT(i, n)                                          \
+  do {                                                             \
+    if (blockIdx.x == 0 && threadIdx.x == 0) g_phase_ns[i] += (n); \
+  } while (0)
+
+// reset (1) or copy the 12 counters to host memory (0): joint, its barrier,
+// decide, layer 0, its barrier, layer 1, its barrier, pred_proj, its
+// barrier (ns), then rounds, rounds that emitted, joint rows
+extern "C" int amira_greedy_loop_phase_ns(void* host, int reset) {
+  if (reset) {
+    const unsigned long long zero[12] = {};
+    return (int)cudaMemcpyToSymbol(g_phase_ns, zero, sizeof(zero));
+  }
+  return (int)cudaMemcpyFromSymbol(host, g_phase_ns, sizeof(g_phase_ns));
+}
+#else
+#define PHASE_MARK(i)
+#define PHASE_START
+#define PHASE_COUNT(i, n)
+#endif
 
 namespace {
 
 using namespace amira;
+namespace cg = cooperative_groups;
 
 constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
+constexpr int RT = 16;        // rows (lanes or lane x frame) per tile
+constexpr int LANE_FIELDS = 14;
 
 struct Dims {
   int batch, t_max, d_joint, d_pred, d_embed, vocab, max_total, lookahead,
       blank_id, max_symbols;
+  int blocks, pb, jb, vb;  // grid; hidden units, pred_proj and joint
+                           // columns per block
+  int resident;            // weight slices held in shared memory
+  int mma;                 // tile products on the tensor cores (bf16)
 };
 
 template <typename T>
@@ -66,14 +134,23 @@ struct Args {
   const int* last0;     // [B]
   const int* offset;    // [B]
   const T* embed;       // [V, E]
-  const T* w0;          // [E + P, 4P]
-  const float* b0;      // [4P]
-  const T* w1;          // [2P, 4P]
-  const float* b1;      // [4P]
-  const T* wp;          // [P, J]
-  const float* bp;      // [J]
-  const T* wo;          // [J, V]
-  const float* bo;      // [V]
+  // per-block slices [blocks, rows, cols] and their f32 biases [blocks, cols]
+  const T* w0s;         // [G, E + P, 4pb] (gate q of unit u at column q*pb+u)
+  const float* b0s;     // [G, 4pb]
+  const T* w1s;         // [G, 2P, 4pb]
+  const float* b1s;
+  const T* wps;         // [G, P, jb]
+  const float* bps;     // [G, jb]
+  const T* wos;         // [G, J, vb]
+  const float* bos;     // [G, vb]
+  // int8 branch: [G, (E + P) / 4, 4pb] and [G, 2P / 4, 4pb] words of four
+  // int8 rows (the x half's rows first), with the halves' column scales
+  const int* wq0s;
+  const float* sx0s;    // [G, 4pb]
+  const float* sh0s;
+  const int* wq1s;
+  const float* sx1s;
+  const float* sh1s;
   int* tokens;          // [B, max_total]
   int* counts;          // [B]
   int* frames;          // [B, max_total]
@@ -82,269 +159,1009 @@ struct Args {
   T* c_out;             // [2, B, P]
   T* pred_out;          // [B, P]
   int* last_out;        // [B]
-  // int8 branch: the halves of w0 (x: E rows, h: P rows) and of w1 (P, P)
-  // as [rows / 4, 4P] words of four int8 rows, with their column scales
-  const int* wx0;
-  const float* sx0;     // [4P]
-  const int* wh0;
-  const float* sh0;
-  const int* wx1;
-  const float* sx1;
-  const int* wh1;
-  const float* sh1;
+  unsigned char* scratch;  // amira_greedy_loop_scratch_bytes
 };
 
-// shared-memory floats needed for one lane (the int8 branch adds the
-// quantized layer inputs: E + P and 2P bytes)
-__host__ __device__ inline int smem_floats(const Dims& d, bool quant) {
-  const int P = d.d_pred;
-  return (d.d_embed + P) + 2 * P + 2 * P + P + 4 * P + 2 * d.d_joint +
-         d.vocab + 2 * (WARPS + 1) + (quant ? (d.d_embed + 3 * P) / 4 : 0);
+__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
+  const size_t o = at;
+  at = (at + bytes + 15) & ~(size_t)15;
+  return o;
 }
 
-// gates[n] = (qdot(x) + qdot(h)) + b[n] for n < n_cols (even), the W8A8
-// product of one LSTM layer: x [dx] and h [dh] (both multiples of 4) in
-// shared memory are quantized into xq (dx + dh bytes), each with its own
-// scale; wx / wh are [d / 4, n_cols] words of four int8 rows
-__device__ void quant_gates(const float* x, int dx, const float* h, int dh,
-                            const int* __restrict__ wx,
-                            const float* __restrict__ swx,
-                            const int* __restrict__ wh,
-                            const float* __restrict__ swh,
-                            const float* __restrict__ b, int n_cols,
-                            signed char* xq, float* red, float* gates) {
-  float ax = 0.f, ah = 0.f;
-  for (int k = threadIdx.x; k < dx; k += THREADS) ax = fmaxf(ax, fabsf(x[k]));
-  for (int k = threadIdx.x; k < dh; k += THREADS) ah = fmaxf(ah, fabsf(h[k]));
-  const float s_x = quant_scale(block_reduce<THREADS, true>(ax, red));
-  const float s_h = quant_scale(block_reduce<THREADS, true>(ah, red));
-  for (int k = threadIdx.x; k < dx; k += THREADS) xq[k] = quant_int8(x[k], s_x);
-  for (int k = threadIdx.x; k < dh; k += THREADS)
-    xq[dx + k] = quant_int8(h[k], s_h);
-  __syncthreads();
-  const int* xw = reinterpret_cast<const int*>(xq);
-  const int* hw = reinterpret_cast<const int*>(xq + dx);
-  for (int jp = threadIdx.x; jp < n_cols / 2; jp += THREADS) {
-    const int n = 2 * jp;
-    int x0 = 0, x1 = 0, h0 = 0, h1 = 0;
-#pragma unroll 8
-    for (int r = 0; r < dx / 4; ++r) {
-      const int2 w = __ldg(
-          reinterpret_cast<const int2*>(wx + (int64_t)r * n_cols + n));
-      x0 = __dp4a(w.x, xw[r], x0);
-      x1 = __dp4a(w.y, xw[r], x1);
-    }
-#pragma unroll 8
-    for (int r = 0; r < dh / 4; ++r) {
-      const int2 w = __ldg(
-          reinterpret_cast<const int2*>(wh + (int64_t)r * n_cols + n));
-      h0 = __dp4a(w.x, hw[r], h0);
-      h1 = __dp4a(w.y, hw[r], h1);
-    }
-    gates[n] = __fadd_rn(
-        __fadd_rn(dequant(x0, s_x, swx[n]), dequant(h0, s_h, swh[n])), b[n]);
-    gates[n + 1] = __fadd_rn(__fadd_rn(dequant(x1, s_x, swx[n + 1]),
-                                       dequant(h1, s_h, swh[n + 1])),
-                             b[n + 1]);
-  }
+// slices of K of a tile product with nc (even) columns: 4 rows x 2 columns
+// per thread
+__host__ __device__ inline int n_slices(int nc) {
+  const int units = (RT / 4) * (nc / 2);
+  return units >= THREADS ? 1 : THREADS / units;
 }
+
+// global scratch: argmax keys [3, B, F], per-block (max, sum) [3, G, B, F],
+// h of both layers [2 parities, B, P] each, layer 0's unrounded h [B, P],
+// pred_out [B, P] and pred_out @ Wp + bp [B, J], all f32
+struct Scratch {
+  size_t keys, part, hb0, hb1, h0f, pred, pj, end;
+};
+__host__ __device__ inline Scratch scratch_layout(int B, int P, int J, int F,
+                                                  int G) {
+  Scratch s;
+  size_t o = 0;
+  s.keys = take(o, (size_t)3 * B * F * 8);
+  s.part = take(o, (size_t)3 * G * B * F * 8);
+  s.hb0 = take(o, (size_t)2 * B * P * 4);
+  s.hb1 = take(o, (size_t)2 * B * P * 4);
+  s.h0f = take(o, (size_t)B * P * 4);
+  s.pred = take(o, (size_t)B * P * 4);
+  s.pj = take(o, (size_t)B * J * 4);
+  s.end = o;
+  return s;
+}
+
+struct Smem {
+  size_t w0, w1, wp, wo, bias, xs, xf, part, gates, accx, scale, cst, lane,
+      rows, end;
+};
+template <typename T, bool Q>
+__host__ __device__ inline Smem smem_layout(const Dims& d) {
+  const int E = d.d_embed, P = d.d_pred, J = d.d_joint, B = d.batch;
+  const int nc4 = 4 * d.pb;
+  const size_t lw = Q ? sizeof(int) : sizeof(T);
+  const int k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+  Smem s{};
+  size_t o = 0;
+  if (d.resident) {
+    s.w0 = take(o, (size_t)k0 * nc4 * lw);
+    s.w1 = take(o, (size_t)k1 * nc4 * lw);
+    s.wp = take(o, (size_t)P * d.jb * sizeof(T));
+    s.wo = take(o, (size_t)J * d.vb * sizeof(T));
+  }
+  // the block's biases: both layers' gate columns, pred_proj's, the joint's
+  s.bias = take(o, (size_t)(8 * d.pb + d.jb + d.vb) * 4);
+  // float tiles: the LSTM inputs (E + P, 2P; words in the int8 branch),
+  // pred_out (P) and the joint hidden vector (J)
+  int kf = P > J ? P : J;
+  if (!Q) {
+    kf = kf > E + P ? kf : E + P;
+    kf = kf > 2 * P ? kf : 2 * P;
+  }
+  size_t xs = (size_t)RT * kf * sizeof(T);
+  if (Q) {
+    const size_t xq = (size_t)RT * (k0 > k1 ? k0 : k1) * 4;
+    xs = xs > xq ? xs : xq;
+  }
+  s.xs = take(o, xs);
+  s.xf = take(o, Q ? (size_t)RT * (E + P > 2 * P ? E + P : 2 * P) * 4 : 0);
+  size_t parts = 0;
+  const int ncs[3] = {nc4, d.jb, d.vb};
+  int ncmax = 0;
+  for (int i = 0; i < 3; ++i) {
+    const size_t n = (size_t)n_slices(ncs[i]) * RT * ncs[i];
+    parts = parts > n ? parts : n;
+    ncmax = ncmax > ncs[i] ? ncmax : ncs[i];
+  }
+  s.part = take(o, parts * 4);
+  s.gates = take(o, (size_t)RT * ncmax * 4);
+  s.accx = take(o, Q ? (size_t)RT * nc4 * 4 : 0);
+  s.scale = take(o, 2 * RT * 4);
+  s.cst = take(o, (size_t)2 * B * d.pb * 4);
+  s.lane = take(o, (size_t)LANE_FIELDS * B * 4);
+  s.rows = take(o, ((size_t)2 * B * d.lookahead + B + 4) * 4);
+  s.end = o;
+  return s;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// part[s][r][c] = sum over K slice s of x[k][r] * w[k][c], r < RT, c < nc
+// (even); x is the staged tile [K][RT] in shared memory, w the block's
+// slice [K][nc] (shared or global memory). Returns the number of slices.
+template <typename T>
+__device__ int tile_gemm(const T* x, int K, const T* w, int nc, float* part) {
+  const int units = (RT / 4) * (nc / 2), ks = n_slices(nc);
+  for (int i = threadIdx.x; i < units * ks; i += THREADS) {
+    const int s = i / units, u = i - s * units;
+    const int r0 = 4 * (u / (nc / 2)), c0 = 2 * (u % (nc / 2));
+    const int lo = (int)((int64_t)K * s / ks), hi = (int)((int64_t)K * (s + 1) / ks);
+    float acc[4][2] = {};
+#pragma unroll 4
+    for (int k = lo; k < hi; ++k) {
+      float xv[4];
+      load4(x + (int64_t)k * RT + r0, xv);
+      const float2 wv = ld2(w + (int64_t)k * nc + c0);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r][0] = fmaf(xv[r], wv.x, acc[r][0]);
+        acc[r][1] = fmaf(xv[r], wv.y, acc[r][1]);
+      }
+    }
+    float* o = part + ((int64_t)s * RT + r0) * nc + c0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      o[r * nc] = acc[r][0];
+      o[r * nc + 1] = acc[r][1];
+    }
+  }
+  return ks;
+}
+
+// the int8 tile product: x [Kw][RT] and w [Kw][nc] are words of four int8
+// values along K; sums are exact int32
+__device__ int tile_gemm_q(const int* x, int Kw, const int* w, int nc,
+                           int* part) {
+  const int units = (RT / 4) * (nc / 2), ks = n_slices(nc);
+  for (int i = threadIdx.x; i < units * ks; i += THREADS) {
+    const int s = i / units, u = i - s * units;
+    const int r0 = 4 * (u / (nc / 2)), c0 = 2 * (u % (nc / 2));
+    const int lo = (int)((int64_t)Kw * s / ks), hi = (int)((int64_t)Kw * (s + 1) / ks);
+    int acc[4][2] = {};
+#pragma unroll 4
+    for (int k = lo; k < hi; ++k) {
+      const int4 xv = *reinterpret_cast<const int4*>(x + (int64_t)k * RT + r0);
+      const int2 wv = *reinterpret_cast<const int2*>(w + (int64_t)k * nc + c0);
+      const int xs[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        acc[r][0] = __dp4a(wv.x, xs[r], acc[r][0]);
+        acc[r][1] = __dp4a(wv.y, xs[r], acc[r][1]);
+      }
+    }
+    int* o = part + ((int64_t)s * RT + r0) * nc + c0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      o[r * nc] = acc[r][0];
+      o[r * nc + 1] = acc[r][1];
+    }
+  }
+  return ks;
+}
+
+__device__ __forceinline__ void ldsm4t(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+__device__ __forceinline__ void ldsm2t(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+}
+
+// the tensor-core tile product (bf16): part[s][r][c] = the sum over split
+// s's k-steps of x[k][r] w[k][c], r < RT, c < nc (a multiple of 8), K a
+// multiple of 16; x is the staged tile [K][RT] (SWZ layout), w the block's
+// slice [K][nc] in shared memory. A warp takes one 8-column tile and every
+// splits-th k-step (mma.sync m16n8k16, both operands by ldmatrix.trans);
+// returns the number of splits.
+__device__ int tile_mma(const __nv_bfloat16* x, int K,
+                        const __nv_bfloat16* w, int nc, float* part) {
+  const int nt = nc / 8, splits = (THREADS / 32) / nt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < splits * nt) {
+    const int tile = warp % nt, s = warp / nt, i = lane & 7;
+    // A's four 8 x 8 matrices: (k 0-7, rows 0-7), (k 0-7, rows 8-15),
+    // (k 8-15, rows 0-7), (k 8-15, rows 8-15); B's two: k 0-7 and 8-15
+    const int ka = ((lane >> 4) << 3) + i, half = (lane >> 3) & 1;
+    const int kb = (half << 3) + i;
+    float acc[4] = {};
+    for (int k0 = 16 * s; k0 < K; k0 += 16 * splits) {
+      unsigned a[4], b[2];
+      const int k = k0 + ka;
+      ldsm4t(a, x + (int64_t)k * RT + 8 * (half ^ ((k >> 2) & 1)));
+      ldsm2t(b, w + (int64_t)(k0 + kb) * nc + 8 * tile);
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+          : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+            "r"(b[1]));
+    }
+    const int g = lane >> 2, t = lane & 3;
+    float* o = part + ((int64_t)s * RT + g) * nc + 8 * tile + 2 * t;
+    o[0] = acc[0];
+    o[1] = acc[1];
+    o[8 * nc] = acc[2];
+    o[8 * nc + 1] = acc[3];
+  }
+  return splits;
+}
+
+// (logit, index) as one key whose unsigned order is (logit, then the
+// smaller index): atomicMax over the blocks gives torch.argmax's answer
+__device__ __forceinline__ unsigned long long pack_key(float m, int k) {
+  unsigned u = __float_as_uint(m);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xffffffffu - (unsigned)k);
+}
+__device__ __forceinline__ float key_value(unsigned long long key) {
+  unsigned u = (unsigned)(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
+}
+__device__ __forceinline__ int key_index(unsigned long long key) {
+  return (int)(0xffffffffu - (unsigned)(key & 0xffffffffu));
+}
+
+// quantize v[0..n) (f32, n a multiple of 4) with scale s into words of four
+// int8 values, word kw of row r at xq[(kw0 + kw) * RT + r]
+__device__ __forceinline__ int quant_word(const float* v, float s) {
+  int w = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w |= ((int)quant_int8(v[i], s) & 0xff) << (8 * i);
+  return w;
+}
+
+
+// everything one block works with: dimensions, arguments, its shared
+// memory regions, its weight slices (shared or global) and the scratch
+template <typename T, bool Q>
+struct Ctx {
+  using LW = typename std::conditional<Q, int, T>::type;  // LSTM weights
+  Dims d;
+  Args<T> a;
+  int g;
+  T* xs;          // staged tile [K][RT]
+  int* xq;        // the int8 branch's staged words (aliases xs)
+  float* xf;      // the int8 branch's LSTM inputs [K][RT] in f32
+  float* part;    // slice sums [slices][RT][nc]
+  float* gates;   // [RT][nc]
+  int* accx;      // int8 branch: x-half sums [RT][4pb]
+  float* scale;   // int8 branch: the rows' x and h scales [2][RT]
+  float* cst;     // the block's cell states [2][B][pb]
+  // the block's biases: layer 0's and layer 1's gate columns, pred_proj's
+  // and the joint's columns
+  float *b0, *b1, *bp, *bo;
+  // per lane: length, offset, t, count, symbols at t, last token, frames of
+  // the window found blank, h parities of both layers, token emitted this
+  // round (-1: none), frames to evaluate [lo, lo + n), output slot, hit
+  int *len, *off, *tt, *cnt, *sym, *last, *wf, *par0, *par1, *emk, *flo,
+      *fn, *slot, *hit;
+  int *rb, *rf;   // the joint's rows (lane, window frame)
+  int* em;        // lanes that emitted
+  int* flags;     // [0] joint rows, [1] emitted lanes, [2] any lane active
+  const LW* w0;
+  const LW* w1;
+  const T* wp;
+  const T* wo;
+  unsigned long long* keys;  // [3][B][F]
+  float2* pg;                // [3][G][B][F] (max, sum of exp) per block
+  float *hb0, *hb1, *h0f, *pred, *pj;
+};
 
 template <typename T, bool Q>
-__global__ void __launch_bounds__(THREADS)
-greedy_loop_kernel(Dims d, Args<T> a) {
-  extern __shared__ float smem[];
-  const int E = d.d_embed, P = d.d_pred, J = d.d_joint, V = d.vocab;
-  float* xh0 = smem;          // [E + P]: layer-0 input x, then h[0]
-  float* xh1 = xh0 + E + P;   // [2P]: layer-1 input h[0] (new), then h[1]
-  float* cst = xh1 + 2 * P;   // [2P]: c[0], c[1]
-  float* pred = cst + 2 * P;  // [P]: pred_out
-  float* gates = pred + P;    // [4P]
-  float* pj = gates + 4 * P;  // [J]: pred_out @ Wp + bp
-  float* hj = pj + J;         // [J]: joint hidden, rounded to T
-  float* logits = hj + J;     // [V]
-  float* red_v = logits + V;  // [WARPS + 1]
-  int* red_i = reinterpret_cast<int*>(red_v + WARPS + 1);
-  // int8 branch: the quantized inputs of layer 0 (E + P) and layer 1 (2P)
-  signed char* xq0 = reinterpret_cast<signed char*>(red_i + WARPS + 1);
-  signed char* xq1 = xq0 + E + P;
-
-  const int lane = blockIdx.x, tid = threadIdx.x;
-  const int B = d.batch;
-  const int len = a.enc_lens[lane];
-  const int off = a.offset[lane];
-  int last = a.last0[lane];
-
-  for (int j = tid; j < P; j += THREADS) {
-    xh0[E + j] = to_f(a.h0[(int64_t)lane * P + j]);
-    xh1[P + j] = to_f(a.h0[((int64_t)B + lane) * P + j]);
-    cst[j] = to_f(a.c0[(int64_t)lane * P + j]);
-    cst[P + j] = to_f(a.c0[((int64_t)B + lane) * P + j]);
-    pred[j] = to_f(a.pred0[(int64_t)lane * P + j]);
+__device__ Ctx<T, Q> make_ctx(const Dims& d, const Args<T>& a,
+                              unsigned char* smem) {
+  using LW = typename Ctx<T, Q>::LW;
+  Ctx<T, Q> c;
+  c.d = d;
+  c.a = a;
+  c.g = blockIdx.x;
+  const Smem s = smem_layout<T, Q>(d);
+  const int B = d.batch, E = d.d_embed, P = d.d_pred, J = d.d_joint;
+  const int nc4 = 4 * d.pb;
+  c.xs = reinterpret_cast<T*>(smem + s.xs);
+  c.xq = reinterpret_cast<int*>(smem + s.xs);
+  c.xf = reinterpret_cast<float*>(smem + s.xf);
+  c.part = reinterpret_cast<float*>(smem + s.part);
+  c.gates = reinterpret_cast<float*>(smem + s.gates);
+  c.accx = reinterpret_cast<int*>(smem + s.accx);
+  c.scale = reinterpret_cast<float*>(smem + s.scale);
+  c.cst = reinterpret_cast<float*>(smem + s.cst);
+  c.b0 = reinterpret_cast<float*>(smem + s.bias);
+  c.b1 = c.b0 + nc4;
+  c.bp = c.b1 + nc4;
+  c.bo = c.bp + d.jb;
+  int* lane = reinterpret_cast<int*>(smem + s.lane);
+  int** fields[LANE_FIELDS] = {&c.len, &c.off, &c.tt, &c.cnt, &c.sym,
+                               &c.last, &c.wf, &c.par0, &c.par1, &c.emk,
+                               &c.flo, &c.fn, &c.slot, &c.hit};
+  for (int i = 0; i < LANE_FIELDS; ++i) *fields[i] = lane + i * B;
+  c.rb = reinterpret_cast<int*>(smem + s.rows);
+  c.rf = c.rb + B * d.lookahead;
+  c.em = c.rf + B * d.lookahead;
+  c.flags = c.em + B;
+  const int64_t k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+  const LW* w0g = Q ? (const LW*)a.wq0s : (const LW*)a.w0s;
+  const LW* w1g = Q ? (const LW*)a.wq1s : (const LW*)a.w1s;
+  if (d.resident) {
+    c.w0 = reinterpret_cast<const LW*>(smem + s.w0);
+    c.w1 = reinterpret_cast<const LW*>(smem + s.w1);
+    c.wp = reinterpret_cast<const T*>(smem + s.wp);
+    c.wo = reinterpret_cast<const T*>(smem + s.wo);
+  } else {
+    c.w0 = w0g + c.g * k0 * nc4;
+    c.w1 = w1g + c.g * k1 * nc4;
+    c.wp = a.wps + (int64_t)c.g * P * d.jb;
+    c.wo = a.wos + (int64_t)c.g * J * d.vb;
   }
-  for (int s = tid; s < d.max_total; s += THREADS) {
-    a.tokens[(int64_t)lane * d.max_total + s] = d.blank_id;
-    a.frames[(int64_t)lane * d.max_total + s] = 0;
-    a.confs[(int64_t)lane * d.max_total + s] = 0.f;
-  }
-  __syncthreads();
-  matvec<THREADS>(pred, P, a.wp, J, a.bp, pj);
-  __syncthreads();
+  const Scratch sc = scratch_layout(B, P, J, d.lookahead, d.blocks);
+  c.keys = reinterpret_cast<unsigned long long*>(a.scratch + sc.keys);
+  c.pg = reinterpret_cast<float2*>(a.scratch + sc.part);
+  c.hb0 = reinterpret_cast<float*>(a.scratch + sc.hb0);
+  c.hb1 = reinterpret_cast<float*>(a.scratch + sc.hb1);
+  c.h0f = reinterpret_cast<float*>(a.scratch + sc.h0f);
+  c.pred = reinterpret_cast<float*>(a.scratch + sc.pred);
+  c.pj = reinterpret_cast<float*>(a.scratch + sc.pj);
+  return c;
+}
 
-  int t = 0, counts = off, sym = 0;
-  while (t < len && counts < d.max_total) {
-    if (sym >= d.max_symbols) {  // forced advance
-      t += 1;
-      sym = 0;
-      continue;
+// copy n bytes (a multiple of 16) of this block's slice into shared
+// memory, four 16-byte loads in flight per thread
+__device__ void copy_words(void* dst, const void* src, int64_t n) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* o = reinterpret_cast<uint4*>(dst);
+  constexpr int U = 4;
+  for (int64_t base = threadIdx.x; base < n / 16; base += THREADS * U) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * THREADS < n / 16) v[u] = __ldg(s + base + u * THREADS);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * THREADS < n / 16) o[base + u * THREADS] = v[u];
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 add_relu(float4 a, float4 b) {
+  return make_float4(fmaxf(a.x + b.x, 0.f), fmaxf(a.y + b.y, 0.f),
+                     fmaxf(a.z + b.z, 0.f), fmaxf(a.w + b.w, 0.f));
+}
+
+// stage rows r < nr of a tile as x[k][r] (type X) for k < K (a multiple of
+// 4): fetch(r, k) gives values k .. k + 3 of row r. Consecutive threads
+// take consecutive rows (conflict-free stores), and each thread has U loads
+// in flight before it stores. The tensor-core path (SWZ) swaps the two
+// 8-row halves of x[k] where bit 2 of k is set, so tile_mma's ldmatrix rows
+// miss banks; its thread i takes row i % nr and every (512 / nr)-th group
+// of k from i / nr, 8 loads in flight, and leaves rows nr .. RT as they were
+// (a tile product's rows are independent, and only rows below nr are read
+// back): one round of loads for a lone lane. The FMA path walks all RT rows
+// with 4 loads in flight and zeroes rows nr .. RT. On an H100, the
+// tensor-core path's loop made it 1.6x slower at 16 lanes in f32, and this
+// loop made the tensor-core path 1.3x slower at one lane (PERF.md).
+template <bool SWZ, typename X, typename Fetch>
+__device__ void stage_tile(X* x, int nr, int K, Fetch fetch) {
+  if constexpr (SWZ) {
+    constexpr int U = 8;
+    const int per = THREADS / nr, r = threadIdx.x % nr, n4 = K / 4;
+    if (threadIdx.x >= per * nr) return;
+    for (int base = threadIdx.x / nr; base < n4; base += per * U) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int q = base + u * per;
+        if (q < n4) v[u] = fetch(r, 4 * q);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = 4 * (base + u * per);
+        if (k >= K) break;
+        X* o = x + (int64_t)k * RT + (r ^ (((k >> 2) & 1) << 3));
+        o[0] = from_f<X>(v[u].x);
+        o[RT] = from_f<X>(v[u].y);
+        o[2 * RT] = from_f<X>(v[u].z);
+        o[3 * RT] = from_f<X>(v[u].w);
+      }
     }
-    const int n_valid = min(d.lookahead, len - t);
+  } else {
+    constexpr int U = 4;
+    const int n4 = RT * (K / 4);
+    for (int base = threadIdx.x; base < n4; base += THREADS * U) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u * THREADS, r = i % RT;
+        v[u] = i < n4 && r < nr ? fetch(r, 4 * (i / RT))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = base + u * THREADS;
+        if (i >= n4) break;
+        X* o = x + (int64_t)(4 * (i / RT)) * RT + i % RT;
+        o[0] = from_f<X>(v[u].x);
+        o[RT] = from_f<X>(v[u].y);
+        o[2 * RT] = from_f<X>(v[u].z);
+        o[3 * RT] = from_f<X>(v[u].w);
+      }
+    }
+  }
+}
+
+// the frames lane b evaluates next: frame 0 of its window alone, then the
+// rest of the window if frame 0 was blank; none once the lane is done
+template <typename T, bool Q>
+__device__ void set_range(Ctx<T, Q>& c, int b) {
+  const Dims& d = c.d;
+  // a lane at max_symbols is forced one frame on (the reference's loop does
+  // only that in such an iteration, so it is applied at once)
+  while (c.tt[b] < c.len[b] && c.cnt[b] < d.max_total &&
+         c.sym[b] >= d.max_symbols) {
+    c.tt[b] += 1;
+    c.sym[b] = 0;
+  }
+  c.flo[b] = c.wf[b];
+  c.fn[b] = 0;
+  if (c.tt[b] < c.len[b] && c.cnt[b] < d.max_total) {
+    const int n_valid = min(d.lookahead, c.len[b] - c.tt[b]);
+    c.fn[b] = c.wf[b] == 0 ? 1 : n_valid - c.wf[b];
+  }
+}
+
+// by one warp: the lanes that emitted (emitted: emk >= 0) into em, in lane
+// order, and the joint's rows (lane, window frame) with the lanes still
+// active into rows and flags, by ballots and a prefix sum over the lanes
+template <typename T, bool Q>
+__device__ void build_rows(Ctx<T, Q>& c, bool emitted) {
+  const int ln = threadIdx.x & 31;
+  int n_em = 0, n_rows = 0;
+  bool active = false;
+  for (int b0 = 0; b0 < c.d.batch; b0 += 32) {
+    const int b = b0 + ln;
+    const bool on = b < c.d.batch;
+    const bool em = emitted && on && c.emk[b] >= 0;
+    const unsigned m = __ballot_sync(FULL, em);
+    if (em) c.em[n_em + __popc(m & ((1u << ln) - 1))] = b;
+    n_em += __popc(m);
+    const int f = on ? c.fn[b] : 0;
+    int incl = f;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (ln >= o) incl += y;
+    }
+    for (int q = 0; q < f; ++q) {
+      c.rb[n_rows + incl - f + q] = b;
+      c.rf[n_rows + incl - f + q] = c.flo[b] + q;
+    }
+    n_rows += __shfl_sync(FULL, incl, 31);
+    active |= __any_sync(FULL, f > 0);
+  }
+  if (ln == 0) {
+    c.flags[0] = n_rows;
+    if (emitted) c.flags[1] = n_em;
+    c.flags[2] = active;
+  }
+}
+
+// slice sums -> out[r][c] = sum + bias[c] for r < RT, c < nc
+__device__ void reduce_parts(const float* part, int ks, int nc,
+                             const float* bias, float* out) {
+  for (int i = threadIdx.x; i < RT * nc; i += THREADS) {
+    const int r = i / nc, col = i - r * nc;
+    float s = 0.f;
+    for (int q = 0; q < ks; ++q) s += part[(q * RT + r) * nc + col];
+    out[i] = s + bias[col];
+  }
+}
+__device__ void reduce_parts_q(const int* part, int ks, int nc, int* out) {
+  for (int i = threadIdx.x; i < RT * nc; i += THREADS) {
+    const int r = i / nc, col = i - r * nc;
+    int s = 0;
+    for (int q = 0; q < ks; ++q) s += part[(q * RT + r) * nc + col];
+    out[i] = s;
+  }
+}
+
+// out[r][c] = the block's columns c < nc of row r's input times w, plus
+// bias, for the rows r < nr that fetch stages (K values each): on the
+// tensor cores in bf16 when d.mma, else tile_gemm's FMAs
+template <typename T, bool Q, typename Fetch>
+__device__ void tile_product(Ctx<T, Q>& c, int nr, int K, const T* w, int nc,
+                             const float* bias, float* out, Fetch fetch) {
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
+  const bool mma = BF16 && c.d.mma;
+  if (mma)
+    stage_tile<true>(c.xs, nr, K, fetch);
+  else
+    stage_tile<false>(c.xs, nr, K, fetch);
+  __syncthreads();
+  int ks;
+  if constexpr (BF16)
+    ks = mma ? tile_mma(c.xs, K, w, nc, c.part)
+             : tile_gemm(c.xs, K, w, nc, c.part);
+  else
+    ks = tile_gemm(c.xs, K, w, nc, c.part);
+  __syncthreads();
+  reduce_parts(c.part, ks, nc, bias, out);
+}
+
+// pj[b, own columns] = pred[b] @ Wp + bp for the n lanes of em
+template <typename T, bool Q>
+__device__ void pred_proj_phase(Ctx<T, Q>& c, int n) {
+  const Dims& d = c.d;
+  const int P = d.d_pred, J = d.d_joint, jb = d.jb, c_lo = c.g * jb;
+  if (c_lo >= J) return;
+  for (int r0 = 0; r0 < n; r0 += RT) {
+    const int nr = min(RT, n - r0);
+    tile_product(c, nr, P, c.wp, jb, c.bp, c.gates, [&](int r, int k) {
+      return ld4(c.pred + (int64_t)c.em[r0 + r] * P + k);
+    });
+    __syncthreads();
+    for (int i = threadIdx.x; i < nr * jb; i += THREADS) {
+      const int r = i / jb, col = c_lo + i - r * jb;
+      if (col < J) c.pj[(int64_t)c.em[r0 + r] * J + col] = c.gates[i];
+    }
+    __syncthreads();
+  }
+}
+
+// inputs k .. k + 3 (k a multiple of 4) of LSTM layer L for lane b:
+// layer 0 reads [embed(token), h0], layer 1 [h0 new, h1]; the int8 branch
+// feeds layer 1 the unrounded h0
+template <typename T, bool Q, int L>
+__device__ __forceinline__ float4 lstm_in(const Ctx<T, Q>& c, int b, int k) {
+  const Dims& d = c.d;
+  const int B = d.batch, E = d.d_embed, P = d.d_pred;
+  if (L == 0) {
+    if (k < E) {
+      const int tok = c.emk[b];
+      return tok == d.blank_id ? make_float4(0.f, 0.f, 0.f, 0.f)
+                               : ld4(c.a.embed + (int64_t)tok * E + k);
+    }
+    return ld4(c.hb0 + ((int64_t)c.par0[b] * B + b) * P + k - E);
+  }
+  if (k < P)
+    return ld4(Q ? c.h0f + (int64_t)b * P + k
+                 : c.hb0 + ((int64_t)c.par0[b] * B + b) * P + k);
+  return ld4(c.hb1 + ((int64_t)c.par1[b] * B + b) * P + k - P);
+}
+
+// gates of the block's units for one tile of emitted lanes (rows r < nr of
+// em[r0..]) into c.gates [RT][4pb]
+template <typename T, bool Q, int L>
+__device__ void lstm_gates(Ctx<T, Q>& c, int r0, int nr) {
+  const Dims& d = c.d;
+  const int P = d.d_pred, nc4 = 4 * d.pb;
+  const int kx = L == 0 ? d.d_embed : P, K = kx + P;
+  const int64_t off = (int64_t)c.g * nc4;
+  const float* bias = L == 0 ? c.b0 : c.b1;
+  if constexpr (!Q) {
+    tile_product(c, nr, K, L == 0 ? c.w0 : c.w1, nc4, bias, c.gates,
+                 [&](int r, int k) {
+                   return lstm_in<T, Q, L>(c, c.em[r0 + r], k);
+                 });
+  } else {
+    // the rows' inputs as f32 [K][RT], each half's amax and scale (one
+    // warp per row), then the int8 words [K / 4][RT]
+    stage_tile<false>(c.xf, nr, K, [&](int r, int k) {
+      return lstm_in<T, Q, L>(c, c.em[r0 + r], k);
+    });
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+    for (int r = warp; r < RT; r += THREADS / 32) {
+      float ax = 0.f, ah = 0.f;
+      for (int k = ln; k < kx; k += 32) ax = fmaxf(ax, fabsf(c.xf[k * RT + r]));
+      for (int k = kx + ln; k < K; k += 32)
+        ah = fmaxf(ah, fabsf(c.xf[k * RT + r]));
+      for (int o = 16; o; o >>= 1) {
+        ax = fmaxf(ax, __shfl_xor_sync(FULL, ax, o));
+        ah = fmaxf(ah, __shfl_xor_sync(FULL, ah, o));
+      }
+      if (ln == 0) {
+        c.scale[r] = quant_scale(ax);
+        c.scale[RT + r] = quant_scale(ah);
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < RT * (K / 4); i += THREADS) {
+      const int r = i % RT, kw = i / RT;
+      float v[4];
+      for (int q = 0; q < 4; ++q) v[q] = c.xf[(4 * kw + q) * RT + r];
+      c.xq[i] = quant_word(v, c.scale[(4 * kw < kx ? 0 : RT) + r]);
+    }
+    __syncthreads();
+    const int* wq = L == 0 ? c.w0 : c.w1;
+    int ks = tile_gemm_q(c.xq, kx / 4, wq, nc4, reinterpret_cast<int*>(c.part));
+    __syncthreads();
+    reduce_parts_q(reinterpret_cast<int*>(c.part), ks, nc4, c.accx);
+    __syncthreads();
+    ks = tile_gemm_q(c.xq + (int64_t)(kx / 4) * RT, P / 4,
+                     wq + (int64_t)(kx / 4) * nc4, nc4,
+                     reinterpret_cast<int*>(c.part));
+    __syncthreads();
+    const float* swx = (L == 0 ? c.a.sx0s : c.a.sx1s) + off;
+    const float* swh = (L == 0 ? c.a.sh0s : c.a.sh1s) + off;
+    const int* part = reinterpret_cast<const int*>(c.part);
+    for (int i = threadIdx.x; i < RT * nc4; i += THREADS) {
+      const int r = i / nc4, col = i - r * nc4;
+      int acch = 0;
+      for (int q = 0; q < ks; ++q) acch += part[(q * RT + r) * nc4 + col];
+      c.gates[i] = __fadd_rn(
+          __fadd_rn(dequant(c.accx[i], c.scale[r], swx[col]),
+                    dequant(acch, c.scale[RT + r], swh[col])),
+          bias[col]);
+    }
+  }
+  __syncthreads();
+}
+
+// LSTM layer L for the lanes that emitted: gates, cell update, the new h
+// into the other parity's buffer; layer 1's h is also the new pred_out
+template <typename T, bool Q, int L>
+__device__ void lstm_phase(Ctx<T, Q>& c) {
+  const Dims& d = c.d;
+  const int B = d.batch, P = d.d_pred, pb = d.pb, n = c.flags[1];
+  for (int r0 = 0; r0 < n; r0 += RT) {
+    const int nr = min(RT, n - r0);
+    lstm_gates<T, Q, L>(c, r0, nr);
+    for (int i = threadIdx.x; i < nr * pb; i += THREADS) {
+      const int r = i / pb, u = i - r * pb, j = c.g * pb + u;
+      if (j >= P) continue;
+      const int b = c.em[r0 + r];
+      const float* gt = c.gates + r * 4 * pb;
+      float* cs = c.cst + ((int64_t)L * B + b) * pb + u;
+      const float cn = cell(gt[pb + u], *cs, gt[u], gt[2 * pb + u]);
+      const float h = sigmoid(gt[3 * pb + u]) * tanhf(cn);
+      *cs = round_to<T>(cn);
+      if (L == 0) {
+        c.hb0[((int64_t)(1 - c.par0[b]) * B + b) * P + j] = round_to<T>(h);
+        if (Q) c.h0f[(int64_t)b * P + j] = h;
+      } else {
+        const float hr = round_to<T>(h);
+        c.hb1[((int64_t)(1 - c.par1[b]) * B + b) * P + j] = hr;
+        c.pred[(int64_t)b * P + j] = hr;
+      }
+    }
+    __syncthreads();
+  }
+  for (int r = threadIdx.x; r < n; r += THREADS) {
+    int* par = L == 0 ? c.par0 : c.par1;
+    par[c.em[r]] ^= 1;
+  }
+  __syncthreads();
+}
+
+// logits of the block's vocab columns for the joint's rows, each row's
+// (max, first index) into the keys by atomicMax and its (max, sum of exp)
+// into pg
+template <typename T, bool Q>
+__device__ void joint_phase(Ctx<T, Q>& c, int cur) {
+  const Dims& d = c.d;
+  const int B = d.batch, J = d.d_joint, V = d.vocab, F = d.lookahead;
+  const int vb = d.vb, c_lo = c.g * vb, n = c.flags[0];
+  if (c_lo >= V) return;
+  for (int r0 = 0; r0 < n; r0 += RT) {
+    const int nr = min(RT, n - r0);
+    // the joint hidden vector relu(enc + pj), rounded to T by the staging
+    tile_product(c, nr, J, c.wo, vb, c.bo, c.gates, [&](int r, int k) {
+      const int b = c.rb[r0 + r];
+      const int row = min(c.tt[b] + c.rf[r0 + r], d.t_max - 1);
+      return add_relu(ld4(c.a.enc_pre + ((int64_t)b * d.t_max + row) * J + k),
+                      ld4(c.pj + (int64_t)b * J + k));
+    });
+    __syncthreads();
+    for (int r = threadIdx.x; r < nr; r += THREADS) {
+      const float* lg = c.gates + r * vb;
+      const int nv = min(vb, V - c_lo);
+      float m = lg[0];
+      int kb = 0;
+      for (int col = 1; col < nv; ++col)
+        if (lg[col] > m) { m = lg[col]; kb = col; }
+      float s = 0.f;
+      for (int col = 0; col < nv; ++col) s += expf(lg[col] - m);
+      const int b = c.rb[r0 + r], f = c.rf[r0 + r];
+      atomicMax(c.keys + ((int64_t)cur * B + b) * F + f,
+                pack_key(m, c_lo + kb));
+      c.pg[(((int64_t)cur * d.blocks + c.g) * B + b) * F + f] =
+          make_float2(m, s);
+    }
+    __syncthreads();
+  }
+}
+
+// after a joint: every block reads the keys and updates the lanes alike;
+// the lane's owner block (b % blocks) writes its token, frame and
+// confidence
+template <typename T, bool Q>
+__device__ void decide(Ctx<T, Q>& c, int round) {
+  const Dims& d = c.d;
+  const int B = d.batch, F = d.lookahead, cur = round % 3;
+  const unsigned long long* keys = c.keys + (int64_t)cur * B * F;
+  for (int b = threadIdx.x; b < B; b += THREADS) {
+    c.emk[b] = -1;
+    if (c.fn[b] == 0) continue;
     int hit = -1, k = 0;
-    float conf = 0.f;
-    for (int f = 0; f < n_valid; ++f) {
-      const int row = min(t + f, d.t_max - 1);
-      const T* enc_row = a.enc_pre + ((int64_t)lane * d.t_max + row) * J;
-      for (int j = tid; j < J; j += THREADS)
-        hj[j] = round_to<T>(fmaxf(to_f(enc_row[j]) + pj[j], 0.f));
-      __syncthreads();
-      matvec<THREADS>(hj, J, a.wo, V, a.bo, logits);
-      __syncthreads();
-      float m;
-      int kf;
-      block_argmax<THREADS>(logits, V, red_v, red_i, &m, &kf);
-      if (kf != d.blank_id) {
-        float s = 0.f;
-        for (int v = tid; v < V; v += THREADS) s += expf(logits[v] - m);
-        s = block_sum<THREADS>(s, red_v);
-        const float lse = m + logf(s);
+    for (int f = c.flo[b]; f < c.flo[b] + c.fn[b]; ++f) {
+      const int kk = key_index(keys[b * F + f]);
+      if (kk != d.blank_id) {
         hit = f;
-        k = kf;
-        conf = expf(m - lse);
+        k = kk;
         break;
       }
     }
-    if (hit < 0) {  // no non-blank in the window: skip every checked frame
-      t += n_valid;
-      sym = 0;
-      continue;
+    if (hit >= 0) {
+      const int slot = min(max(c.cnt[b] - c.off[b], 0), d.max_total - 1);
+      if (b % d.blocks == c.g) {
+        c.a.tokens[(int64_t)b * d.max_total + slot] = k;
+        c.a.frames[(int64_t)b * d.max_total + slot] = c.tt[b] + hit;
+      }
+      c.slot[b] = slot;
+      c.hit[b] = hit;
+      c.cnt[b] += 1;
+      c.sym[b] = hit > 0 ? 1 : c.sym[b] + 1;
+      c.tt[b] += hit;
+      c.last[b] = k;
+      c.emk[b] = k;
+      c.wf[b] = 0;
+    } else {
+      c.wf[b] = c.flo[b] + c.fn[b];
+      const int n_valid = min(F, c.len[b] - c.tt[b]);
+      if (c.wf[b] >= n_valid) {  // no non-blank in the window
+        c.tt[b] += n_valid;
+        c.sym[b] = 0;
+        c.wf[b] = 0;
+      }
     }
-    if (tid == 0) {
-      const int slot = min(max(counts - off, 0), d.max_total - 1);
-      const int64_t o = (int64_t)lane * d.max_total + slot;
-      a.tokens[o] = k;
-      a.frames[o] = t + hit;
-      a.confs[o] = conf;
-    }
-    counts += 1;
-    sym = hit > 0 ? 1 : sym + 1;
-    t += hit;
-    last = k;
-
-    // prediction-net step on the emitted token (blank embeds to zero)
-    for (int e = tid; e < E; e += THREADS)
-      xh0[e] = k == d.blank_id ? 0.f : to_f(a.embed[(int64_t)k * E + e]);
-    __syncthreads();
-    if constexpr (Q)
-      quant_gates(xh0, E, xh0 + E, P, a.wx0, a.sx0, a.wh0, a.sh0, a.b0,
-                  4 * P, xq0, red_v, gates);
-    else
-      matvec<THREADS>(xh0, E + P, a.w0, 4 * P, a.b0, gates);
-    __syncthreads();
-    for (int j = tid; j < P; j += THREADS) {
-      const float c = cell(gates[P + j], cst[j], gates[j], gates[2 * P + j]);
-      const float h = sigmoid(gates[3 * P + j]) * tanhf(c);
-      cst[j] = round_to<T>(c);
-      xh0[E + j] = round_to<T>(h);
-      xh1[j] = Q ? h : round_to<T>(h);  // the int8 branch feeds f32 h
-    }
-    __syncthreads();
-    if constexpr (Q)
-      quant_gates(xh1, P, xh1 + P, P, a.wx1, a.sx1, a.wh1, a.sh1, a.b1,
-                  4 * P, xq1, red_v, gates);
-    else
-      matvec<THREADS>(xh1, 2 * P, a.w1, 4 * P, a.b1, gates);
-    __syncthreads();
-    for (int j = tid; j < P; j += THREADS) {
-      const float c =
-          cell(gates[P + j], cst[P + j], gates[j], gates[2 * P + j]);
-      const float h = round_to<T>(sigmoid(gates[3 * P + j]) * tanhf(c));
-      cst[P + j] = round_to<T>(c);
-      xh1[P + j] = h;
-      pred[j] = h;
-    }
-    __syncthreads();
-    matvec<THREADS>(pred, P, a.wp, J, a.bp, pj);
-    __syncthreads();
+    set_range(c, b);
   }
-
-  for (int j = tid; j < P; j += THREADS) {
-    a.h_out[(int64_t)lane * P + j] = from_f<T>(xh0[E + j]);
-    a.h_out[((int64_t)B + lane) * P + j] = from_f<T>(xh1[P + j]);
-    a.c_out[(int64_t)lane * P + j] = from_f<T>(cst[j]);
-    a.c_out[((int64_t)B + lane) * P + j] = from_f<T>(cst[P + j]);
-    a.pred_out[(int64_t)lane * P + j] = from_f<T>(pred[j]);
+  __syncthreads();
+  // the keys of the round after next are clear of readers (their last
+  // readers decided before the barrier that preceded this round's joint)
+  if (c.g == 0) {
+    unsigned long long* next = c.keys + (int64_t)((round + 2) % 3) * B * F;
+    for (int i = threadIdx.x; i < B * F; i += THREADS) next[i] = 0ull;
   }
-  if (tid == 0) {
-    a.counts[lane] = counts - off;
-    a.last_out[lane] = last;
+  if (threadIdx.x < 32) {
+    const int ln = threadIdx.x, gv = (d.vocab + d.vb - 1) / d.vb;
+    for (int b = c.g; b < B; b += d.blocks) {
+      if (c.emk[b] < 0) continue;
+      const int f = c.hit[b];
+      const float m = key_value(keys[b * F + f]);
+      float s = 0.f;
+      for (int q = ln; q < gv; q += 32) {
+        const float2 p = c.pg[(((int64_t)cur * d.blocks + q) * B + b) * F + f];
+        s += p.y * expf(p.x - m);
+      }
+      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
+      if (ln == 0) {
+        const float lse = m + logf(s);
+        c.a.confs[(int64_t)b * d.max_total + c.slot[b]] = expf(m - lse);
+      }
+    }
   }
+  if (threadIdx.x >> 5 == 1) build_rows(c, true);  // beside warp 0's sums
+  __syncthreads();
 }
 
 template <typename T, bool Q>
-int launch(const Dims& d, void* const* p, void* stream) {
-  Args<T> a{
-      (const T*)p[0], (const int*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const int*)p[5], (const int*)p[6], (const T*)p[7],
-      (const T*)p[8], (const float*)p[9], (const T*)p[10],
-      (const float*)p[11], (const T*)p[12], (const float*)p[13],
-      (const T*)p[14], (const float*)p[15], (int*)p[16], (int*)p[17],
-      (int*)p[18], (float*)p[19], (T*)p[20], (T*)p[21], (T*)p[22],
-      (int*)p[23], (const int*)p[24], (const float*)p[25],
-      (const int*)p[26], (const float*)p[27], (const int*)p[28],
-      (const float*)p[29], (const int*)p[30], (const float*)p[31]};
-  const size_t smem = sizeof(float) * (size_t)smem_floats(d, Q);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        greedy_loop_kernel<T, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+__global__ void __launch_bounds__(THREADS, 1)
+greedy_loop_kernel(Dims d, Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  Ctx<T, Q> c = make_ctx<T, Q>(d, a, smem);
+  const int B = d.batch, E = d.d_embed, P = d.d_pred, J = d.d_joint;
+  const int pb = d.pb, nc4 = 4 * pb, tid = threadIdx.x;
+
+  // the block's weight slices into shared memory, once
+  if (d.resident) {
+    using LW = typename Ctx<T, Q>::LW;
+    const int64_t k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+    const LW* w0g = Q ? (const LW*)a.wq0s : (const LW*)a.w0s;
+    const LW* w1g = Q ? (const LW*)a.wq1s : (const LW*)a.w1s;
+    const int64_t n0 = k0 * nc4 * sizeof(LW), n1 = k1 * nc4 * sizeof(LW);
+    const int64_t np = (int64_t)P * d.jb * sizeof(T);
+    const int64_t no = (int64_t)J * d.vb * sizeof(T);
+    copy_words((void*)c.w0, (const char*)w0g + c.g * n0, n0);
+    copy_words((void*)c.w1, (const char*)w1g + c.g * n1, n1);
+    copy_words((void*)c.wp, (const char*)a.wps + c.g * np, np);
+    copy_words((void*)c.wo, (const char*)a.wos + c.g * no, no);
   }
-  greedy_loop_kernel<T, Q><<<d.batch, THREADS, smem, (cudaStream_t)stream>>>(
-      d, a);
+  // the block's biases
+  for (int i = tid; i < 8 * pb + d.jb + d.vb; i += THREADS) {
+    const int j = i - 8 * pb, v = j - d.jb;
+    c.b0[i] = i < nc4       ? a.b0s[(int64_t)c.g * nc4 + i]
+              : i < 8 * pb  ? a.b1s[(int64_t)c.g * nc4 + i - nc4]
+              : j < d.jb    ? a.bps[(int64_t)c.g * d.jb + j]
+                            : a.bos[(int64_t)c.g * d.vb + v];
+  }
+  // carried state: the block's units of h, c and pred_out
+  for (int i = tid; i < B * pb; i += THREADS) {
+    const int b = i / pb, u = i - b * pb, j = c.g * pb + u;
+    if (j >= P) continue;
+    const int64_t o0 = (int64_t)b * P + j, o1 = ((int64_t)B + b) * P + j;
+    c.hb0[o0] = to_f(a.h0[o0]);
+    c.hb1[o0] = to_f(a.h0[o1]);
+    c.pred[o0] = to_f(a.pred0[o0]);
+    c.cst[i] = to_f(a.c0[o0]);
+    c.cst[(int64_t)B * pb + i] = to_f(a.c0[o1]);
+  }
+  // outputs: blank tokens past the counts
+  const int64_t n_out = (int64_t)B * d.max_total;
+  for (int64_t i = (int64_t)c.g * THREADS + tid; i < n_out;
+       i += (int64_t)d.blocks * THREADS) {
+    a.tokens[i] = d.blank_id;
+    a.frames[i] = 0;
+    a.confs[i] = 0.f;
+  }
+  if (c.g == 0)
+    for (int i = tid; i < 3 * B * d.lookahead; i += THREADS) c.keys[i] = 0ull;
+  for (int b = tid; b < B; b += THREADS) {
+    c.len[b] = a.enc_lens[b];
+    c.off[b] = a.offset[b];
+    c.tt[b] = 0;
+    c.cnt[b] = c.off[b];
+    c.sym[b] = 0;
+    c.last[b] = a.last0[b];
+    c.wf[b] = 0;
+    c.par0[b] = c.par1[b] = 0;
+    c.emk[b] = -1;
+    c.em[b] = b;
+    set_range(c, b);
+  }
+  grid.sync();
+  pred_proj_phase(c, B);  // pj of the carried pred_out, every lane
+  if (tid < 32) build_rows(c, false);
+  grid.sync();
+
+  PHASE_START;
+  for (int round = 0; c.flags[2]; ++round) {
+    joint_phase(c, round % 3);
+    PHASE_MARK(0);
+    grid.sync();
+    PHASE_MARK(1);
+    PHASE_COUNT(11, c.flags[0]);
+    decide(c, round);
+    PHASE_MARK(2);
+    PHASE_COUNT(9, 1);
+    if (c.flags[1] > 0) {
+      PHASE_COUNT(10, 1);
+      lstm_phase<T, Q, 0>(c);
+      PHASE_MARK(3);
+      grid.sync();
+      PHASE_MARK(4);
+      lstm_phase<T, Q, 1>(c);
+      PHASE_MARK(5);
+      grid.sync();
+      PHASE_MARK(6);
+      pred_proj_phase(c, c.flags[1]);
+      PHASE_MARK(7);
+      grid.sync();
+      PHASE_MARK(8);
+    }
+  }
+
+  for (int i = tid; i < B * pb; i += THREADS) {
+    const int b = i / pb, u = i - b * pb, j = c.g * pb + u;
+    if (j >= P) continue;
+    const int64_t o0 = (int64_t)b * P + j, o1 = ((int64_t)B + b) * P + j;
+    a.h_out[o0] = from_f<T>(c.hb0[((int64_t)c.par0[b] * B + b) * P + j]);
+    a.h_out[o1] = from_f<T>(c.hb1[((int64_t)c.par1[b] * B + b) * P + j]);
+    a.c_out[o0] = from_f<T>(c.cst[i]);
+    a.c_out[o1] = from_f<T>(c.cst[(int64_t)B * pb + i]);
+    a.pred_out[o0] = from_f<T>(c.pred[o0]);
+  }
+  if (c.g == 0)
+    for (int b = tid; b < B; b += THREADS) {
+      a.counts[b] = c.cnt[b] - c.off[b];
+      a.last_out[b] = c.last[b];
+    }
+}
+
+template <typename T, bool Q>
+int launch(Dims d, const Args<T>& a, void* stream) {
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return (int)e;
+  d.resident = 1;  // the slices stay in shared memory when they fit
+  size_t smem = smem_layout<T, Q>(d).end;
+  if (smem > (size_t)optin) {
+    d.resident = 0;
+    smem = smem_layout<T, Q>(d).end;
+  }
+  // bf16 tile products on the tensor cores need the slices in shared
+  // memory, K a multiple of 16 and the block's column counts multiples of
+  // 8 (slice_plan's tensor_cores); the int8 branch keeps its FMA order
+  d.mma = std::is_same<T, __nv_bfloat16>::value && !Q && d.resident &&
+          (d.d_embed % 16 | d.d_pred % 16 | d.d_joint % 16) == 0 &&
+          ((4 * d.pb) % 8 | d.jb % 8 | d.vb % 8) == 0;
+  auto kernel = greedy_loop_kernel<T, Q>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm * sms < d.blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {(void*)&d, (void*)&a};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(d.blocks),
+                                  dim3(THREADS), params, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// bytes of global scratch the kernel needs (keys, per-block partials, h and
+// pred_out buffers)
+extern "C" long long amira_greedy_loop_scratch_bytes(int batch, int d_pred,
+                                                     int d_joint,
+                                                     int lookahead,
+                                                     int blocks) {
+  return (long long)scratch_layout(batch, d_pred, d_joint, lookahead, blocks)
+      .end;
+}
+
 // is_bf16 selects the working type T (1: __nv_bfloat16, 0: float); quant 1
-// runs the int8 branch, which reads wx0 .. sh1 in place of w0 and w1.
-// Pointer order is the Args struct's; biases and scales are f32,
-// lens/last/offset int32.
+// runs the int8 branch, which reads wq0s .. sh1s in place of w0s and w1s.
+// The grid is `blocks` blocks owning pb hidden units, jb pred_proj columns
+// and vb joint columns each (jb, vb even; the tensor-core path also needs
+// 4 pb, jb and vb multiples of 8, else it takes the FMA path), the slices
+// packed per block as the Args struct describes. Pointer order is the Args
+// struct's.
 extern "C" int amira_greedy_loop(
     int is_bf16, int quant, int batch, int t_max, int d_joint, int d_pred,
     int d_embed, int vocab, int max_total, int lookahead, int blank_id,
-    int max_symbols, void* enc_pre, void* enc_lens, void* h0, void* c0,
-    void* pred0, void* last0, void* offset, void* embed, void* w0, void* b0,
-    void* w1, void* b1, void* wp, void* bp, void* wo, void* bo, void* tokens,
+    int max_symbols, int blocks, int pb, int jb, int vb, void* enc_pre,
+    void* enc_lens, void* h0, void* c0, void* pred0, void* last0,
+    void* offset, void* embed, void* w0s, void* b0s, void* w1s, void* b1s,
+    void* wps, void* bps, void* wos, void* bos, void* wq0s, void* sx0s,
+    void* sh0s, void* wq1s, void* sx1s, void* sh1s, void* tokens,
     void* counts, void* frames, void* confs, void* h_out, void* c_out,
-    void* pred_out, void* last_out, void* wx0, void* sx0, void* wh0,
-    void* sh0, void* wx1, void* sx1, void* wh1, void* sh1, void* stream) {
+    void* pred_out, void* last_out, void* scratch, void* stream) {
   if (batch <= 0) return 0;
-  // matvec reads weight columns in pairs and the int8 words hold four rows;
-  // a lane that needs more shared memory than the card offers is refused
-  // by cudaFuncSetAttribute
-  if ((d_joint | vocab) & 1) return (int)cudaErrorInvalidValue;
-  if (quant && ((d_embed | d_pred) & 3)) return (int)cudaErrorInvalidValue;
-  const Dims d{batch,    t_max,    d_joint,  d_pred,   d_embed,
-               vocab,    max_total, lookahead, blank_id, max_symbols};
+  if (blocks <= 0 || pb <= 0 || jb <= 0 || vb <= 0 || (jb | vb) & 1 ||
+      (int64_t)blocks * pb < d_pred || (int64_t)blocks * jb < d_joint ||
+      (int64_t)blocks * vb < vocab || lookahead <= 0)
+    return (int)cudaErrorInvalidValue;
+  // rows are staged four values at a time
+  if ((d_embed | d_pred | d_joint) & 3) return (int)cudaErrorInvalidValue;
+  const Dims d{batch,     t_max,    d_joint,  d_pred,      d_embed,
+               vocab,     max_total, lookahead, blank_id,  max_symbols,
+               blocks,    pb,        jb,        vb,        1,       0};
   void* const p[] = {enc_pre, enc_lens, h0,     c0,     pred0,  last0,
-                     offset,  embed,    w0,     b0,     w1,     b1,
-                     wp,      bp,       wo,     bo,     tokens, counts,
+                     offset,  embed,    w0s,    b0s,    w1s,    b1s,
+                     wps,     bps,      wos,    bos,    wq0s,   sx0s,
+                     sh0s,    wq1s,     sx1s,   sh1s,   tokens, counts,
                      frames,  confs,    h_out,  c_out,  pred_out, last_out,
-                     wx0,     sx0,      wh0,    sh0,    wx1,    sx1,
-                     wh1,     sh1};
+                     scratch};
+  auto args = [&](auto zero) {
+    using T = decltype(zero);
+    return Args<T>{(const T*)p[0],      (const int*)p[1],   (const T*)p[2],
+                   (const T*)p[3],      (const T*)p[4],     (const int*)p[5],
+                   (const int*)p[6],    (const T*)p[7],     (const T*)p[8],
+                   (const float*)p[9],  (const T*)p[10],    (const float*)p[11],
+                   (const T*)p[12],     (const float*)p[13], (const T*)p[14],
+                   (const float*)p[15], (const int*)p[16],  (const float*)p[17],
+                   (const float*)p[18], (const int*)p[19],  (const float*)p[20],
+                   (const float*)p[21], (int*)p[22],        (int*)p[23],
+                   (int*)p[24],         (float*)p[25],      (T*)p[26],
+                   (T*)p[27],           (T*)p[28],          (int*)p[29],
+                   (unsigned char*)p[30]};
+  };
+  const __nv_bfloat16 bz{};
   if (quant)
-    return is_bf16 ? launch<__nv_bfloat16, true>(d, p, stream)
-                   : launch<float, true>(d, p, stream);
-  return is_bf16 ? launch<__nv_bfloat16, false>(d, p, stream)
-                 : launch<float, false>(d, p, stream);
+    return is_bf16 ? launch<__nv_bfloat16, true>(d, args(bz), stream)
+                   : launch<float, true>(d, args(0.f), stream);
+  return is_bf16 ? launch<__nv_bfloat16, false>(d, args(bz), stream)
+                 : launch<float, false>(d, args(0.f), stream);
 }

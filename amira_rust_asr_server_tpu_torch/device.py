@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from amira_rust_asr_server_tpu.errors import DeviceError
+from .errors import DeviceError
 
 
 def resolve_device(inference_backend: str) -> torch.device:

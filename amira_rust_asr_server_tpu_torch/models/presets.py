@@ -11,10 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-from amira_rust_asr_server_tpu.constants import (BLANK_TOKEN_ID,
-                                                 DECODER_STATE_SIZE,
-                                                 ENCODER_OUTPUT_SIZE, N_MELS,
-                                                 VOCABULARY_SIZE)
+from ..constants import (BLANK_TOKEN_ID, DECODER_STATE_SIZE,
+                         ENCODER_OUTPUT_SIZE, N_MELS, VOCABULARY_SIZE)
 
 
 @dataclasses.dataclass(frozen=True)

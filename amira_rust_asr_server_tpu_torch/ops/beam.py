@@ -38,8 +38,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from amira_rust_asr_server_tpu.constants import (DEFAULT_BEAM_WIDTH,
-                                                 MAX_TOTAL_TOKENS)
+from ..constants import DEFAULT_BEAM_WIDTH, MAX_TOTAL_TOKENS
 
 NEG_INF = -1e30
 

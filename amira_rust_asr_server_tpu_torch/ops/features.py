@@ -23,9 +23,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from amira_rust_asr_server_tpu.constants import (HOP_LENGTH, LOG_GUARD, N_FFT,
-                                                 N_MELS, PREEMPHASIS)
-
+from ..constants import HOP_LENGTH, LOG_GUARD, N_FFT, N_MELS, PREEMPHASIS
 from .mel import mel_filterbank, windowed_dft_basis
 
 

@@ -22,8 +22,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from amira_rust_asr_server_tpu.constants import (MAX_SYMBOLS_PER_STEP,
-                                                 MAX_TOTAL_TOKENS)
+from ..constants import MAX_SYMBOLS_PER_STEP, MAX_TOTAL_TOKENS
 
 # pred_fn(tokens [B], state) -> (pred_out [B, P], new_state)
 PredFn = Callable

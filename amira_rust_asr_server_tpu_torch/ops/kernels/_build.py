@@ -45,14 +45,16 @@ I64 = ctypes.c_int64
 # C signatures: name -> argtypes. Entries return an int (a cudaError_t)
 # unless RESTYPES says otherwise.
 SIGNATURES = {
-    "amira_log_mel": [P, I64, I, I, P, P, P, I, P, P],
-    "amira_greedy_loop": [I] * 12 + [P] * 33,
+    "amira_log_mel": [P, I64, I, I, P, P, I, P, P],
+    "amira_greedy_loop_scratch_bytes": [I] * 5,
+    "amira_greedy_loop": [I] * 16 + [P] * 32,
     "amira_beam_loop_scratch_bytes": [I, I, I, I, I],
     "amira_beam_loop": [I] * 12 + [P] * 33,
     "amira_quant_matmul": [I] * 5 + [P] * 8,
     "amira_joint_argmax": [I] * 6 + [P] * 9,
 }
-RESTYPES = {"amira_beam_loop_scratch_bytes": ctypes.c_longlong}
+RESTYPES = {"amira_beam_loop_scratch_bytes": ctypes.c_longlong,
+            "amira_greedy_loop_scratch_bytes": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:

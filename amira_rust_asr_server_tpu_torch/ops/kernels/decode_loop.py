@@ -17,6 +17,10 @@ runs when the weights carry :func:`quantize_pred_lstm`'s output
 ``qdot(x) + qdot(h) + b`` with each half of the input quantized on its own
 scale, and layer 1 reads layer 0's new h unrounded, as the TPU kernel does.
 Its launches count in ``greedy_loop_int8.launches``.
+
+The kernel runs one block per SM, each owning a slice of the columns
+(:func:`slice_plan`); :meth:`DecodeWeights.block_slices` packs the weights
+per block once (:func:`pack_columns`).
 """
 
 from __future__ import annotations
@@ -71,6 +75,44 @@ def pack_rows4(q: torch.Tensor) -> torch.Tensor:
             .view(torch.int32).reshape(k // 4, n))
 
 
+def slice_plan(d_pred: int, d_joint: int, vocab: int, max_blocks: int,
+               tensor_cores: bool):
+    """``(blocks, pb, jb, vb)``: the decode kernel's grid of at most
+    ``max_blocks`` blocks, each owning ``pb`` hidden units (the four gate
+    columns of each, in both LSTM layers), ``jb`` columns of pred_proj and
+    ``vb`` of the joint's output matrix. With ``tensor_cores`` (bf16 weights
+    without the int8 LSTM: the kernel's tile products run as mma.sync) every
+    block's column counts are multiples of 8, the tiles' width; otherwise
+    even, so the FMA products keep the most blocks busy."""
+    align = 8 if tensor_cores else 2
+    pb = -(-d_pred // max_blocks)
+    if tensor_cores:  # 4 pb gate columns, a multiple of 8
+        pb += pb & 1
+    blocks = -(-d_pred // pb)
+
+    def aligned(n):
+        return -(-n // align) * align
+    return (blocks, pb, aligned(-(-d_joint // blocks)),
+            aligned(-(-vocab // blocks)))
+
+
+def pack_columns(w: torch.Tensor, blocks: int, width: int,
+                 groups: int = 1) -> torch.Tensor:
+    """``[K, groups * N]`` -> ``[blocks, K, groups * width]``: block g gets
+    columns ``q * N + g * width + u`` (``u < width``) of each of the
+    ``groups`` column groups, zeros past N. A vector ``[groups * N]`` packs
+    to ``[blocks, groups * width]``."""
+    vec = w.dim() == 1
+    if vec:
+        w = w[None]
+    k, n = w.shape[0], w.shape[1] // groups
+    out = w.new_zeros((k, groups, blocks * width))
+    out[:, :, :n] = w.reshape(k, groups, n)
+    out = (out.reshape(k, groups, blocks, width).permute(2, 0, 1, 3)
+           .reshape(blocks, k, groups * width).contiguous())
+    return out[:, 0] if vec else out
+
+
 @dataclasses.dataclass
 class DecodeWeights:
     """Prediction-net and joint weights as the loop reads them: matrices in
@@ -118,6 +160,33 @@ class DecodeWeights:
         return dataclasses.replace(
             self, quant=q,
             quant_words={k: pack_rows4(q[f"{k}_q"]) for k in INT8_KEYS})
+
+    def block_slices(self, blocks: int, pb: int, jb: int, vb: int
+                     ) -> Dict[str, torch.Tensor]:
+        """The weights packed per block for the decode kernel's grid
+        (:func:`slice_plan`), made once per grid and kept."""
+        key = (blocks, pb, jb, vb)
+        cache = self.__dict__.setdefault("_block_slices", {})
+        if key not in cache:
+            gates = dict(blocks=blocks, width=pb, groups=4)
+            out = {"w0s": pack_columns(self.w0, **gates),
+                   "b0s": pack_columns(self.b0, **gates),
+                   "w1s": pack_columns(self.w1, **gates),
+                   "b1s": pack_columns(self.b1, **gates),
+                   "wps": pack_columns(self.wp, blocks, jb),
+                   "bps": pack_columns(self.bp, blocks, jb),
+                   "wos": pack_columns(self.wo, blocks, vb),
+                   "bos": pack_columns(self.bo, blocks, vb)}
+            if self.quant is not None:
+                w = self.quant_words
+                out["wq0s"] = pack_columns(torch.cat([w["wx0"], w["wh0"]]),
+                                           **gates)
+                out["wq1s"] = pack_columns(torch.cat([w["wx1"], w["wh1"]]),
+                                           **gates)
+                for name in ("sx0", "sh0", "sx1", "sh1"):
+                    out[name + "s"] = pack_columns(self.quant[name], **gates)
+            cache[key] = out
+        return cache[key]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -280,24 +349,33 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
     confs = new((b, max_total), torch.float32)
     h_out, c_out = new((2, b, d_pred), dt), new((2, b, d_pred), dt)
     pred_out, last_out = new((b, d_pred), dt), new((b,), torch.int32)
-    w = weights
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = slice_plan(d_pred, d_joint, v, n_sm, tensor_cores=(
+        dt == torch.bfloat16 and weights.quant is None))
+    sl = weights.block_slices(*plan)
+    q = ["wq0s", "sx0s", "sh0s", "wq1s", "sx1s", "sh1s"]
+    quant = [sl[k].data_ptr() if weights.quant is not None else None
+             for k in q]
+    f = min(lookahead, t_max)
     lib = _build.library()
+    scratch = new((lib.amira_greedy_loop_scratch_bytes(
+        b, d_pred, d_joint, f, plan[0]),), torch.uint8)
     err = lib.amira_greedy_loop(
-        int(dt == torch.bfloat16), int(w.quant is not None), b, t_max,
-        d_joint, d_pred, d_embed, v, max_total, min(lookahead, t_max),
-        blank_id, max_symbols,
-        enc_pre.data_ptr(), ints[0].data_ptr(), h0.data_ptr(), c0.data_ptr(),
-        pred0.data_ptr(), ints[1].data_ptr(), ints[2].data_ptr(),
-        w.embed.data_ptr(), w.w0.data_ptr(), w.b0.data_ptr(),
-        w.w1.data_ptr(), w.b1.data_ptr(), w.wp.data_ptr(), w.bp.data_ptr(),
-        w.wo.data_ptr(), w.bo.data_ptr(), tokens.data_ptr(),
-        counts.data_ptr(), frames.data_ptr(), confs.data_ptr(),
-        h_out.data_ptr(), c_out.data_ptr(), pred_out.data_ptr(),
-        last_out.data_ptr(), *int8_pointers(w),
+        int(dt == torch.bfloat16), int(weights.quant is not None), b, t_max,
+        d_joint, d_pred, d_embed, v, max_total, f, blank_id, max_symbols,
+        *plan, enc_pre.data_ptr(), ints[0].data_ptr(), h0.data_ptr(),
+        c0.data_ptr(), pred0.data_ptr(), ints[1].data_ptr(),
+        ints[2].data_ptr(), weights.embed.data_ptr(),
+        *(sl[k].data_ptr() for k in ("w0s", "b0s", "w1s", "b1s", "wps",
+                                      "bps", "wos", "bos")),
+        *quant, tokens.data_ptr(), counts.data_ptr(), frames.data_ptr(),
+        confs.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
+        pred_out.data_ptr(), last_out.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_greedy_loop")
     with _count_lock:
-        (greedy_loop if w.quant is None else greedy_loop_int8).launches += 1
+        (greedy_loop if weights.quant is None
+         else greedy_loop_int8).launches += 1
     return GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
                         confidence=confs, state=(h_out, c_out),
                         pred_out=pred_out, last_token=last_out)

@@ -4,7 +4,9 @@
 (``ops.features.log_mel_raw``) for a tensor on the CPU, and launches the
 kernel for a CUDA tensor, raising if it cannot; there is no fallback.
 :func:`log_mel_features` is the reference's ``log_mel_features_pallas``
-contract with the kernel inside.
+contract with the kernel inside. The kernel runs both products on the bf16
+tensor cores at f32's precision, each f32 operand split exactly into three
+bf16 parts (:func:`bf16_split3`); :func:`kernel_bases` splits the bases once.
 """
 
 from __future__ import annotations
@@ -15,32 +17,60 @@ import threading
 import numpy as np
 import torch
 
-from amira_rust_asr_server_tpu.constants import (HOP_LENGTH, N_FFT, N_MELS,
-                                                 WIN_LENGTH)
-
+from ...constants import HOP_LENGTH, N_FFT, N_MELS, WIN_LENGTH
 from .. import features
 from ..mel import mel_filterbank, windowed_dft_basis
 from . import _build
 
 N_BINS = N_FFT // 2 + 1
-BINS_PAD = 320                         # csrc/mel.cu: 5 bin groups of 64
+BINS_PAD = 264                         # csrc/mel.cu: 33 k-steps of 8 bins
 WIN_OFF = (N_FFT - WIN_LENGTH) // 2    # first nonzero window row
+WIN_ROWS = 416                         # the window's rows, 26 k-steps of 16
 
 _count_lock = threading.Lock()
 
 
+def bf16_split3(x: np.ndarray) -> np.ndarray:
+    """``[3, *x.shape]`` f32 parts, each a bf16 value (low 16 bits clear),
+    that sum exactly to ``x``: each part is its residual rounded to the
+    nearest bf16, ties to even (``__floats2bfloat162_rn``), and the residual
+    after two parts has at most 8 significant bits."""
+    def bf16(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        bits = bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1))
+        return (bits & np.uint32(0xFFFF0000)).view(np.float32)
+    parts, rest = [], np.asarray(x, np.float32)
+    for _ in range(3):
+        parts.append(bf16(rest))
+        rest = rest - parts[-1]
+    return np.stack(parts)
+
+
+def pack_row_pairs(parts: np.ndarray) -> np.ndarray:
+    """``[3, K, N]`` bf16 parts -> ``[3, K / 2, N]`` int32 words, row ``2p``
+    in the low half of word ``p`` and row ``2p + 1`` in the high half (the
+    bf16 pairs of an ``mma.sync`` B fragment)."""
+    half = (np.ascontiguousarray(parts, np.float32).view(np.uint32) >> 16)
+    return (half[:, 0::2] | (half[:, 1::2] << 16)).view(np.int32)
+
+
 @functools.lru_cache(maxsize=16)
 def kernel_bases(device: torch.device, n_mels: int):
-    """Device constants in the kernel's layout: the basis rows under the
-    window (the other rows are zero), bins zero-padded to 320."""
-    basis = windowed_dft_basis()[WIN_OFF:WIN_OFF + WIN_LENGTH]
-    re = np.zeros((WIN_LENGTH, BINS_PAD), np.float32)
-    im = np.zeros((WIN_LENGTH, BINS_PAD), np.float32)
-    re[:, :N_BINS] = basis[:, :N_BINS]
-    im[:, :N_BINS] = basis[:, N_BINS:]
-    return (torch.as_tensor(re, device=device),
-            torch.as_tensor(im, device=device),
-            torch.as_tensor(mel_filterbank(n_mels), device=device))
+    """Device constants in the kernel's layout, split once into their three
+    bf16 parts and packed in row pairs (:func:`pack_row_pairs`): the
+    windowed DFT basis rows from the window's first nonzero row, 416 of
+    them (rows past the window are zero), each bin's re, im columns side by
+    side, bins zero-padded to 264 (``[3, 208, 528]``), and the filterbank
+    zero-padded to 264 rows (``[3, 132, n_mels]``). Returns ``(basis, fb)``."""
+    basis = windowed_dft_basis()[WIN_OFF:WIN_OFF + WIN_ROWS]
+    inter = np.zeros((WIN_ROWS, BINS_PAD, 2), np.float32)
+    inter[:len(basis), :N_BINS, 0] = basis[:, :N_BINS]
+    inter[:len(basis), :N_BINS, 1] = basis[:, N_BINS:]
+    fb = np.zeros((BINS_PAD, n_mels), np.float32)
+    fb[:N_BINS] = mel_filterbank(n_mels)
+    out = (pack_row_pairs(bf16_split3(inter.reshape(WIN_ROWS, -1))),
+           pack_row_pairs(bf16_split3(fb)))
+    return tuple(torch.as_tensor(x, device=device) for x in out)
 
 
 def log_mel_raw(xp: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor:
@@ -56,14 +86,17 @@ def log_mel_raw(xp: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor:
     n_frames = (row_len - N_FFT) // HOP_LENGTH + 1
     if n_frames < 1:
         raise ValueError(f"log_mel_raw: {row_len} samples hold no frame")
-    basis_re, basis_im, fb = kernel_bases(xp.device, n_mels)
+    if n_mels % 16 or not 16 <= n_mels <= 128:
+        raise ValueError(f"log_mel_raw: the kernel takes n_mels in 16 .. 128 "
+                         f"in steps of 16, got {n_mels}")
+    bases = kernel_bases(xp.device, n_mels)
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32,
                       device=xp.device)
     lib = _build.library()
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     err = lib.amira_log_mel(xp.data_ptr(), row_len, b, n_frames,
-                            basis_re.data_ptr(), basis_im.data_ptr(),
-                            fb.data_ptr(), n_mels, out.data_ptr(), stream)
+                            *(x.data_ptr() for x in bases), n_mels,
+                            out.data_ptr(), stream)
     _build.check(err, "amira_log_mel")
     with _count_lock:
         log_mel_raw.launches += 1

@@ -11,9 +11,8 @@ import functools
 
 import numpy as np
 
-from amira_rust_asr_server_tpu.constants import (HOP_LENGTH, MEL_FMAX,
-                                                 MEL_FMIN, N_FFT, N_MELS,
-                                                 SAMPLE_RATE, WIN_LENGTH)
+from ..constants import (HOP_LENGTH, MEL_FMAX, MEL_FMIN, N_FFT, N_MELS,
+                         SAMPLE_RATE, WIN_LENGTH)
 
 
 def hz_to_mel(freq) -> np.ndarray:

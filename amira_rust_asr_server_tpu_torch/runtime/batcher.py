@@ -24,8 +24,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from amira_rust_asr_server_tpu.errors import CapacityExceededError
-
+from ..errors import CapacityExceededError
 from ..types import Transcription
 from ..utils.async_patterns import ErrorRecoveryManager
 from .pipeline import AsrPipeline, StreamState

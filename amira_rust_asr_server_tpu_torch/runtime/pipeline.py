@@ -36,13 +36,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from amira_rust_asr_server_tpu import constants as C
-from amira_rust_asr_server_tpu.config import Config
-from amira_rust_asr_server_tpu.errors import (ConfigValidationError,
-                                              InvalidAudioFormatError)
-from amira_rust_asr_server_tpu.reliability import get_logger
-from amira_rust_asr_server_tpu.vocab import Vocabulary
-
+from .. import constants as C
+from ..config import Config
+from ..errors import ConfigValidationError, InvalidAudioFormatError
+from ..reliability import get_logger
+from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
 from ..device import resolve_device
 from ..models import Transducer

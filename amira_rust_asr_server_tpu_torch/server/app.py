@@ -29,16 +29,12 @@ from typing import Any, Optional
 import torch
 from aiohttp import web
 
-from amira_rust_asr_server_tpu import constants as C
-from amira_rust_asr_server_tpu.config import Config
-from amira_rust_asr_server_tpu.errors import (AppError,
-                                              CapacityExceededError,
-                                              CircuitOpenError,
-                                              RequestValidationError)
-from amira_rust_asr_server_tpu.reliability import (get_logger, init_tracing,
-                                                   request_span)
-from amira_rust_asr_server_tpu.vocab import Vocabulary
-
+from .. import constants as C
+from ..config import Config
+from ..errors import (AppError, CapacityExceededError, CircuitOpenError,
+                      RequestValidationError)
+from ..reliability import get_logger, init_tracing, request_span
+from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
 from ..convert import load_npz
 from ..device import resolve_device

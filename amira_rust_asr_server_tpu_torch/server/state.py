@@ -7,12 +7,10 @@ from __future__ import annotations
 import concurrent.futures
 from typing import Optional
 
-from amira_rust_asr_server_tpu.config import Config
-from amira_rust_asr_server_tpu.errors import CapacityExceededError
-from amira_rust_asr_server_tpu.reliability import (CircuitBreaker,
-                                                   GracefulShutdown)
-from amira_rust_asr_server_tpu.vocab import Vocabulary
-
+from ..config import Config
+from ..errors import CapacityExceededError
+from ..reliability import CircuitBreaker, GracefulShutdown
+from ..vocab import Vocabulary
 from ..runtime import AsrPipeline, ContinuousBatcher
 from .metrics import PrometheusMetrics, ServiceMetrics
 

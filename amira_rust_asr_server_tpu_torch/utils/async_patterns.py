@@ -8,7 +8,7 @@ import asyncio
 import random
 from typing import Awaitable, Callable, Optional, Type, TypeVar
 
-from amira_rust_asr_server_tpu.reliability import get_logger
+from ..reliability import get_logger
 
 log = get_logger("asr.async")
 T = TypeVar("T")

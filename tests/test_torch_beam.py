@@ -31,7 +31,7 @@ from amira_rust_asr_server_tpu.ops import beam as jb
 from amira_rust_asr_server_tpu.ops import fst_io as jfst
 from amira_rust_asr_server_tpu.ops import lattice as jlat
 from amira_rust_asr_server_tpu.ops.pallas.beam_loop import beam_loop_pallas
-from amira_rust_asr_server_tpu.vocab import Vocabulary
+from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.ops import beam as tb
@@ -41,6 +41,7 @@ from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
     beam_loop, beam_loop_reference)
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
     DecodeWeights
+from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
 
 torch.set_num_threads(2)
 ATOL, RTOL = 1e-5, 1e-6
@@ -76,15 +77,19 @@ def trie_tables(trie):
 
 
 # -- decoding graphs, bias, top-k ---------------------------------------------
-DIGITS = Vocabulary.from_map({0: "▁one", 1: "▁two", 2: "▁t", 3: "wo",
-                              4: "▁three", 5: "▁on", 6: "e"})
+DIGITS_MAP = {0: "▁one", 1: "▁two", 2: "▁t", 3: "wo", 4: "▁three", 5: "▁on",
+              6: "e"}
+# each side gets its own package's vocabulary, made from the same map
+DIGITS = {tb: Vocabulary.from_map(DIGITS_MAP),
+          jb: JaxVocabulary.from_map(DIGITS_MAP)}
 TRIE_CASES = {
     "phrases": lambda m: m.TokenTrie.from_phrases(
-        DIGITS, ["one", "two", "three one"], 9),
+        DIGITS[m], ["one", "two", "three one"], 9),
     "phrases_no_loop": lambda m: m.TokenTrie.from_phrases(
-        DIGITS, ["one two", "three"], 9, loop=False),
+        DIGITS[m], ["one two", "three"], 9, loop=False),
     "weighted_phrases": lambda m: m.TokenTrie.from_phrases(
-        DIGITS, ["one", "two", "three two"], 9, weights=[-0.5, 0.25, -2.0]),
+        DIGITS[m], ["one", "two", "three two"], 9,
+        weights=[-0.5, 0.25, -2.0]),
     "prefix_phrases": lambda m: m.TokenTrie.from_token_seqs(
         [[1, 2], [1, 2, 3], [1], [4], [1, 2]], 7,
         weights=[-1.0, 0.5, -0.25, 2.0, -3.0],
@@ -109,10 +114,11 @@ def test_token_trie_tables_match(case):
 
 
 def test_make_bias_vector_matches_on_real_vocab():
-    vocab = Vocabulary.load("model-repo/vocab.txt")
     phrases = ["hello world", "The Cat sat", "  amira  "]
-    got = tb.make_bias_vector(vocab, phrases, 2.5, 1030)
-    want = np.asarray(jb.make_bias_vector(vocab, phrases, 2.5, 1030))
+    got = tb.make_bias_vector(Vocabulary.load("model-repo/vocab.txt"),
+                              phrases, 2.5, 1030)
+    want = np.asarray(jb.make_bias_vector(
+        JaxVocabulary.load("model-repo/vocab.txt"), phrases, 2.5, 1030))
     assert got.dtype == torch.float32 and (got.numpy() > 0).sum() > 10
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -311,7 +317,8 @@ def test_timed_nbest_and_lattice_match_jax(tiny, n_best):
     for lg, lw in zip(tg, tw):
         np.testing.assert_allclose([x for x, _ in lg], [x for x, _ in lw],
                                    atol=ATOL, rtol=RTOL)
-    vocab = Vocabulary.from_map({i: f"▁w{i}" for i in range(16)})
+    words = {i: f"▁w{i}" for i in range(16)}
+    vocab, jvocab = Vocabulary.from_map(words), JaxVocabulary.from_map(words)
     for lg, lw in zip(tlat.lattice_from_trace(got, lens, n_best=n_best),
                       jlat.lattice_from_trace(want, lens, n_best=n_best)):
         assert (lg.n_nodes, lg.arcs) == (lw.n_nodes, lw.arcs)
@@ -320,7 +327,7 @@ def test_timed_nbest_and_lattice_match_jax(tiny, n_best):
                                    [x for _, x in lw.finals], atol=ATOL,
                                    rtol=RTOL)
         dg = lg.to_dict(vocab=vocab, sec_per_frame=0.04)
-        dw = lw.to_dict(vocab=vocab, sec_per_frame=0.04)
+        dw = lw.to_dict(vocab=jvocab, sec_per_frame=0.04)
         assert {k: dg[k] for k in dg if k != "finals"} == \
             {k: dw[k] for k in dw if k != "finals"}
 
@@ -378,11 +385,11 @@ def test_openfst_file_and_symbols_match_jax(tmp_path):
                    encoding="utf-8")
     (tmp_path / "graph.syms").write_text("<eps> 0\n▁a 1\n▁b 2\n",
                                          encoding="utf-8")
-    vocab = Vocabulary.from_map({0: "▁a", 1: "▁b"})
-    got = tfst.token_trie_from_openfst_file(str(fst), vocab_size=3,
-                                            vocab=vocab)
-    want = jfst.token_trie_from_openfst_file(str(fst), vocab_size=3,
-                                             vocab=vocab)
+    words = {0: "▁a", 1: "▁b"}
+    got = tfst.token_trie_from_openfst_file(
+        str(fst), vocab_size=3, vocab=Vocabulary.from_map(words))
+    want = jfst.token_trie_from_openfst_file(
+        str(fst), vocab_size=3, vocab=JaxVocabulary.from_map(words))
     for g, w in zip(trie_tables(got), trie_tables(want)):
         np.testing.assert_array_equal(g, w)
     assert tfst.load_symbols(str(tmp_path / "graph.syms")) == \

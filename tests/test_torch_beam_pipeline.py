@@ -23,14 +23,15 @@ import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
 
-from amira_rust_asr_server_tpu.config import Config
-from amira_rust_asr_server_tpu.errors import ConfigValidationError
+from amira_rust_asr_server_tpu.config import Config as JaxConfig
 from amira_rust_asr_server_tpu.models import Transducer as JaxTransducer
 from amira_rust_asr_server_tpu.runtime import AsrPipeline as JaxPipeline
 from amira_rust_asr_server_tpu.server import AppState as JaxAppState
 from amira_rust_asr_server_tpu.server import create_app as jax_create_app
-from amira_rust_asr_server_tpu.vocab import Vocabulary
+from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
+from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params
+from amira_rust_asr_server_tpu_torch.errors import ConfigValidationError
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.models.presets import TINY
 from amira_rust_asr_server_tpu_torch.ops.beam import TokenTrie, backtrace
@@ -41,18 +42,21 @@ from amira_rust_asr_server_tpu_torch.server import (AppState, build_state,
 from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      TINY_DIGITS_VOCAB,
                                                      pcm16_digits)
+from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
 
 torch.set_num_threads(2)
 ATOL = 1e-4
-VOCAB = Vocabulary.from_map({i: f"▁w{i}" for i in range(15)})
+WORDS = {i: f"▁w{i}" for i in range(15)}
+# the reference gets its own package's objects, made from the same arguments
+VOCAB, JAX_VOCAB = Vocabulary.from_map(WORDS), JaxVocabulary.from_map(WORDS)
 
 
-def beam_config(**overrides) -> Config:
+def beam_config(config_cls=Config, **overrides):
     kw = dict(audio_sec_buckets=[0.5], batch_buckets=[1, 2],
               max_symbols_per_step=5, max_total_tokens=50,
               decoding_mode="beam", beam_width=4, beam_n_best=3,
               compute_dtype="float32", inference_backend="cpu")
-    return Config(**{**kw, **overrides})
+    return config_cls(**{**kw, **overrides})
 
 
 @pytest.fixture(scope="module")
@@ -72,8 +76,8 @@ def port_pipeline(tiny, cfg, vocab=VOCAB) -> AsrPipeline:
 @pytest.fixture(scope="module")
 def pipelines(tiny):
     jm, params, _ = tiny
-    cfg = beam_config()
-    return JaxPipeline(jm, params, VOCAB, cfg), port_pipeline(tiny, cfg)
+    return (JaxPipeline(jm, params, JAX_VOCAB, beam_config(JaxConfig)),
+            port_pipeline(tiny, beam_config()))
 
 
 def utterances(n=2, seed=0):
@@ -183,7 +187,7 @@ def test_beam_honors_max_total_budget(tiny):
 def test_grammar_files(tiny, tmp_path):
     phrases = tmp_path / "grammar.txt"
     phrases.write_text("▁w1 ▁w2\n▁w3\t-0.5\n\n", encoding="utf-8")
-    vocab = Vocabulary.from_map({i: f"▁w{i}" for i in range(15)})
+    vocab = Vocabulary.from_map(WORDS)
     pipe = port_pipeline(tiny, beam_config(beam_grammar_path=str(phrases)),
                          vocab)
     assert pipe.beam_graph.weighted
@@ -326,9 +330,11 @@ def test_server_matches_jax_server(tiny, mode):
     same ``beam_decode_paths`` in the JSON /metrics."""
     jm, params, _ = tiny
     cfg = beam_config(decoding_mode=mode)
+    jcfg = beam_config(JaxConfig, decoding_mode=mode)
     bodies = REQUESTS if mode == "beam" else REQUESTS[:2]
-    ref_pipe = JaxPipeline(jm, params, VOCAB, cfg)
-    want, want_m = asyncio.run(post_all(JaxAppState(ref_pipe, VOCAB, cfg),
+    ref_pipe = JaxPipeline(jm, params, JAX_VOCAB, jcfg)
+    want, want_m = asyncio.run(post_all(JaxAppState(ref_pipe, JAX_VOCAB,
+                                                    jcfg),
                                         jax_create_app, bodies))
     got, got_m = asyncio.run(post_all(AppState(port_pipeline(tiny, cfg),
                                                VOCAB, cfg),

@@ -30,14 +30,15 @@ import numpy as np
 import pytest
 import torch
 
-from amira_rust_asr_server_tpu.config import Config
+from amira_rust_asr_server_tpu.config import Config as JaxConfig
 from amira_rust_asr_server_tpu.models import Transducer as JaxTransducer
 from amira_rust_asr_server_tpu.ops.greedy import \
     greedy_decode as jax_greedy_decode
 from amira_rust_asr_server_tpu.ops.pallas.decode_step import \
     make_fused_step_fn as jax_make_fused_step_fn
 from amira_rust_asr_server_tpu.runtime import AsrPipeline as JaxPipeline
-from amira_rust_asr_server_tpu.vocab import Vocabulary
+from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
+from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params, load_npz
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.ops.greedy import greedy_decode
@@ -53,6 +54,7 @@ from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      TINY_DIGITS_VOCAB,
                                                      pcm16_digits,
                                                      synth_digits)
+from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
 
 torch.set_num_threads(2)
 CKPT = pathlib.Path(__file__).resolve().parents[1] / "model-repo" / \
@@ -219,14 +221,14 @@ def step_route_spy(monkeypatch):
 def test_step_pipeline_matches_jax_pipeline(step_route_spy, overrides):
     jm = JaxTransducer.from_preset("tiny")
     params = jm.load_checkpoint(str(CKPT))
-    cfg = Config(audio_sec_buckets=[2.0], batch_buckets=[1, 2, 4],
-                 compute_dtype="float32", use_pallas_decode_loop=False,
-                 inference_backend="cpu", **overrides)
-    vocab = Vocabulary.load(TINY_DIGITS_VOCAB)
-    ref = JaxPipeline(jm, params, vocab, cfg)
+    kw = dict(audio_sec_buckets=[2.0], batch_buckets=[1, 2, 4],
+              compute_dtype="float32", use_pallas_decode_loop=False,
+              inference_backend="cpu", **overrides)
+    ref = JaxPipeline(jm, params, JaxVocabulary.load(TINY_DIGITS_VOCAB),
+                      JaxConfig(**kw))
     model = Transducer(jm.config)
     model.load_state_dict(load_npz(TINY_DIGITS_NPZ))
-    pipe = AsrPipeline(model, vocab, cfg)
+    pipe = AsrPipeline(model, Vocabulary.load(TINY_DIGITS_VOCAB), Config(**kw))
     rng = np.random.default_rng(13)
     utts = [["eight", "three"], ["five", "one", "zero"], ["six"]]
     samples = [synth_digits(w, noise=0.004, rng=rng) for w in utts]

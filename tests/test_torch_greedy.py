@@ -356,3 +356,59 @@ def test_bf16_loop_matches_pallas(tiny, case):
         np.testing.assert_allclose(g.float().numpy(),
                                    np.asarray(r, np.float32), rtol=8e-3,
                                    atol=1e-5)
+
+
+def unpack_columns(packed: torch.Tensor, n: int,
+                   groups: int = 1) -> torch.Tensor:
+    """The inverse of ``decode_loop.pack_columns`` for ``n`` columns per
+    group: ``[blocks, K, groups * width]`` -> ``[K, groups * n]`` (a vector
+    ``[blocks, groups * width]`` -> ``[groups * n]``)."""
+    vec = packed.dim() == 2
+    if vec:
+        packed = packed[:, None]
+    blocks, k, gw = packed.shape
+    width = gw // groups
+    out = (packed.reshape(blocks, k, groups, width).permute(1, 2, 0, 3)
+           .reshape(k, groups, blocks * width)[:, :, :n]
+           .reshape(k, groups * n))
+    return out[0] if vec else out
+
+
+@pytest.mark.parametrize("max_blocks", [3, 7, 132])
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_slices_unpack_to_weights(tiny, max_blocks, quant):
+    """The decode kernel's per-block weight slices (``block_slices``) hold
+    the weights exactly: unpacking each gives the original matrix, bias or
+    int8 half, and the padding past each width is zero."""
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
+        slice_plan
+    _, _, model = tiny
+    w = DecodeWeights.from_model(model, torch.bfloat16)
+    if quant:
+        w = w.with_int8_lstm()
+    p, j = w.wp.shape
+    v = w.wo.shape[1]
+    blocks, pb, jb, vb = slice_plan(p, j, v, max_blocks,
+                                    tensor_cores=not quant)
+    assert blocks <= max_blocks and (blocks - 1) * pb < p <= blocks * pb
+    align = 2 if quant else 8
+    assert 4 * pb % align == jb % align == vb % align == 0
+    assert blocks * jb >= j and blocks * vb >= v
+    sl = w.block_slices(blocks, pb, jb, vb)
+    assert sl is w.block_slices(blocks, pb, jb, vb)  # packed once
+    want = {"w0s": (w.w0, 4), "b0s": (w.b0, 4), "w1s": (w.w1, 4),
+            "b1s": (w.b1, 4), "wps": (w.wp, 1), "bps": (w.bp, 1),
+            "wos": (w.wo, 1), "bos": (w.bo, 1)}
+    if quant:
+        qw = w.quant_words
+        want.update(wq0s=(torch.cat([qw["wx0"], qw["wh0"]]), 4),
+                    wq1s=(torch.cat([qw["wx1"], qw["wh1"]]), 4),
+                    **{k + "s": (w.quant[k], 4)
+                       for k in ("sx0", "sh0", "sx1", "sh1")})
+    assert set(sl) == set(want)
+    for name, (orig, groups) in want.items():
+        packed = sl[name]
+        assert packed.shape[0] == blocks and packed.dtype == orig.dtype
+        n = orig.shape[-1] // groups
+        assert torch.equal(unpack_columns(packed, n, groups), orig), name
+        assert int((packed != 0).sum()) == int((orig != 0).sum()), name

@@ -3,8 +3,11 @@ versions, on the card. Every test takes the ``dev`` fixture, which skips it
 (with its reason) where no CUDA device is present; run them on the GPU with
 ``python -m pytest tests/test_torch_kernels.py -q``.
 
-Tolerances: the log-mel kernel sums in another order than cuBLAS, which
-shows in log space where the power is small (1e-3 absolute on raw log-mel);
+Tolerances: the log-mel kernel runs six bf16 part products on the tensor
+cores (f32's precision) and sums in another order than cuBLAS, which shows
+in log space where the power is small (1e-3 absolute on raw log-mel, 1e-4 on
+seeded noise; against a float64 DFT, within twice the plain f32 version's
+own error);
 the decode loop in f32 makes identical decisions (tokens, frames, counts,
 last token exact; carried state within 1e-4 relative), and in bf16 rounds
 at the same points, so at least 90% of tokens agree. The beam kernel, with
@@ -208,6 +211,59 @@ def test_decode_loop_token_offset_and_budget(dev):
     assert torch.equal(got.counts, ref.counts)
     assert torch.equal(got.tokens, ref.tokens)
     assert (got.counts <= torch.clamp(12 - args[6], min=0)).all()
+
+
+@pytest.mark.parametrize("b, max_symbols, lookahead", [
+    (40, 30, 8), (40, 1, 8), (17, 2, 3), (1, 30, 8)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_loop_lockstep_cases(dev, b, max_symbols, lookahead, quant):
+    """The cooperative decode loop at the edges of its design: more lanes
+    than one 16-row tile and than the tiny preset's 16 blocks (a block owns
+    several lanes' outputs), the forced advance at 1 and 2 symbols, a short
+    window, one lane; f32, identical to the plain version."""
+    # seed b + 3: every case has lanes that emit (seed 1 gives the one lane
+    # 2 frames, all blank)
+    args, kw = decode_case("tiny", torch.float32, dev, b=b, t=50,
+                           seed=b + 3)
+    if quant:
+        args = (*args[:7], args[7].with_int8_lstm())
+    kw.update(max_symbols=max_symbols, lookahead=lookahead)
+    got = greedy_loop(*args, **kw)
+    ref = greedy_loop_reference(*args, **kw)
+    assert got.counts.sum() > 0
+    if quant:  # a value at a rounding tie may quantize a step apart
+        assert share_same_tokens(got, ref) >= 0.99
+        return
+    for field in ("counts", "tokens", "frame_idx", "last_token"):
+        assert torch.equal(getattr(got, field), getattr(ref, field)), field
+    torch.testing.assert_close(got.confidence, ref.confidence, rtol=1e-4,
+                               atol=1e-6)
+    for g, r in ((got.state[0], ref.state[0]), (got.state[1], ref.state[1]),
+                 (got.pred_out, ref.pred_out)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_mels", [128, 32])
+def test_log_mel_kernel_as_precise_as_plain(dev, n_mels):
+    """Six bf16 part products on the tensor cores keep f32's precision: on
+    seeded noise the kernel is within 1e-4 of the plain version in log
+    space, and against the DFT in float64 within twice the plain f32
+    version's own error (the two sum in other orders)."""
+    from amira_rust_asr_server_tpu_torch.ops import mel as mel_bases
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy((rng.standard_normal((2, 48000)) * 0.1).astype(
+        np.float32)).to(dev)
+    xp = features.preprocess(w, torch.tensor([48000, 30000],
+                                             device=dev)).contiguous()
+    got, plain = mel.log_mel_raw(xp, n_mels), features.log_mel_raw(xp, n_mels)
+    basis = torch.from_numpy(mel_bases.windowed_dft_basis()).to(dev).double()
+    fb = torch.from_numpy(mel_bases.mel_filterbank(n_mels)).to(dev).double()
+    spec = xp.double().unfold(1, 512, 160) @ basis
+    f64 = torch.log((spec[..., :257] ** 2 + spec[..., 257:] ** 2) @ fb
+                    + 2.0 ** -24)
+    assert (got - plain).abs().max().item() <= 1e-4
+    err = (got.double() - f64).abs().max().item()
+    assert err <= 2 * (plain.double() - f64).abs().max().item()
 
 
 def test_pipeline_golden_on_gpu(dev):

@@ -29,14 +29,15 @@ from aiohttp.test_utils import TestClient, TestServer
 
 from amira_rust_asr_server_tpu.audio import \
     pcm16_bytes_to_f32 as jax_pcm16_to_f32
-from amira_rust_asr_server_tpu.config import Config
-from amira_rust_asr_server_tpu.errors import DeviceError
+from amira_rust_asr_server_tpu.config import Config as JaxConfig
 from amira_rust_asr_server_tpu.models import Transducer as JaxTransducer
 from amira_rust_asr_server_tpu.runtime import AsrPipeline as JaxPipeline
-from amira_rust_asr_server_tpu.vocab import Vocabulary
+from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
 from amira_rust_asr_server_tpu_torch.audio import pcm16_bytes_to_f32
+from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params, load_npz
 from amira_rust_asr_server_tpu_torch.device import resolve_device
+from amira_rust_asr_server_tpu_torch.errors import DeviceError
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
 from amira_rust_asr_server_tpu_torch.runtime.pipeline import check_supported
@@ -46,6 +47,7 @@ from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      TINY_DIGITS_VOCAB,
                                                      pcm16_digits,
                                                      synth_digits)
+from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
 
 torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -95,13 +97,13 @@ def test_pipeline_matches_jax_pipeline(jax_digits):
     """Same weights, same three utterances in one batch, f32 on both sides:
     identical tokens, frames and counts."""
     jm, params = jax_digits
-    cfg = Config(audio_sec_buckets=[2.0], batch_buckets=[1, 2, 4],
-                 compute_dtype="float32", inference_backend="cpu")
-    vocab = Vocabulary.load(TINY_DIGITS_VOCAB)
-    ref_pipe = JaxPipeline(jm, params, vocab, cfg)
+    kw = dict(audio_sec_buckets=[2.0], batch_buckets=[1, 2, 4],
+              compute_dtype="float32", inference_backend="cpu")
+    ref_pipe = JaxPipeline(jm, params, JaxVocabulary.load(TINY_DIGITS_VOCAB),
+                           JaxConfig(**kw))
     model = Transducer(jm.config)
     model.load_state_dict(load_npz(TINY_DIGITS_NPZ))
-    pipe = AsrPipeline(model, vocab, cfg)
+    pipe = AsrPipeline(model, Vocabulary.load(TINY_DIGITS_VOCAB), Config(**kw))
     rng = np.random.default_rng(11)
     utts = [["three", "five", "zero"], ["eight"], ["one", "two", "nine"]]
     samples = [synth_digits(w, noise=0.004, rng=rng) for w in utts]

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from amira_rust_asr_server_tpu.config import Config
+from amira_rust_asr_server_tpu.config import Config as JaxConfig
 from amira_rust_asr_server_tpu.models import Transducer as JaxTransducer
 from amira_rust_asr_server_tpu.ops import beam as jb
 from amira_rust_asr_server_tpu.ops import quant as jq
@@ -40,7 +40,8 @@ from amira_rust_asr_server_tpu.ops.pallas.decode_loop import (
 from amira_rust_asr_server_tpu.ops.pallas.quant_matmul import \
     quant_matmul_pallas
 from amira_rust_asr_server_tpu.runtime import AsrPipeline as JaxPipeline
-from amira_rust_asr_server_tpu.vocab import Vocabulary
+from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
+from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params, load_npz
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.models.encoder import QLinear
@@ -57,6 +58,7 @@ from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      TINY_DIGITS_VOCAB,
                                                      pcm16_digits,
                                                      synth_digits)
+from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
 
 torch.set_num_threads(2)
 CKPT = pathlib.Path(__file__).resolve().parents[1] / "model-repo" / \
@@ -383,14 +385,14 @@ def test_int8_pipeline_matches_jax_pipeline(jax_digits):
     """quantization="int8", f32 on both sides, three utterances in one
     batch: identical tokens and frames."""
     jm, params = jax_digits
-    cfg = Config(audio_sec_buckets=[2.0], batch_buckets=[1, 2, 4],
-                 compute_dtype="float32", quantization="int8",
-                 inference_backend="cpu")
-    vocab = Vocabulary.load(TINY_DIGITS_VOCAB)
-    ref_pipe = JaxPipeline(jm, params, vocab, cfg)
+    kw = dict(audio_sec_buckets=[2.0], batch_buckets=[1, 2, 4],
+              compute_dtype="float32", quantization="int8",
+              inference_backend="cpu")
+    ref_pipe = JaxPipeline(jm, params, JaxVocabulary.load(TINY_DIGITS_VOCAB),
+                           JaxConfig(**kw))
     model = Transducer(jm.config)
     model.load_state_dict(load_npz(TINY_DIGITS_NPZ))
-    pipe = AsrPipeline(model, vocab, cfg)
+    pipe = AsrPipeline(model, Vocabulary.load(TINY_DIGITS_VOCAB), Config(**kw))
     assert pipe.model.config.quant_int8
     rng = np.random.default_rng(12)
     utts = [["four", "zero", "six"], ["two"], ["nine", "one", "three"]]
