@@ -48,9 +48,9 @@ SIGNATURES = {
     "amira_log_mel": [P, I64, I, I, P, P, I, P, P],
     "amira_greedy_loop_scratch_bytes": [I] * 5,
     "amira_greedy_loop": [I] * 16 + [P] * 32,
-    "amira_beam_loop_scratch_bytes": [I, I, I, I, I],
-    "amira_beam_loop": [I] * 12 + [P] * 33,
-    "amira_quant_matmul": [I] * 5 + [P] * 8,
+    "amira_beam_loop_scratch_bytes": [I] * 12,
+    "amira_beam_loop": [I] * 16 + [P] * 31,
+    "amira_quant_matmul": [I] * 5 + [P] * 6,
     "amira_joint_argmax": [I] * 6 + [P] * 9,
 }
 RESTYPES = {"amira_beam_loop_scratch_bytes": ctypes.c_longlong,

@@ -26,6 +26,10 @@ Frames at or past a lane's length skip the joint and LSTM work in the
 kernel; the pool rows (scores, lengths, parents) still equal the scan's, and
 so do the backtrace rows of those frames, although ``backtrace`` never reads
 rows at ``t >= enc_len``.
+
+The kernel is one cooperative launch over the SMs on the greedy kernel's
+grid and per-block weight slices (``decode_loop.loop_grid``); the
+hypothesis rows of all utterances are the rows of its tile products.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ import torch
 
 from ..beam import TokenTrie, beam_scan
 from . import _build
-from .decode_loop import DecodeWeights, check_tensor, int8_pointers, kernel_fns
+from .decode_loop import DecodeWeights, check_tensor, kernel_fns, loop_grid
 
 _count_lock = threading.Lock()
 
@@ -111,22 +115,28 @@ def beam_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
             new((t_max, b, k), i32), new((t_max, b, k), i32),
             new((b, k), i32))
     lib = _build.library()
-    is_bf16 = int(dt == torch.bfloat16)
-    scratch = new((lib.amira_beam_loop_scratch_bytes(is_bf16, b, k, d_pred,
-                                                     v),), torch.uint8)
     w = weights
+    is_bf16, quant = int(dt == torch.bfloat16), int(w.quant is not None)
+    # the greedy kernel's grid and per-block slices
+    plan, slices, quant_slices = loop_grid(w, dev)
+    n_scratch = lib.amira_beam_loop_scratch_bytes(
+        is_bf16, quant, b, d_joint, d_pred, d_embed, v, k, *plan)
+    if n_scratch <= 0:
+        raise ValueError(f"{what}: shapes not supported (batch {b}, beam "
+                         f"{k}, widths {d_embed}/{d_pred}/{d_joint}, "
+                         f"vocab {v})")
+    scratch = new((n_scratch,), torch.uint8)
     err = lib.amira_beam_loop(
-        is_bf16, int(w.quant is not None), b, t_max, d_joint, d_pred,
-        d_embed, v, k, s_max, blank_id, int(graph is not None),
+        is_bf16, quant, b, t_max, d_joint, d_pred, d_embed, v, k, s_max,
+        blank_id, int(graph is not None), *plan,
         enc_pre.data_ptr(), lens.data_ptr(),
         init_h.data_ptr(), init_c.data_ptr(), bias.data_ptr(),
-        w.embed.data_ptr(), w.w0.data_ptr(), w.b0.data_ptr(),
-        w.w1.data_ptr(), w.b1.data_ptr(), w.wp.data_ptr(), w.bp.data_ptr(),
-        w.wo.data_ptr(), w.bo.data_ptr(),
+        w.embed.data_ptr(), *slices,
         None if g_next is None else g_next.data_ptr(),
         None if g_weight is None else g_weight.data_ptr(),
         *(x.data_ptr() for x in outs), scratch.data_ptr(),
-        *int8_pointers(w), torch.cuda.current_stream(dev).cuda_stream)
+        *quant_slices,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_beam_loop")
     with _count_lock:
         (beam_loop if w.quant is None else beam_loop_int8).launches += 1

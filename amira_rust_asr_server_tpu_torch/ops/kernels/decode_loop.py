@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -114,6 +114,30 @@ def pack_columns(w: torch.Tensor, blocks: int, width: int,
 
 
 @dataclasses.dataclass
+class JointWeights:
+    """The joint's weights as the decode kernels read them: matrices in the
+    working type, biases in f32. The step kernel (``decode_step``) reads
+    these alone, so it serves any prediction-net depth."""
+
+    wp: torch.Tensor      # [P, J]
+    bp: torch.Tensor      # [J] f32
+    wo: torch.Tensor      # [J, V]
+    bo: torch.Tensor      # [V] f32
+
+    @classmethod
+    def from_model(cls, model, dtype: torch.dtype) -> "JointWeights":
+        joint = model.joint
+        return cls(wp=joint.pred_proj.w.detach().to(dtype).contiguous(),
+                   bp=joint.pred_proj.b.detach().float().contiguous(),
+                   wo=joint.out.w.detach().to(dtype).contiguous(),
+                   bo=joint.out.b.detach().float().contiguous())
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.wo.dtype
+
+
+@dataclasses.dataclass
 class DecodeWeights:
     """Prediction-net and joint weights as the loop reads them: matrices in
     the working type, biases in f32 (the reference's layouts)."""
@@ -192,6 +216,10 @@ class DecodeWeights:
     def dtype(self) -> torch.dtype:
         return self.embed.dtype
 
+    @property
+    def joint(self) -> JointWeights:
+        return JointWeights(wp=self.wp, bp=self.bp, wo=self.wo, bo=self.bo)
+
     def check(self, what: str, device: torch.device) -> None:
         """Raise unless every weight is what the kernel ``what`` reads."""
         v, e = self.embed.shape
@@ -265,10 +293,10 @@ def kernel_fns(weights: DecodeWeights, blank_id: int):
         h0n, h1n, c0n, c1n = (v.to(dt) for v in (h0n, h1n, c0n, c1n))
         return h1n, (torch.stack([h0n, h1n]), torch.stack([c0n, c1n]))
 
-    return pred_fn, joint_fn(weights)
+    return pred_fn, joint_fn(weights.joint)
 
 
-def joint_fn(weights: DecodeWeights):
+def joint_fn(weights: JointWeights):
     """The joint as the decode kernels round it: f32 accumulation, the
     hidden vector rounded to the working type before the output matrix."""
     dt = weights.dtype
@@ -303,6 +331,29 @@ def check_tensor(what, name, x, dtype, shape, device):
             f"{what}: {name} must be a contiguous {dtype} tensor of shape "
             f"{shape} on {device}, got {x.dtype} {tuple(x.shape)} on "
             f"{x.device}{'' if x.is_contiguous() else ' (non-contiguous)'}")
+
+
+SLICES = ("w0s", "b0s", "w1s", "b1s", "wps", "bps", "wos", "bos")
+INT8_SLICES = ("wq0s", "sx0s", "sh0s", "wq1s", "sx1s", "sh1s")
+
+
+def loop_grid(weights: DecodeWeights, device: torch.device
+              ) -> Tuple[Tuple[int, int, int, int], List[int],
+                         List[Optional[int]]]:
+    """The grid of both loop kernels (greedy and beam) on ``device``: one
+    block per SM (:func:`slice_plan`, on the tensor cores for bf16 weights
+    without the int8 LSTM), and the addresses of its per-block slices, as
+    ``(plan, slice pointers, int8 slice pointers)``; the int8 ones are
+    ``None`` without ``weights.quant``."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    d_pred, d_joint = weights.wp.shape
+    plan = slice_plan(d_pred, d_joint, weights.bo.shape[0], n_sm,
+                      tensor_cores=(weights.dtype == torch.bfloat16
+                                    and weights.quant is None))
+    sl = weights.block_slices(*plan)
+    return (plan, [sl[k].data_ptr() for k in SLICES],
+            [sl[k].data_ptr() if weights.quant is not None else None
+             for k in INT8_SLICES])
 
 
 def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
@@ -349,13 +400,7 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
     confs = new((b, max_total), torch.float32)
     h_out, c_out = new((2, b, d_pred), dt), new((2, b, d_pred), dt)
     pred_out, last_out = new((b, d_pred), dt), new((b,), torch.int32)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = slice_plan(d_pred, d_joint, v, n_sm, tensor_cores=(
-        dt == torch.bfloat16 and weights.quant is None))
-    sl = weights.block_slices(*plan)
-    q = ["wq0s", "sx0s", "sh0s", "wq1s", "sx1s", "sh1s"]
-    quant = [sl[k].data_ptr() if weights.quant is not None else None
-             for k in q]
+    plan, slices, quant = loop_grid(weights, dev)
     f = min(lookahead, t_max)
     lib = _build.library()
     scratch = new((lib.amira_greedy_loop_scratch_bytes(
@@ -365,9 +410,7 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
         d_joint, d_pred, d_embed, v, max_total, f, blank_id, max_symbols,
         *plan, enc_pre.data_ptr(), ints[0].data_ptr(), h0.data_ptr(),
         c0.data_ptr(), pred0.data_ptr(), ints[1].data_ptr(),
-        ints[2].data_ptr(), weights.embed.data_ptr(),
-        *(sl[k].data_ptr() for k in ("w0s", "b0s", "w1s", "b1s", "wps",
-                                      "bps", "wos", "bos")),
+        ints[2].data_ptr(), weights.embed.data_ptr(), *slices,
         *quant, tokens.data_ptr(), counts.data_ptr(), frames.data_ptr(),
         confs.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
         pred_out.data_ptr(), last_out.data_ptr(), scratch.data_ptr(),
@@ -379,15 +422,6 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
     return GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
                         confidence=confs, state=(h_out, c_out),
                         pred_out=pred_out, last_token=last_out)
-
-
-def int8_pointers(w: DecodeWeights):
-    """The int8 branch's arguments of both loop kernels (wx0, sx0, wh0, sh0,
-    wx1, sx1, wh1, sh1), or nulls."""
-    if w.quant is None:
-        return [None] * 8
-    return [x.data_ptr() for k in INT8_KEYS
-            for x in (w.quant_words[k], w.quant["s" + k[1:]])]
 
 
 greedy_loop.launches = 0

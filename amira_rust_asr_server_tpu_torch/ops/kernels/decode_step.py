@@ -9,8 +9,10 @@ kernels' plain joint (``decode_loop.joint_fn``: ``p = pred_out @ Wp + bp``
 and ``h = relu(enc + p)`` in f32, ``h`` rounded to the working type before
 the output matrix) followed by the first-index argmax and
 ``exp(max - logsumexp)``; for CUDA tensors it launches the kernel
-or raises. :func:`make_fused_step_fn` binds it to the decode weights as
-``ops.greedy.greedy_decode``'s ``fused_step_fn``.
+or raises. :func:`make_fused_step_fn` binds it to the joint's weights as
+``ops.greedy.greedy_decode``'s ``fused_step_fn``. The kernel reads only the
+joint: it takes a :class:`JointWeights` (``JointWeights.from_model`` for any
+prediction-net depth, or ``DecodeWeights.joint``).
 """
 
 from __future__ import annotations
@@ -21,13 +23,13 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .decode_loop import DecodeWeights, check_tensor, joint_fn
+from .decode_loop import JointWeights, check_tensor, joint_fn
 
 _count_lock = threading.Lock()
 
 
 def joint_argmax_reference(enc_win: torch.Tensor, pred_out: torch.Tensor,
-                           weights: DecodeWeights
+                           weights: JointWeights
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel (same arguments, same result)."""
     b, f, j = enc_win.shape
@@ -41,7 +43,7 @@ def joint_argmax_reference(enc_win: torch.Tensor, pred_out: torch.Tensor,
 
 
 def joint_argmax(enc_win: torch.Tensor, pred_out: torch.Tensor,
-                 weights: DecodeWeights) -> Tuple[torch.Tensor, torch.Tensor]:
+                 weights: JointWeights) -> Tuple[torch.Tensor, torch.Tensor]:
     """``enc_win [B, F, J]`` (rows of the joint's precomputed encoder
     projection) and ``pred_out [B, P]``, both in the weights' working type
     -> (``k [B, F]`` int32, ``conf [B, F]`` f32); one launch on CUDA."""
@@ -81,7 +83,7 @@ def joint_argmax(enc_win: torch.Tensor, pred_out: torch.Tensor,
 joint_argmax.launches = 0
 
 
-def make_fused_step_fn(weights: DecodeWeights):
+def make_fused_step_fn(weights: JointWeights):
     """A ``greedy_decode`` ``fused_step_fn`` bound to the joint weights
     (port of ops/pallas/decode_step.py ``make_fused_step_fn``); the loop
     runs over the joint's precomputed encoder projection."""

@@ -23,7 +23,7 @@ import torch
 from . import _build
 from .decode_loop import check_tensor, quant_scale
 
-K_ALIGN = 64  # the kernel's K step in bytes
+K_ALIGN = 64  # wq's K padding (the kernel zero-fills its 128-byte steps)
 _count_lock = threading.Lock()
 
 
@@ -49,7 +49,9 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                  bias: torch.Tensor) -> torch.Tensor:
     """``x [M, K]`` (f32 or bf16) through the int8 weight ``wq [N, Kp]``,
     ``w_scale [N]`` f32 and ``bias [N]`` f32 -> ``[M, N]`` in the type of
-    ``x``; one row-quant and one GEMM launch on CUDA."""
+    ``x``; one launch on CUDA (the row quantization fused into the GEMM),
+    which reads x's rows by TMA: K * x.element_size() a multiple of 16
+    bytes, x and wq 16-byte aligned."""
     dev = x.device
     if dev.type == "cpu":
         return quant_matmul_reference(x, wq, w_scale, bias)
@@ -65,13 +67,15 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     check_tensor(what, "wq", wq, torch.int8, (n, padded_k(k)), dev)
     check_tensor(what, "w_scale", w_scale, torch.float32, (n,), dev)
     check_tensor(what, "bias", bias, torch.float32, (n,), dev)
+    if (k * x.element_size()) % 16 or (x.data_ptr() | wq.data_ptr()) % 16:
+        raise ValueError(f"{what}: x rows must be 16-byte aligned (K * "
+                         f"{x.element_size()} a multiple of 16, got K = {k})"
+                         " and x, wq 16-byte aligned")
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
-    xq = torch.empty((m, kp), dtype=torch.int8, device=dev)
-    xs = torch.empty((m,), dtype=torch.float32, device=dev)
     err = _build.library().amira_quant_matmul(
         int(x.dtype == torch.bfloat16), m, k, kp, n, x.data_ptr(),
-        wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), xq.data_ptr(),
-        xs.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_quant_matmul")
     with _count_lock:
         quant_matmul.launches += 1

@@ -11,13 +11,15 @@ for the batcher. The log-mel and the greedy decode always go through the
 kernels' wrappers (``ops/kernels``): on CUDA they launch the hand-written
 kernels, on the CPU they run their plain PyTorch versions. The greedy
 decode is the whole-loop kernel, or, with ``use_pallas_decode_loop=False``
-and ``use_pallas_decode_step``, the host loop ``ops.greedy.greedy_decode``
-with the per-step joint-argmax kernel. ``quantization="int8"`` runs the
-encoder's block dense layers W8A8 (the int8 matmul kernel), and
-``int8_decode_weights`` the int8 branch of both loop kernels. Unlike the
-reference, which applies the last two flags and ``use_pallas_decode_step``
-on its TPU only, the port applies them on every device (the CPU through
-the plain versions), so the CPU tests reach the same wiring. Beam search
+and ``use_pallas_decode_step`` or for a prediction net that is not 2 layers
+deep, the host loop ``ops.greedy.greedy_decode`` with the per-step
+joint-argmax kernel (see :meth:`AsrPipeline._greedy_route`).
+``quantization="int8"`` runs the encoder's block dense layers W8A8 (the
+int8 matmul kernel), and ``int8_decode_weights`` the int8 branch of both
+loop kernels. Unlike the reference, which applies the last two flags and
+``use_pallas_decode_step`` on its TPU only, the port applies them on every
+device (the CPU through the plain versions), so the CPU tests reach the
+same wiring. Beam search
 (``decoding_mode="beam"``) shares the log-mel and encoder (the reference's
 beam path calls the plain log-mel; the two agree to 1.9e-6) and runs the
 beam kernel on CUDA, or the plain scan ``ops.beam.beam_decode`` where the
@@ -50,7 +52,7 @@ from ..ops.greedy import GreedyResult, greedy_decode
 from ..ops.kernels import mel as mel_kernel
 from ..ops.kernels.beam_loop import beam_loop
 from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
-from ..ops.kernels.decode_step import make_fused_step_fn
+from ..ops.kernels.decode_step import JointWeights, make_fused_step_fn
 from ..types import TokenInfo, Transcription
 
 log = get_logger("asr.pipeline")
@@ -103,6 +105,8 @@ class AsrPipeline:
         self.config = cfg = config or Config()
         self.device = device or resolve_device(cfg.inference_backend)
         check_supported(cfg, self.device)
+        self.model = model
+        self.greedy_route = self._greedy_route()  # before any device work
         self.vocab = vocab
         # bf16 serving: params cast once here; features stay f32
         self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -114,7 +118,7 @@ class AsrPipeline:
             # its cast params inside its program
             self.model.freeze_int8()
         # the loop kernels' weights (2-layer prediction nets); other depths
-        # decode beam through the plain scan and have no greedy path here
+        # decode beam through the plain scan and greedy per step
         self.decode_weights = None
         if self.model.config.pred_layers == 2:
             self.decode_weights = DecodeWeights.from_model(
@@ -125,10 +129,14 @@ class AsrPipeline:
                 # routes only (the step route and the plain beam scan use
                 # the model's own weights)
                 self.decode_weights = self.decode_weights.with_int8_lstm()
-        elif cfg.decoding_mode != "beam":
-            raise NotImplementedError(
-                "the greedy decode kernel supports 2-layer prediction nets "
-                f"only, got {self.model.config.pred_layers}")
+        # the step route's kernel reads the joint alone
+        self.step_weights = (JointWeights.from_model(self.model,
+                                                     self.compute_dtype)
+                             if self.greedy_route == "step" else None)
+        if cfg.decoding_mode == "greedy":
+            log.info("greedy decode route: %s (%d-layer prediction net, %s)",
+                     self.greedy_route, self.model.config.pred_layers,
+                     self.device.type)
         self._sec_buckets = sorted(cfg.audio_sec_buckets)
         self._batch_buckets = sorted(cfg.batch_buckets)
         # guards _compiled/_staging/_fresh_cache: the dispatch thread and
@@ -186,6 +194,29 @@ class AsrPipeline:
                                        weights=weights if any_w else None)
         return graph.to(self.device)
 
+    def _greedy_route(self) -> str:
+        """The greedy decode's program, chosen once from the flags and the
+        prediction net's depth: "loop" (the whole-loop kernel,
+        csrc/decode_loop.cu, 2-layer nets), "step" (the host loop
+        ops.greedy.greedy_decode with the joint + argmax kernel,
+        csrc/decode_step.cu: use_pallas_decode_loop=False, or a net of
+        another depth) or "plain" (greedy_decode with the model's own
+        functions, as the reference runs off its TPU; the CPU only)."""
+        cfg = self.config
+        layers = self.model.config.pred_layers
+        if layers == 2 and (cfg.use_pallas_decode_loop
+                            or not cfg.use_pallas_decode_step):
+            return "loop"
+        if cfg.use_pallas_decode_step:
+            return "step"
+        if self.device.type == "cuda":
+            raise NotImplementedError(
+                f"use_pallas_decode_step=False with a {layers}-layer "
+                "prediction net: on CUDA such a net decodes greedy only "
+                "through csrc/decode_step.cu (the whole-loop kernel takes "
+                "2-layer nets)")
+        return "plain"
+
     # ------------------------------------------------------------------
     def _encode(self, audio, audio_lens):
         """log-mel (through the mel kernel's wrapper) -> encoder -> the
@@ -204,15 +235,16 @@ class AsrPipeline:
         dt = self.compute_dtype
         cfg = self.config
         enc_pre, feat_lens, enc_lens = self._encode(audio, audio_lens)
-        if not cfg.use_pallas_decode_loop and cfg.use_pallas_decode_step:
-            # the per-step route: the host loop, the model's prediction
-            # net, the joint + argmax kernel
+        if self.greedy_route != "loop":
+            # the host loop with the model's prediction net; on the step
+            # route the joint + argmax kernel takes each window
             res = greedy_decode(
                 self.model.predict_step, self.model.joint_step_pre, enc_pre,
                 enc_lens, (h0.to(dt), c0.to(dt)), self.model.config.blank_id,
                 max_symbols=max_symbols, max_total=max_total,
                 lookahead=cfg.greedy_lookahead,
-                fused_step_fn=make_fused_step_fn(self.decode_weights),
+                fused_step_fn=(make_fused_step_fn(self.step_weights)
+                               if self.greedy_route == "step" else None),
                 init_pred_out=pred0.to(dt), init_last_token=last_token,
                 token_offset=token_offset)
             return res, feat_lens, enc_lens

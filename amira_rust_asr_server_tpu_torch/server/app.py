@@ -43,6 +43,7 @@ from ..ops.lattice import decode_beam_lattice
 from ..runtime import AsrPipeline
 from ..runtime.pipeline import check_supported
 from ..types import AsrResponse, StreamStatus
+from ..utils.platform import initialize_platform
 from .state import AppState
 
 log = get_logger("asr.server")
@@ -305,7 +306,13 @@ def create_app(state: AppState) -> web.Application:
 
 def load_model(cfg: Config, preset: Optional[str] = None) -> Transducer:
     """The preset's model with the configured weights: a converted ``.npz``
-    state dict (tools/export_torch_params.py), or a seeded random init."""
+    state dict (tools/export_torch_params.py), or a seeded random init.
+
+    With no ``checkpoint_path`` the port serves torch-seeded random weights
+    (``INIT_SEED``) where the reference serves ``PRNGKey(0)`` weights, so
+    the two packages' servers (the ``large`` preset included) give
+    different text. Parity between them goes through the same weights:
+    ``convert.from_jax_params`` or a converted ``.npz``."""
     model = Transducer.from_preset(preset or cfg.model_preset)
     if not cfg.checkpoint_path:
         return model.init_weights(torch.Generator().manual_seed(INIT_SEED))
@@ -324,12 +331,12 @@ def build_state(config: Optional[Config] = None,
                 warmup: Optional[bool] = None) -> AppState:
     """Wire config -> model -> pipeline -> state (ref: src/main.rs:23-112)."""
     cfg = config or Config.load()
+    if cfg.enable_platform_optimizations:
+        # probed and validated before the device is chosen, so the
+        # effective config picks it (the reference serves it too)
+        cfg = initialize_platform(cfg).effective_config
     device = resolve_device(cfg.inference_backend)
     check_supported(cfg, device)
-    if cfg.enable_platform_optimizations:
-        log.info("platform probing (utils/platform.initialize_platform) is "
-                 "not ported yet (ROADMAP.md queue 1 item 15); serving with "
-                 "the configuration as loaded")
     try:
         vocab = Vocabulary.load(cfg.vocabulary_path)
     except FileNotFoundError:

@@ -23,7 +23,7 @@ the hand-written kernels against their plain PyTorch versions:
   G  beam kernel vs plain version at flagship widths (B=16, K=10, S=3,
      T'=376), with a shallow-fusion bias and with a weighted decoding graph
      of 500-1024 states: f32 identical best tokens and best scores within
-     rtol 1e-4, bf16 >= 90% identical best tokens
+     rtol 1e-4, bf16 >= 90% identical best tokens; bf16 also at batch 1
   H  the beam path: tiny-digits in beam mode on the card, with and without
      a grammar file, must transcribe "two five nine" through the kernel;
      then build_state(preset=large, decoding_mode=beam) behind the HTTP
@@ -63,6 +63,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import os
 import socket
 import subprocess
 import sys
@@ -173,7 +174,8 @@ def phase_b():
         f"(nvcc {_build.build_seconds} s)")
     for src, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Performance Loss" in line):
                 say("B", f"{src}: {line.strip()}")
 
 
@@ -519,6 +521,7 @@ def phase_g(results):
                     raise AssertionError(f"[G] f32 {variant} disagrees")
                 res = results.setdefault("beam_loop", {"max_abs_err": 0.0})
                 res["max_abs_err"] = max(res["max_abs_err"], err)
+                res[f"f32_{variant}_ms"] = ms_k
             else:
                 share = token_agreement(bk.tokens, bk.counts, bp.tokens,
                                         bp.counts)
@@ -531,11 +534,16 @@ def phase_g(results):
                                          "agreement below 0.9")
                 if variant == "bias":
                     res = beam_bound(w, enc_pre, lens, rk, "bf16")
+                    one = (enc_pre[:1].contiguous(), lens[:1].contiguous(),
+                           zeros[:, :1].contiguous(),
+                           zeros[:, :1].contiguous(), bias, w)
+                    ms_1 = cuda_ms(lambda: beam_loop(*one, **kw), 2)
                     say("G", f"bound {res['bound_ms']:.4f} ms "
                         f"({res['bound_by']}; serial "
                         f"{res['serial_bound_ms']:.3f} ms), no single "
-                        "library call")
+                        f"library call; batch 1: kernel {ms_1:.3f} ms")
                     results["beam_loop"].update(ms=ms_k, plain_ms=ms_p,
+                                                batch1_ms=ms_1,
                                                 library_ms=None, **res)
                 else:
                     results["beam_loop"].update(graph_ms=ms_k,
@@ -941,6 +949,7 @@ def phase_k(results):
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         enc_pre, _, _, _, pred0, _, _, w, _ = flagship_decode_inputs(dtype)
+        w = w.joint  # the kernel reads the joint alone
         enc_win = enc_pre[:, :8].contiguous()
         kk, ck = joint_argmax(enc_win, pred0, w)
         kp, cp = joint_argmax_reference(enc_win, pred0, w)
@@ -1040,6 +1049,10 @@ def main(argv=None) -> int:
     phases = ap.parse_args(argv).phases.upper()
     results: dict = {}
     smi = phase_a()
+    # build_state probes the platform; this run makes no network request,
+    # so the cloud probe answers as it does with no network
+    from amira_rust_asr_server_tpu_torch.utils import platform
+    platform.detect_cloud = lambda: platform.CloudInfo(provider="unknown")
     if "B" in phases:
         phase_b()
     if "C" in phases:

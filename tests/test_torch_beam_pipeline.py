@@ -43,6 +43,18 @@ from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      TINY_DIGITS_VOCAB,
                                                      pcm16_digits)
 from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+from amira_rust_asr_server_tpu_torch.utils import platform
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_cloud_request():
+    """build_state probes the platform: its cloud probe answers without the
+    metadata request."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(platform, "detect_cloud",
+                   lambda: platform.CloudInfo(provider="unknown"))
+        yield
+
 
 torch.set_num_threads(2)
 ATOL = 1e-4
@@ -174,8 +186,21 @@ def test_beam_decode_path_routing(pipelines, tiny):
     p1.device = torch.device("cpu")
     tr = p1.process_batch_samples(utterances(1)[0])
     assert tr.decode_path == "xla_scan" and tr.n_best
-    with pytest.raises(NotImplementedError, match="2-layer"):
-        AsrPipeline(one_layer, VOCAB, beam_config(decoding_mode="greedy"))
+    # greedy serves it too (the per-step route), with the JAX pipeline's
+    # tokens on the same weights
+    jm1 = JaxTransducer(dataclasses.replace(tiny[0].config, pred_layers=1))
+    params1 = jm1.init(jax.random.PRNGKey(1))
+    one_layer.load_state_dict(from_jax_params(jax.device_get(params1),
+                                              one_layer.config))
+    greedy = AsrPipeline(one_layer, VOCAB,
+                         beam_config(decoding_mode="greedy"))
+    ref = JaxPipeline(jm1, params1, JAX_VOCAB,
+                      beam_config(JaxConfig, decoding_mode="greedy"))
+    sample = utterances(1)[0]
+    tr, tr_ref = (greedy.process_batch_samples(sample),
+                  ref.process_batch_samples(sample))
+    assert greedy.greedy_route == "step" and tr.tokens
+    assert (tr.text, tr.tokens) == (tr_ref.text, tr_ref.tokens)
 
 
 def test_beam_honors_max_total_budget(tiny):

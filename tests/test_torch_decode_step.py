@@ -43,10 +43,8 @@ from amira_rust_asr_server_tpu_torch.convert import from_jax_params, load_npz
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.ops.greedy import greedy_decode
 from amira_rust_asr_server_tpu_torch.ops.kernels import decode_step
-from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
-    DecodeWeights
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_step import (
-    joint_argmax, make_fused_step_fn)
+    JointWeights, joint_argmax, make_fused_step_fn)
 from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
 from amira_rust_asr_server_tpu_torch.runtime import pipeline as pipeline_mod
 from amira_rust_asr_server_tpu_torch.server import build_state
@@ -55,6 +53,18 @@ from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      pcm16_digits,
                                                      synth_digits)
 from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+from amira_rust_asr_server_tpu_torch.utils import platform
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_cloud_request():
+    """build_state probes the platform: its cloud probe answers without the
+    metadata request."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(platform, "detect_cloud",
+                   lambda: platform.CloudInfo(provider="unknown"))
+        yield
+
 
 torch.set_num_threads(2)
 CKPT = pathlib.Path(__file__).resolve().parents[1] / "model-repo" / \
@@ -103,7 +113,7 @@ def test_joint_argmax_matches_pallas(tiny, dtype):
     step = jax_make_fused_step_fn(jm, jparams, interpret=True)
     k_want, conf_want = step(jnp.asarray(enc_win).astype(jdt),
                              jnp.asarray(pred_out).astype(jdt))
-    w = DecodeWeights.from_model(model, tdt)
+    w = JointWeights.from_model(model, tdt)
     before = joint_argmax.launches
     k, conf = make_fused_step_fn(w)(to_torch(enc_win.astype(jdt), tdt),
                                     torch.from_numpy(pred_out))
@@ -134,7 +144,7 @@ def test_joint_argmax_ties_take_the_first_index(tiny):
         jnp.asarray(enc_win), jnp.asarray(pred_out))
     k, conf = joint_argmax(torch.from_numpy(enc_win),
                            torch.from_numpy(pred_out),
-                           DecodeWeights.from_model(model, torch.float32))
+                           JointWeights.from_model(model, torch.float32))
     assert (np.asarray(k_want) == 3).all() and (k.numpy() == 3).all()
     np.testing.assert_allclose(conf.numpy(), 0.5, rtol=1e-5)
 
@@ -175,7 +185,7 @@ def test_greedy_decode_with_fused_step_matches_jax(tiny, case):
             model.joint_precompute_enc(torch.from_numpy(enc)),
             torch.from_numpy(lens), model.init_state(c["b"]), cfg.blank_id,
             fused_step_fn=make_fused_step_fn(
-                DecodeWeights.from_model(model, torch.float32)),
+                JointWeights.from_model(model, torch.float32)),
             **c["kw"])
     counts = np.asarray(want.counts)
     assert counts.sum() > 0

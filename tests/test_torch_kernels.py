@@ -40,10 +40,22 @@ from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
     DecodeWeights, greedy_loop, greedy_loop_int8, greedy_loop_reference)
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_step import (
-    joint_argmax, joint_argmax_reference)
+    JointWeights, joint_argmax, joint_argmax_reference)
 from amira_rust_asr_server_tpu_torch.ops.kernels.quant_matmul import (
     quant_matmul, quant_matmul_reference)
 from amira_rust_asr_server_tpu_torch.ops.quant import pack_weight_int8
+from amira_rust_asr_server_tpu_torch.utils import platform
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_cloud_request():
+    """build_state probes the platform: its cloud probe answers without the
+    metadata request."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(platform, "detect_cloud",
+                   lambda: platform.CloudInfo(provider="unknown"))
+        yield
+
 
 NO_LAUNCHES = {"log_mel": 0, "greedy_loop": 0, "beam_loop": 0,
                "quant_matmul": 0, "joint_argmax": 0, "greedy_loop_int8": 0,
@@ -85,10 +97,16 @@ def test_log_mel_kernel_rejects_bad_input(dev):
         mel.log_mel_raw(torch.zeros((4000, 2), device=dev).t())
 
 
+# variants of the tiny preset: an embedding narrower than the prediction
+# net, and a 3-layer prediction net (the step kernel reads the joint alone)
+VARIANTS = {"tiny-e48": dict(d_embed=48), "tiny-3layer": dict(pred_layers=3)}
+
+
 def decode_case(preset: str, dtype, dev, b=6, t=60, seed=0):
     """Prediction net + joint at the preset's widths (the decode loop needs
     no encoder, so it has no blocks), seeded weights, blank bias +1.5."""
-    cfg = dataclasses.replace(get_preset(preset), n_layers=0)
+    base = get_preset(preset.split("-")[0] if preset in VARIANTS else preset)
+    cfg = dataclasses.replace(base, n_layers=0, **VARIANTS.get(preset, {}))
     model = Transducer(cfg).init_weights(torch.Generator().manual_seed(seed))
     with torch.no_grad():
         model.joint.out.b[model.config.blank_id] += 1.5
@@ -103,7 +121,8 @@ def decode_case(preset: str, dtype, dev, b=6, t=60, seed=0):
         blank = torch.full((b,), cfg.blank_id, dtype=torch.int32, device=dev)
         pred0, (h0, c0) = model.predict_step(
             blank, model.init_state(b, device=dev))
-    w = DecodeWeights.from_model(model, dtype)
+    w = (JointWeights.from_model(model, dtype) if cfg.pred_layers != 2
+         else DecodeWeights.from_model(model, dtype))
     args = (enc_pre, lens, h0.to(dtype), c0.to(dtype), pred0.to(dtype),
             blank, torch.zeros(b, dtype=torch.int32, device=dev), w)
     return args, dict(blank_id=cfg.blank_id, max_symbols=30, max_total=200)
@@ -161,12 +180,14 @@ def test_decode_loop_int8_agrees_with_plain(dev, preset, dtype, share):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [25, 300])
+@pytest.mark.parametrize("m", [1, 25, 130, 6016])
 @pytest.mark.parametrize("k, n", [(64, 128), (144, 48), (1024, 3072),
+                                  (1024, 1024), (1024, 2048), (1024, 4096),
                                   (4096, 1024)])
 def test_quant_matmul_kernel_matches_plain(dev, k, n, m, dtype):
-    """Ragged M, K that is not a multiple of the kernel's 64-byte step, N
-    that is not a multiple of its 128-column tile: identical outputs."""
+    """Ragged M (past the 128-row tile), K that is not a multiple of the
+    kernel's 128-byte step, N that is not a multiple of its column tile,
+    and the encoder's five shapes: identical outputs."""
     rng = np.random.default_rng(k + n + m)
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(
         np.float32)).to(dev, dtype)
@@ -183,10 +204,12 @@ def test_quant_matmul_kernel_matches_plain(dev, k, n, m, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("preset", ["tiny", "large"])
+@pytest.mark.parametrize("preset", ["tiny", "large", "tiny-3layer"])
 def test_joint_argmax_kernel_matches_plain(dev, preset, dtype):
     args, _ = decode_case(preset, dtype, dev, b=16)
     enc_pre, pred0, w = args[0], args[4], args[7]
+    if isinstance(w, DecodeWeights):  # the kernel reads the joint alone
+        w = w.joint
     enc_win = enc_pre[:, :8].contiguous()
     before = joint_argmax.launches
     k, conf = joint_argmax(enc_win, pred0, w)
@@ -289,7 +312,7 @@ def test_pipeline_golden_on_gpu(dev):
                                        "greedy_loop": 1}
 
 
-def beam_case(preset: str, dtype, dev, graph: bool, b=4, t=40, seed=0):
+def beam_case(preset: str, dtype, dev, graph: bool, b=4, t=41, seed=0):
     """The decode case's weights and enc_pre, a bias that boosts 20 tokens
     (so the best hypotheses emit), and optionally a weighted graph over
     those tokens."""
@@ -316,10 +339,14 @@ def best(outs, graph, lens):
     return backtrace(finish_trace(*outs, graph=graph), lens)
 
 
+@pytest.mark.parametrize("b", [4, 1])
 @pytest.mark.parametrize("graph", [False, True])
-@pytest.mark.parametrize("preset", ["tiny", "large"])
-def test_beam_loop_f32_matches_plain(dev, preset, graph):
-    args, kw, lens = beam_case(preset, torch.float32, dev, graph)
+@pytest.mark.parametrize("preset", ["tiny", "large", "tiny-e48"])
+def test_beam_loop_f32_matches_plain(dev, preset, graph, b):
+    """Both variants at batch 4 and 1 (one utterance's K rows spread over
+    every block), odd T', and an embedding narrower than the prediction
+    net."""
+    args, kw, lens = beam_case(preset, torch.float32, dev, graph, b=b)
     before = beam_loop.launches
     got = best(beam_loop(*args, **kw), kw["graph"], lens)
     assert beam_loop.launches == before + 1
@@ -332,7 +359,7 @@ def test_beam_loop_f32_matches_plain(dev, preset, graph):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("graph", [False, True])
-@pytest.mark.parametrize("preset", ["tiny", "large"])
+@pytest.mark.parametrize("preset", ["tiny", "large", "tiny-e48"])
 def test_beam_loop_int8_agrees_with_plain(dev, preset, graph, dtype):
     args, kw, lens = beam_case(preset, dtype, dev, graph)
     args = (*args[:5], args[5].with_int8_lstm())
@@ -352,13 +379,13 @@ def test_beam_loop_int8_agrees_with_plain(dev, preset, graph, dtype):
         assert share_same_tokens(got, ref) >= 0.9
 
 
-@pytest.mark.parametrize("beam_width", [3, 16])
+@pytest.mark.parametrize("beam_width", [1, 3, 4, 10, 16, 17])
 def test_beam_loop_chunks_and_empty_lane(dev, beam_width):
-    """Beam widths that take the 4-slot chunk (3) and two 12-slot chunks
-    (16, more hypotheses than the tiny vocabulary), with a zero-length lane:
-    every backtrace array and the pool scores equal the plain version's."""
+    """Beam widths from 1 to past one 16-row tile (16 and 17, more
+    hypotheses than the tiny vocabulary), with a zero-length lane: every
+    backtrace array and the pool scores equal the plain version's."""
     args, kw, _ = beam_case("tiny", torch.float32, dev, graph=True)
-    args = (args[0], torch.tensor([40, 0, 17, 1], dtype=torch.int32,
+    args = (args[0], torch.tensor([41, 0, 17, 1], dtype=torch.int32,
                                   device=dev)) + args[2:]
     kw["beam_width"] = beam_width
     got = beam_loop(*args, **kw)

@@ -15,6 +15,7 @@
 """
 
 import asyncio
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -31,6 +32,7 @@ from amira_rust_asr_server_tpu.audio import \
     pcm16_bytes_to_f32 as jax_pcm16_to_f32
 from amira_rust_asr_server_tpu.config import Config as JaxConfig
 from amira_rust_asr_server_tpu.models import Transducer as JaxTransducer
+from amira_rust_asr_server_tpu.models.presets import TINY as JAX_TINY
 from amira_rust_asr_server_tpu.runtime import AsrPipeline as JaxPipeline
 from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
 from amira_rust_asr_server_tpu_torch.audio import pcm16_bytes_to_f32
@@ -39,6 +41,7 @@ from amira_rust_asr_server_tpu_torch.convert import from_jax_params, load_npz
 from amira_rust_asr_server_tpu_torch.device import resolve_device
 from amira_rust_asr_server_tpu_torch.errors import DeviceError
 from amira_rust_asr_server_tpu_torch.models import Transducer
+from amira_rust_asr_server_tpu_torch.models.presets import TINY
 from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
 from amira_rust_asr_server_tpu_torch.runtime.pipeline import check_supported
 from amira_rust_asr_server_tpu_torch.server import (AppState, build_state,
@@ -48,10 +51,23 @@ from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      pcm16_digits,
                                                      synth_digits)
 from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+from amira_rust_asr_server_tpu_torch.utils import platform
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_cloud_request():
+    """build_state probes the platform: its cloud probe answers without the
+    metadata request."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(platform, "detect_cloud",
+                   lambda: platform.CloudInfo(provider="unknown"))
+        yield
+
 
 torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CKPT = REPO / "model-repo" / "tiny-digits"
+WORDS = {i: f"▁w{i}" for i in range(15)}
 
 
 def digits_config(**overrides) -> Config:
@@ -120,6 +136,68 @@ def test_pipeline_matches_jax_pipeline(jax_digits):
         np.testing.assert_array_equal(got.frame_idx[i, :n],
                                       np.asarray(ref.frame_idx)[i, :n])
     assert [s.tokens_emitted for s in states] == counts.tolist()
+
+
+def depth_pair(layers: int, seed: int):
+    """The JAX tiny model with ``layers`` prediction-net layers, its params
+    from a JAX seed, and the port's model on the converted params."""
+    jm = JaxTransducer(dataclasses.replace(JAX_TINY, pred_layers=layers))
+    params = jm.init(jax.random.PRNGKey(seed))
+    model = Transducer(dataclasses.replace(TINY, pred_layers=layers))
+    model.load_state_dict(from_jax_params(jax.device_get(params),
+                                          model.config))
+    return jm, params, model
+
+
+@pytest.mark.parametrize("layers, step", [(1, True), (3, True), (3, False)])
+def test_greedy_any_prediction_depth_matches_jax(layers, step):
+    """A prediction net that is not 2 layers deep decodes greedy through
+    ops.greedy.greedy_decode (the joint + argmax kernel's plain version on
+    the step route, the model's own joint without it), as the reference
+    does off its TPU: identical tokens, counts and frames, carried state
+    within 1e-5, f32 on both sides."""
+    jm, params, model = depth_pair(layers, seed=layers)
+    kw = dict(audio_sec_buckets=[0.5], batch_buckets=[1, 2],
+              max_symbols_per_step=5, max_total_tokens=40,
+              compute_dtype="float32", inference_backend="cpu",
+              use_pallas_decode_step=step)
+    ref = JaxPipeline(jm, params, JaxVocabulary.from_map(WORDS),
+                      JaxConfig(**kw))
+    pipe = AsrPipeline(model, Vocabulary.from_map(WORDS), Config(**kw))
+    assert pipe.greedy_route == ("step" if step else "plain")
+    assert pipe.decode_weights is None
+    rng = np.random.default_rng(layers)
+    samples = [(rng.standard_normal(n) * 0.1).astype(np.float32)
+               for n in (4000, 6500)]
+    want, want_fl, want_el, want_st = ref.decode_samples_batch(samples)
+    got, got_fl, got_el, got_st = pipe.decode_samples_batch(samples)
+    np.testing.assert_array_equal(got_el[:2], np.asarray(want_el)[:2])
+    counts = np.asarray(want.counts)[:2]
+    np.testing.assert_array_equal(got.counts[:2], counts)
+    assert counts.min() > 0
+    for i, n in enumerate(counts):
+        for field in ("tokens", "frame_idx"):
+            np.testing.assert_array_equal(
+                getattr(got, field)[i, :n],
+                np.asarray(getattr(want, field))[i, :n])
+        for a, b in zip(got_st[i].state, want_st[i].state):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+        assert got_st[i].state[0].shape[0] == layers
+
+
+def test_greedy_route_is_per_step_on_cuda_for_other_depths():
+    """Moved to the card, a 3-layer net's greedy route is the per-step one
+    (csrc/decode_step.cu), chosen from the net's depth alone."""
+    _, _, model = depth_pair(3, seed=0)
+    pipe = AsrPipeline(model, Vocabulary.from_map(WORDS),
+                       digits_config(compute_dtype="float32"))
+    assert pipe.greedy_route == "step"
+    pipe.device = torch.device("cuda")
+    try:
+        assert pipe._greedy_route() == "step"
+        assert pipe.step_weights is not None and pipe.decode_weights is None
+    finally:
+        pipe.device = torch.device("cpu")
 
 
 def test_pipeline_golden_text(digits_state):
@@ -257,15 +335,29 @@ def test_unported_options_are_refused(overrides):
     (dict(use_pallas_decode_loop=False, use_pallas_decode_step=False),
      "csrc/decode_loop.cu"),
     (dict(use_pallas_beam_loop=False, decoding_mode="beam"),
-     "csrc/beam_loop.cu .ROADMAP.md queue 2 item 5")])
+     "csrc/beam_loop.cu .ROADMAP.md queue 2 item 5"),
+    (dict(use_pallas_decode_step=False, pred_layers=3),
+     "3-layer prediction net")])
 def test_kernel_off_flags_are_refused_on_cuda(overrides, reason):
     """On the card the kernels always run: a flag that would turn one off
     is refused, on the CPU it changes nothing (the wrappers choose the
-    plain version by device)."""
+    plain version by device). A net that is not 2 layers deep decodes
+    greedy only through the step kernel on the card, so turning that off
+    is refused when the pipeline is built, before any device work."""
+    overrides = dict(overrides)
+    layers = overrides.pop("pred_layers", 2)
     cfg = digits_config(**overrides)
+    if layers == 2:
+        with pytest.raises(NotImplementedError, match=reason):
+            check_supported(cfg, torch.device("cuda"))
+        check_supported(cfg, torch.device("cpu"))
+        return
+    _, _, model = depth_pair(layers, seed=0)
     with pytest.raises(NotImplementedError, match=reason):
-        check_supported(cfg, torch.device("cuda"))
-    check_supported(cfg, torch.device("cpu"))
+        AsrPipeline(model, Vocabulary.from_map(WORDS), cfg,
+                    torch.device("cuda"))
+    assert AsrPipeline(model, Vocabulary.from_map(WORDS),
+                       cfg).greedy_route == "plain"
 
 
 @pytest.mark.parametrize("overrides", [
@@ -307,6 +399,7 @@ def test_port_imports_without_jax():
             "import amira_rust_asr_server_tpu_torch.ops.quant\n"
             "import amira_rust_asr_server_tpu_torch.ops.kernels.quant_matmul\n"
             "import amira_rust_asr_server_tpu_torch.ops.kernels.decode_step\n"
+            "import amira_rust_asr_server_tpu_torch.utils.platform\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
             "assert 'flax' not in sys.modules, 'flax was imported'\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))

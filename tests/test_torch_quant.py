@@ -59,6 +59,18 @@ from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
                                                      pcm16_digits,
                                                      synth_digits)
 from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+from amira_rust_asr_server_tpu_torch.utils import platform
+
+
+@pytest.fixture(autouse=True, scope="module")
+def no_cloud_request():
+    """build_state probes the platform: its cloud probe answers without the
+    metadata request."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(platform, "detect_cloud",
+                   lambda: platform.CloudInfo(provider="unknown"))
+        yield
+
 
 torch.set_num_threads(2)
 CKPT = pathlib.Path(__file__).resolve().parents[1] / "model-repo" / \

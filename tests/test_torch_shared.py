@@ -21,6 +21,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -29,10 +30,13 @@ from amira_rust_asr_server_tpu import constants as jax_constants
 from amira_rust_asr_server_tpu import errors as jax_errors
 from amira_rust_asr_server_tpu.config import Config as JaxConfig
 from amira_rust_asr_server_tpu.testing import digits as jax_digits
+from amira_rust_asr_server_tpu.utils import platform as jax_platform
 from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
 from amira_rust_asr_server_tpu_torch import constants, errors, testing
 from amira_rust_asr_server_tpu_torch.config import Config
+from amira_rust_asr_server_tpu_torch.server import app as server_app
 from amira_rust_asr_server_tpu_torch.types import TokenInfo
+from amira_rust_asr_server_tpu_torch.utils import platform
 from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -164,3 +168,97 @@ def test_port_imports_nothing_of_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 30
+
+
+@pytest.fixture
+def no_cloud_request(monkeypatch):
+    """Both packages' cloud probes without the metadata request."""
+    monkeypatch.setattr(platform, "detect_cloud",
+                        lambda: platform.CloudInfo(provider="unknown"))
+    monkeypatch.setattr(jax_platform, "detect_cloud",
+                        lambda: jax_platform.CloudInfo(provider="unknown"))
+
+
+def test_platform_effective_config_matches_jax(no_cloud_request):
+    """For the same config the two probes differ only in the mesh, and the
+    mesh rule is the same given the device count: the reference sees the 8
+    host devices of the test mesh, the port one CPU device."""
+    cfg_kw = dict(inference_backend="cpu", server_port=9123)
+    got = platform.initialize_platform(Config(**cfg_kw))
+    want = jax_platform.initialize_platform(JaxConfig(**cfg_kw))
+    assert got.devices.platform == "cpu" and got.devices.n_devices == 1
+    mine = dataclasses.asdict(got.effective_config)
+    ref = dataclasses.asdict(want.effective_config)
+    assert want.devices.n_devices == 8
+    assert ref.pop("mesh_shape") == {"data": 8, "model": 1}
+    assert mine.pop("mesh_shape") == {}
+    assert mine == ref
+    assert [f.name for f in dataclasses.fields(got)] == \
+        [f.name for f in dataclasses.fields(want)]
+
+
+def test_platform_mesh_rule_follows_the_device_count(no_cloud_request,
+                                                     monkeypatch):
+    four = dataclasses.replace(platform.detect_devices(), platform="cuda",
+                               n_devices=4)
+    monkeypatch.setattr(platform, "detect_devices", lambda: four)
+    cfg = platform.initialize_platform(Config()).effective_config
+    assert cfg.mesh_shape == {"data": 4, "model": 1}
+    kept = platform.initialize_platform(
+        Config(mesh_shape={"data": 2, "model": 2})).effective_config
+    assert kept.mesh_shape == {"data": 2, "model": 2}
+
+
+def test_platform_keeps_the_accelerator_backend(no_cloud_request):
+    """The reference rewrites inference_backend="tpu" to "cpu" when it sees
+    no TPU; the port keeps it (resolve_device then raises DeviceError
+    without CUDA): the deliberate deviation of ROADMAP queue 3."""
+    got = platform.initialize_platform(Config(inference_backend="tpu"))
+    want = jax_platform.initialize_platform(JaxConfig(inference_backend="tpu"))
+    assert got.effective_config.inference_backend == "tpu"
+    assert want.effective_config.inference_backend == "cpu"
+
+
+def test_build_state_serves_the_probed_config(no_cloud_request,
+                                              monkeypatch):
+    calls = []
+
+    def probe(cfg):
+        calls.append(cfg)
+        return platform.initialize_platform(cfg)
+
+    monkeypatch.setattr(server_app, "initialize_platform", probe)
+    kw = dict(audio_sec_buckets=[2.0], batch_buckets=[1],
+              checkpoint_path=str(testing.TINY_DIGITS_NPZ),
+              vocabulary_path=str(testing.TINY_DIGITS_VOCAB),
+              inference_backend="cpu")
+    state = server_app.build_state(Config(**kw), preset="tiny", warmup=False)
+    state.close()
+    assert len(calls) == 1 and state.config.mesh_shape == {}
+    state = server_app.build_state(
+        Config(enable_platform_optimizations=False, **kw), preset="tiny",
+        warmup=False)
+    state.close()
+    assert len(calls) == 1
+
+
+def test_cloud_probe_env_checks(monkeypatch):
+    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "a,b")
+    assert dataclasses.asdict(platform.detect_cloud()) == \
+        dataclasses.asdict(jax_platform.detect_cloud()) == \
+        dataclasses.asdict(platform.CloudInfo(provider="gcp", tpu_env=True))
+    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
+    monkeypatch.delenv("TPU_SKIP_MDS_QUERY", raising=False)
+    # the one metadata attempt, failed as it fails with no network
+    asked = []
+
+    def no_network(req, timeout):
+        asked.append((req.full_url, timeout))
+        raise OSError("no network")
+
+    monkeypatch.setattr(urllib.request, "urlopen", no_network)
+    assert dataclasses.asdict(platform.detect_cloud()) == \
+        dataclasses.asdict(jax_platform.detect_cloud()) == \
+        dataclasses.asdict(platform.CloudInfo(provider="unknown"))
+    assert len(asked) == 2 and asked[0] == asked[1]
+    assert asked[0][1] == 0.3

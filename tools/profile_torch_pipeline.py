@@ -39,6 +39,7 @@ from amira_rust_asr_server_tpu_torch.ops.kernels import (  # noqa: E402
     greedy_loop, mel)
 from amira_rust_asr_server_tpu_torch.server.app import (  # noqa: E402
     build_state, parse_batch_request)
+from amira_rust_asr_server_tpu_torch.utils import platform  # noqa: E402
 
 BUCKETS = "1x2,1x8,1x30,16x30"
 
@@ -163,6 +164,9 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    # build_state probes the platform; this run makes no network request,
+    # so the cloud probe answers as it does with no network
+    platform.detect_cloud = lambda: platform.CloudInfo(provider="unknown")
     state = build_state(Config(inference_backend="tpu",
                                vocabulary_path="model-repo/vocab.txt",
                                quantization=args.quantization,
