@@ -31,8 +31,9 @@
 // (ops/kernels/decode_loop.py slice_plan and DecodeWeights.block_slices, the
 // greedy kernel's packing), resident in shared memory where they fit. The
 // B x K hypothesis rows of a group of utterances are the rows of the tile
-// products (tile.cuh: bf16 mma.sync m16n8k16, else FMAs; __dp4a in the int8
-// branch), so one utterance's K rows spread over every SM. Per micro-step:
+// products (tile.cuh: bf16 mma.sync m16n8k16, else FMAs; the int8 branch's
+// gates on mma.sync m16n8k32 s8), so one utterance's K rows spread over
+// every SM. Per micro-step:
 //   joint    logits of the block's vocabulary columns for every hypothesis
 //            (hid = round_T(relu(enc + pred_out Wp + bp)) staged in T), and
 //            per row the block's (max, sum of exp);           grid barrier
@@ -53,8 +54,8 @@
 //            discards), each ending in a grid barrier; pred_proj also
 //            stages the next joint's input hid for its columns.
 // In bf16 the rows' inputs stream by cp.async through a ring of chunks
-// while the tensor cores work (stream_mma); f32 and the int8 branch stage
-// a tile at a time (tile.cuh). Hypothesis states (h, c of both layers in
+// while the tensor cores work (stream_mma); f32 and the int8 branch's
+// gates stage a tile at a time (tile.cuh). Hypothesis states (h, c of both layers in
 // T, pred_out @ Wp + bp in f32) live in global scratch as four sets (C,
 // pool, next pool, next C); the bookkeeping of the group's rows and the
 // block's context live in every block's shared memory.
@@ -75,7 +76,10 @@
 // per-output-column scales, in words of four consecutive rows; per layer
 // and row each half of the input gets its own scale (tile.cuh
 // tile_gates_q), and layer 1 reads layer 0's new h unrounded (f32), as the
-// TPU kernel's int8 branch does. Its products use __dp4a on the same grid.
+// TPU kernel's int8 branch does. Its gates run on the int8 tensor cores
+// (tile.cuh tile_gates_q, exact int32 sums), which need 4 pb a multiple of
+// 8 (slice_plan's tensor-core plan); pred_proj and the joint are those of
+// the working type (in bf16 streamed on the tensor cores).
 
 #include <cooperative_groups.h>
 
@@ -182,8 +186,9 @@ struct Args {
   int* pool_pk;           // [T', B, K]
   int* g_final;           // [B, K]
   unsigned char* scratch;
-  // int8 branch: [G, (E + P) / 4, 4pb] and [G, 2P / 4, 4pb] words of four
-  // int8 rows (the x half's rows first), with the halves' column scales
+  // int8 branch: [G, q_words(E) + q_words(P), 4pb] and [G, 2 q_words(P),
+  // 4pb] words of four int8 rows (the x half's rows first, each half
+  // zero-padded to a multiple of 8 words), with the halves' column scales
   const int* wq0s;
   const float* sx0s;      // [G, 4pb]
   const float* sh0s;
@@ -223,15 +228,16 @@ enum BookF { C_SC, P_SC, E_SC, T_SC, L_M, L_S,  // floats
              BOOK_FIELDS };
 
 struct Smem {
-  size_t w0, w1, wp, wo, bias, xs, xf, part, gates, accx, scale, book, cand,
-      utt, rows, srcp, end;
+  size_t w0, w1, wp, wo, bias, xs, part, gates, scale, book, cand, utt, rows,
+      srcp, end;
 };
 template <typename T, bool Q>
 __host__ __device__ inline Smem smem_layout(const Dims& d) {
   const int E = d.d_embed, P = d.d_pred, J = d.d_joint;
   const int nc4 = 4 * d.pb, R = d.group * d.beam;
   const size_t lw = Q ? sizeof(int) : sizeof(T);
-  const int k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+  const int k0 = Q ? q_words(E) + q_words(P) : E + P,
+            k1 = Q ? 2 * q_words(P) : 2 * P;
   Smem s{};
   size_t o = 0;
   if (d.resident) {
@@ -241,31 +247,35 @@ __host__ __device__ inline Smem smem_layout(const Dims& d) {
     s.wo = take(o, (size_t)J * d.vb * sizeof(T));
   }
   s.bias = take(o, (size_t)(8 * d.pb + d.jb + d.vb) * 4);
+  // the staged rows: the LSTM inputs in T (the int8 branch's in int8
+  // words), pred_out and the joint's input; the streamed products' ring
   int kf = P > J ? P : J;
-  kf = kf > E + P ? kf : E + P;
-  kf = kf > 2 * P ? kf : 2 * P;
+  if (!Q) {
+    kf = kf > E + P ? kf : E + P;
+    kf = kf > 2 * P ? kf : 2 * P;
+  }
   size_t xs = (size_t)RT * kf * sizeof(T);
   if (Q) {
-    const size_t xq = (size_t)RT * ((E + P > 2 * P ? E + P : 2 * P) / 4) * 4;
-    xs = xs > xq ? xs : xq;
+    const size_t q0 = q_stage_bytes(E, E + P), q1 = q_stage_bytes(P, 2 * P);
+    xs = xs > q0 ? xs : q0;
+    xs = xs > q1 ? xs : q1;
   }
-  if (std::is_same<T, __nv_bfloat16>::value && !Q) {
+  if (std::is_same<T, __nv_bfloat16>::value) {
     const size_t ring = (size_t)NSTAGE * RT * PITCH * sizeof(T);
     xs = xs > ring ? xs : ring;
   }
   s.xs = take(o, xs);
-  s.xf = take(o, Q ? (size_t)RT * (E + P > 2 * P ? E + P : 2 * P) * 4 : 0);
   size_t parts = 0;
   const int ncs[3] = {nc4, d.jb, d.vb};
   int ncmax = 0;
   for (int i = 0; i < 3; ++i) {
-    const size_t n = (size_t)n_slices(ncs[i]) * RT * ncs[i];
+    const size_t n = (size_t)n_slices(ncs[i]) * RT * ncs[i] * 4;
     parts = parts > n ? parts : n;
     ncmax = ncmax > ncs[i] ? ncmax : ncs[i];
   }
-  s.part = take(o, parts * 4);
+  if (Q && q_part_bytes(nc4) > parts) parts = q_part_bytes(nc4);
+  s.part = take(o, parts);
   s.gates = take(o, (size_t)RT * ncmax * 4);
-  s.accx = take(o, Q ? (size_t)RT * nc4 * 4 : 0);
   s.scale = take(o, 2 * RT * 4);
   s.book = take(o, (size_t)BOOK_FIELDS * R * 4);
   // the label candidates live in the staging area when they fit (no tile
@@ -276,22 +286,6 @@ __host__ __device__ inline Smem smem_layout(const Dims& d) {
   s.srcp = take(o, (size_t)2 * R * sizeof(void*));  // streamed rows' sources
   s.end = o;
   return s;
-}
-
-// loads of four values from the scratch that other blocks wrote during the
-// launch (around grid barriers): L2, never the non-coherent path
-__device__ __forceinline__ float4 ldcg4(const float* p) {
-  return __ldcg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ldcg4(const __nv_bfloat16* p) {
-  const uint2 q = __ldcg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float ldcg1(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float ldcg1(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldcg(p));
 }
 
 // the scan's total order on candidates: score desc, then index asc
@@ -380,9 +374,7 @@ __device__ Ctx<T, Q> make_ctx(const Dims& d, const Args<T>& a,
   const Smem s = smem_layout<T, Q>(d);
   const int E = d.d_embed, P = d.d_pred, J = d.d_joint, nc4 = 4 * d.pb;
   c.tb.xs = smem + s.xs;
-  c.tb.xf = reinterpret_cast<float*>(smem + s.xf);
   c.tb.part = reinterpret_cast<float*>(smem + s.part);
-  c.tb.accx = reinterpret_cast<int*>(smem + s.accx);
   c.tb.scale = reinterpret_cast<float*>(smem + s.scale);
   c.gates = reinterpret_cast<float*>(smem + s.gates);
   c.b0s = reinterpret_cast<float*>(smem + s.bias);
@@ -397,7 +389,8 @@ __device__ Ctx<T, Q> make_ctx(const Dims& d, const Args<T>& a,
   c.uact = c.ulen + d.group;
   c.rows = reinterpret_cast<int*>(smem + s.rows);
   c.srcp = reinterpret_cast<const void**>(smem + s.srcp);
-  const int64_t k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+  const int64_t k0 = Q ? q_words(E) + q_words(P) : E + P,
+            k1 = Q ? 2 * q_words(P) : 2 * P;
   const LW* w0g = Q ? (const LW*)a.wq0s : (const LW*)a.w0s;
   const LW* w1g = Q ? (const LW*)a.wq1s : (const LW*)a.w1s;
   if (d.resident) {
@@ -448,13 +441,6 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(saddr(p)));
-}
-
 // The bf16 tensor-core path's row products, streamed: the rows' inputs
 // (row-major, 8 values per 16-byte copy; two contiguous segments per row,
 // [0, split) and [split, K), src(q, seg) the address of segment seg or null
@@ -1087,7 +1073,8 @@ beam_loop_kernel(Dims d, Args<T> a) {
   // the block's weight slices into shared memory, once; its biases
   if (d.resident) {
     using LW = typename Ctx<T, Q>::LW;
-    const int64_t k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+    const int64_t k0 = Q ? q_words(E) + q_words(P) : E + P,
+            k1 = Q ? 2 * q_words(P) : 2 * P;
     const LW* w0g = Q ? (const LW*)a.wq0s : (const LW*)a.w0s;
     const LW* w1g = Q ? (const LW*)a.wq1s : (const LW*)a.w1s;
     const int64_t n0 = k0 * nc4 * sizeof(LW), n1 = k1 * nc4 * sizeof(LW);
@@ -1284,12 +1271,17 @@ int plan_dims(Dims& d) {
   const int e = device_limits(&sms, &optin);
   if (e != 0) return e;
   if (d.blocks > sms) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // the int8 gates take the block's 4 pb columns in 8-column tiles, at
+  // most one per warp
+  if (Q && ((4 * d.pb) % 8 || 4 * d.pb > 8 * WARPS))
+    return (int)cudaErrorInvalidValue;
   // 1 KB of the block's shared memory is static (its context)
   if (!plan<T, Q>(d, optin - 1024)) return (int)cudaErrorInvalidConfiguration;
   // bf16 tile products on the tensor cores need the slices in shared
   // memory, K a multiple of 16 and the block's column counts multiples of
-  // 8 (slice_plan's tensor_cores); the int8 branch keeps its __dp4a order
-  d.mma = std::is_same<T, __nv_bfloat16>::value && !Q && d.resident &&
+  // 8 (slice_plan's tensor_cores); in the int8 branch they are pred_proj's
+  // and the joint's, the gates running on the int8 tensor cores regardless
+  d.mma = std::is_same<T, __nv_bfloat16>::value && d.resident &&
           (d.d_embed % 16 | d.d_pred % 16 | d.d_joint % 16) == 0 &&
           ((4 * d.pb) % 8 | d.jb % 8 | d.vb % 8) == 0;
   return 0;

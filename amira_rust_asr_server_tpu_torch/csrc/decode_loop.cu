@@ -21,8 +21,9 @@
 // hidden units [g*pb, (g+1)*pb) of both LSTM layers (the four gate columns
 // of each unit, so the cell update stays in the block), jb columns of
 // pred_proj and vb columns of the joint's output matrix (ops/kernels/
-// decode_loop.py:slice_plan; at flagship widths in bf16 107 blocks of 6
-// units, 8 and 16 columns, else 128 blocks of 5 units, 6 and 10). The
+// decode_loop.py:slice_plan; at flagship widths in bf16 and in the int8
+// branch 107 blocks of 6 units, 8 and 16 columns, in f32 128 blocks of 5
+// units, 6 and 10). The
 // wrapper packs those slices per block ([blocks, rows, cols]); in bf16 (and
 // in the int8 branch) the block copies its slices into shared memory once
 // and keeps them for the whole loop, in f32 they do not fit and are read
@@ -31,7 +32,8 @@
 // rows' inputs staged in shared memory): in bf16 on
 // the tensor cores (mma.sync m16n8k16, warps splitting K), otherwise with
 // FMAs (K cut into slices across threads), the biases read from shared
-// memory; it ends in a grid-wide barrier (cooperative groups). The phases
+// memory; it ends in a grid-wide barrier (cooperative groups). pred_proj
+// and the joint are joint.cuh's, shared with decode_step.cu. The phases
 // of one emission: layer 0, layer 1, pred_proj (each only for lanes that
 // emitted), then the joint for the next window. The joint first evaluates a
 // lane's window frame 0 alone and only then, if that was blank, the rest of
@@ -51,20 +53,26 @@
 //
 // The int8 branch (Q, the TPU kernel's quant=True, int8_decode_weights):
 // each LSTM matrix arrives split at the x/h boundary as int8 with
-// per-output-column scales, in words of four consecutive rows so one
-// __dp4a takes four rows of a column. Per layer and lane, each half of the
-// input gets its own scale (amax / 127 + 1e-12 over the whole half; every
-// block holds the lane's whole input, so no extra barrier), is quantized
-// to int8 (x / s rounded half to even), and gates = (acc_x * (s_x * ws_x) +
-// acc_h * (s_h * ws_h)) + b with every product and sum rounded on its own,
-// as the Pallas kernel computes them. Layer 1 reads layer 0's new h
-// unrounded (f32), as the TPU kernel's int8 branch does.
+// per-output-column scales, in words of four consecutive rows, each half
+// zero-padded to a multiple of 32 rows. Per layer and lane, each half of
+// the input gets its own scale (amax / 127 + 1e-12 over the whole half;
+// every block holds the lane's whole input, so no extra barrier), is
+// quantized to int8 (x / s rounded half to even), and gates = (acc_x *
+// (s_x * ws_x) + acc_h * (s_h * ws_h)) + b with every product and sum
+// rounded on its own, as the Pallas kernel computes them. The products run
+// on the int8 tensor cores (tile.cuh tile_gates_q: mma.sync m16n8k32 s8,
+// one pass that stages, scales and quantizes a tile's rows, the two halves
+// with no barrier between them); int32 sums are exact, so the gates equal
+// the plain version's float64 sums. The branch takes the tensor-core slice
+// plan (4 pb a multiple of 8), so in bf16 pred_proj and the joint run on
+// mma.sync m16n8k16 as in the bf16-weight kernel. Layer 1 reads layer 0's
+// new h unrounded (f32), as the TPU kernel's int8 branch does.
 
 #include <cooperative_groups.h>
 
 #include <type_traits>
 
-#include "tile.cuh"
+#include "joint.cuh"
 
 // Built with -DAMIRA_PROFILE_PHASES (tools/profile_torch_decode_loop.py),
 // block 0's thread 0 adds each phase's nanoseconds (%globaltimer) and the
@@ -141,8 +149,9 @@ struct Args {
   const float* bps;     // [G, jb]
   const T* wos;         // [G, J, vb]
   const float* bos;     // [G, vb]
-  // int8 branch: [G, (E + P) / 4, 4pb] and [G, 2P / 4, 4pb] words of four
-  // int8 rows (the x half's rows first), with the halves' column scales
+  // int8 branch: [G, q_words(E) + q_words(P), 4pb] and [G, 2 q_words(P),
+  // 4pb] words of four int8 rows (the x half's rows first, each half
+  // zero-padded to a multiple of 8 words), with the halves' column scales
   const int* wq0s;
   const float* sx0s;    // [G, 4pb]
   const float* sh0s;
@@ -182,15 +191,15 @@ __host__ __device__ inline Scratch scratch_layout(int B, int P, int J, int F,
 }
 
 struct Smem {
-  size_t w0, w1, wp, wo, bias, xs, xf, part, gates, accx, scale, cst, lane,
-      rows, end;
+  size_t w0, w1, wp, wo, bias, xs, part, gates, scale, cst, lane, rows, end;
 };
 template <typename T, bool Q>
 __host__ __device__ inline Smem smem_layout(const Dims& d) {
   const int E = d.d_embed, P = d.d_pred, J = d.d_joint, B = d.batch;
   const int nc4 = 4 * d.pb;
   const size_t lw = Q ? sizeof(int) : sizeof(T);
-  const int k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+  const int k0 = Q ? q_words(E) + q_words(P) : E + P,
+            k1 = Q ? 2 * q_words(P) : 2 * P;
   Smem s{};
   size_t o = 0;
   if (d.resident) {
@@ -201,8 +210,8 @@ __host__ __device__ inline Smem smem_layout(const Dims& d) {
   }
   // the block's biases: both layers' gate columns, pred_proj's, the joint's
   s.bias = take(o, (size_t)(8 * d.pb + d.jb + d.vb) * 4);
-  // float tiles: the LSTM inputs (E + P, 2P; words in the int8 branch),
-  // pred_out (P) and the joint hidden vector (J)
+  // the staged rows: the LSTM inputs (E + P, 2P) in T, or in the int8
+  // branch as int8 words; pred_out (P) and the joint hidden vector (J)
   int kf = P > J ? P : J;
   if (!Q) {
     kf = kf > E + P ? kf : E + P;
@@ -210,44 +219,28 @@ __host__ __device__ inline Smem smem_layout(const Dims& d) {
   }
   size_t xs = (size_t)RT * kf * sizeof(T);
   if (Q) {
-    const size_t xq = (size_t)RT * (k0 > k1 ? k0 : k1) * 4;
-    xs = xs > xq ? xs : xq;
+    const size_t q0 = q_stage_bytes(E, E + P), q1 = q_stage_bytes(P, 2 * P);
+    xs = xs > q0 ? xs : q0;
+    xs = xs > q1 ? xs : q1;
   }
   s.xs = take(o, xs);
-  s.xf = take(o, Q ? (size_t)RT * (E + P > 2 * P ? E + P : 2 * P) * 4 : 0);
   size_t parts = 0;
   const int ncs[3] = {nc4, d.jb, d.vb};
   int ncmax = 0;
   for (int i = 0; i < 3; ++i) {
-    const size_t n = (size_t)n_slices(ncs[i]) * RT * ncs[i];
+    const size_t n = (size_t)n_slices(ncs[i]) * RT * ncs[i] * 4;
     parts = parts > n ? parts : n;
     ncmax = ncmax > ncs[i] ? ncmax : ncs[i];
   }
-  s.part = take(o, parts * 4);
+  if (Q && q_part_bytes(nc4) > parts) parts = q_part_bytes(nc4);
+  s.part = take(o, parts);
   s.gates = take(o, (size_t)RT * ncmax * 4);
-  s.accx = take(o, Q ? (size_t)RT * nc4 * 4 : 0);
   s.scale = take(o, 2 * RT * 4);
   s.cst = take(o, (size_t)2 * B * d.pb * 4);
   s.lane = take(o, (size_t)LANE_FIELDS * B * 4);
   s.rows = take(o, ((size_t)2 * B * d.lookahead + B + 4) * 4);
   s.end = o;
   return s;
-}
-
-// (logit, index) as one key whose unsigned order is (logit, then the
-// smaller index): atomicMax over the blocks gives torch.argmax's answer
-__device__ __forceinline__ unsigned long long pack_key(float m, int k) {
-  unsigned u = __float_as_uint(m);
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return ((unsigned long long)u << 32) | (0xffffffffu - (unsigned)k);
-}
-__device__ __forceinline__ float key_value(unsigned long long key) {
-  unsigned u = (unsigned)(key >> 32);
-  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
-  return __uint_as_float(u);
-}
-__device__ __forceinline__ int key_index(unsigned long long key) {
-  return (int)(0xffffffffu - (unsigned)(key & 0xffffffffu));
 }
 
 // everything one block works with: dimensions, arguments, its shared
@@ -293,9 +286,7 @@ __device__ Ctx<T, Q> make_ctx(const Dims& d, const Args<T>& a,
   const int B = d.batch, E = d.d_embed, P = d.d_pred, J = d.d_joint;
   const int nc4 = 4 * d.pb;
   c.tb.xs = smem + s.xs;
-  c.tb.xf = reinterpret_cast<float*>(smem + s.xf);
   c.tb.part = reinterpret_cast<float*>(smem + s.part);
-  c.tb.accx = reinterpret_cast<int*>(smem + s.accx);
   c.tb.scale = reinterpret_cast<float*>(smem + s.scale);
   c.gates = reinterpret_cast<float*>(smem + s.gates);
   c.cst = reinterpret_cast<float*>(smem + s.cst);
@@ -312,7 +303,8 @@ __device__ Ctx<T, Q> make_ctx(const Dims& d, const Args<T>& a,
   c.rf = c.rb + B * d.lookahead;
   c.em = c.rf + B * d.lookahead;
   c.flags = c.em + B;
-  const int64_t k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+  const int64_t k0 = Q ? q_words(E) + q_words(P) : E + P,
+            k1 = Q ? 2 * q_words(P) : 2 * P;
   const LW* w0g = Q ? (const LW*)a.wq0s : (const LW*)a.w0s;
   const LW* w1g = Q ? (const LW*)a.wq1s : (const LW*)a.w1s;
   if (d.resident) {
@@ -405,20 +397,13 @@ __device__ void tile_product(Ctx<T, Q>& c, int nr, int K, const T* w, int nc,
 template <typename T, bool Q>
 __device__ void pred_proj_phase(Ctx<T, Q>& c, int n) {
   const Dims& d = c.d;
-  const int P = d.d_pred, J = d.d_joint, jb = d.jb, c_lo = c.g * jb;
-  if (c_lo >= J) return;
-  for (int r0 = 0; r0 < n; r0 += RT) {
-    const int nr = min(RT, n - r0);
-    tile_product(c, nr, P, c.wp, jb, c.bp, c.gates, [&](int r, int k) {
-      return ld4(c.pred + (int64_t)c.em[r0 + r] * P + k);
-    });
-    __syncthreads();
-    for (int i = threadIdx.x; i < nr * jb; i += THREADS) {
-      const int r = i / jb, col = c_lo + i - r * jb;
-      if (col < J) c.pj[(int64_t)c.em[r0 + r] * J + col] = c.gates[i];
-    }
-    __syncthreads();
-  }
+  const int P = d.d_pred, J = d.d_joint;
+  slice_rows(
+      c.tb, d.mma != 0, n, P, c.wp, d.jb, c.g * d.jb, J, c.bp, c.gates,
+      [&](int r, int k) { return ld4(c.pred + (int64_t)c.em[r] * P + k); },
+      [&](int r, int col, float v) {
+        c.pj[(int64_t)c.em[r] * J + col] = v;
+      });
 }
 
 // inputs k .. k + 3 (k a multiple of 4) of LSTM layer L for lane b:
@@ -510,36 +495,23 @@ __device__ void lstm_phase(Ctx<T, Q>& c) {
 template <typename T, bool Q>
 __device__ void joint_phase(Ctx<T, Q>& c, int cur) {
   const Dims& d = c.d;
-  const int B = d.batch, J = d.d_joint, V = d.vocab, F = d.lookahead;
-  const int vb = d.vb, c_lo = c.g * vb, n = c.flags[0];
-  if (c_lo >= V) return;
-  for (int r0 = 0; r0 < n; r0 += RT) {
-    const int nr = min(RT, n - r0);
-    // the joint hidden vector relu(enc + pj), rounded to T by the staging
-    tile_product(c, nr, J, c.wo, vb, c.bo, c.gates, [&](int r, int k) {
-      const int b = c.rb[r0 + r];
-      const int row = min(c.tt[b] + c.rf[r0 + r], d.t_max - 1);
-      return add_relu(ld4(c.a.enc_pre + ((int64_t)b * d.t_max + row) * J + k),
-                      ld4(c.pj + (int64_t)b * J + k));
-    });
-    __syncthreads();
-    for (int r = threadIdx.x; r < nr; r += THREADS) {
-      const float* lg = c.gates + r * vb;
-      const int nv = min(vb, V - c_lo);
-      float m = lg[0];
-      int kb = 0;
-      for (int col = 1; col < nv; ++col)
-        if (lg[col] > m) { m = lg[col]; kb = col; }
-      float s = 0.f;
-      for (int col = 0; col < nv; ++col) s += expf(lg[col] - m);
-      const int b = c.rb[r0 + r], f = c.rf[r0 + r];
-      atomicMax(c.keys + ((int64_t)cur * B + b) * F + f,
-                pack_key(m, c_lo + kb));
-      c.pg[(((int64_t)cur * d.blocks + c.g) * B + b) * F + f] =
-          make_float2(m, s);
-    }
-    __syncthreads();
-  }
+  const int B = d.batch, J = d.d_joint, F = d.lookahead;
+  // the joint hidden vector relu(enc + pj), rounded to T by the staging
+  slice_argmax_rows(
+      c.tb, d.mma != 0, c.flags[0], J, c.wo, d.vb, c.g * d.vb, d.vocab,
+      c.bo, c.gates,
+      [&](int r, int k) {
+        const int b = c.rb[r];
+        const int row = min(c.tt[b] + c.rf[r], d.t_max - 1);
+        return add_relu(
+            ld4(c.a.enc_pre + ((int64_t)b * d.t_max + row) * J + k),
+            ld4(c.pj + (int64_t)b * J + k));
+      },
+      [&](int r, unsigned long long key, float2 part) {
+        const int b = c.rb[r], f = c.rf[r];
+        atomicMax(c.keys + ((int64_t)cur * B + b) * F + f, key);
+        c.pg[(((int64_t)cur * d.blocks + c.g) * B + b) * F + f] = part;
+      });
 }
 
 // after a joint: every block reads the keys and updates the lanes alike;
@@ -600,16 +572,10 @@ __device__ void decide(Ctx<T, Q>& c, int round) {
       if (c.emk[b] < 0) continue;
       const int f = c.hit[b];
       const float m = key_value(keys[b * F + f]);
-      float s = 0.f;
-      for (int q = ln; q < gv; q += 32) {
-        const float2 p = c.pg[(((int64_t)cur * d.blocks + q) * B + b) * F + f];
-        s += p.y * expf(p.x - m);
-      }
-      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-      if (ln == 0) {
-        const float lse = m + logf(s);
-        c.a.confs[(int64_t)b * d.max_total + c.slot[b]] = expf(m - lse);
-      }
+      const float conf = warp_conf(
+          c.pg + ((int64_t)cur * d.blocks * B + b) * F + f, (int64_t)B * F,
+          gv, m);
+      if (ln == 0) c.a.confs[(int64_t)b * d.max_total + c.slot[b]] = conf;
     }
   }
   if (threadIdx.x >> 5 == 1) build_rows(c, true);  // beside warp 0's sums
@@ -628,7 +594,8 @@ greedy_loop_kernel(Dims d, Args<T> a) {
   // the block's weight slices into shared memory, once
   if (d.resident) {
     using LW = typename Ctx<T, Q>::LW;
-    const int64_t k0 = Q ? (E + P) / 4 : E + P, k1 = Q ? P / 2 : 2 * P;
+    const int64_t k0 = Q ? q_words(E) + q_words(P) : E + P,
+            k1 = Q ? 2 * q_words(P) : 2 * P;
     const LW* w0g = Q ? (const LW*)a.wq0s : (const LW*)a.w0s;
     const LW* w1g = Q ? (const LW*)a.wq1s : (const LW*)a.w1s;
     const int64_t n0 = k0 * nc4 * sizeof(LW), n1 = k1 * nc4 * sizeof(LW);
@@ -748,8 +715,9 @@ int launch(Dims d, const Args<T>& a, void* stream) {
   }
   // bf16 tile products on the tensor cores need the slices in shared
   // memory, K a multiple of 16 and the block's column counts multiples of
-  // 8 (slice_plan's tensor_cores); the int8 branch keeps its FMA order
-  d.mma = std::is_same<T, __nv_bfloat16>::value && !Q && d.resident &&
+  // 8 (slice_plan's tensor_cores); in the int8 branch they are pred_proj's
+  // and the joint's, the gates running on the int8 tensor cores regardless
+  d.mma = std::is_same<T, __nv_bfloat16>::value && d.resident &&
           (d.d_embed % 16 | d.d_pred % 16 | d.d_joint % 16) == 0 &&
           ((4 * d.pb) % 8 | d.jb % 8 | d.vb % 8) == 0;
   auto kernel = greedy_loop_kernel<T, Q>;
@@ -782,7 +750,8 @@ extern "C" long long amira_greedy_loop_scratch_bytes(int batch, int d_pred,
 }
 
 // is_bf16 selects the working type T (1: __nv_bfloat16, 0: float); quant 1
-// runs the int8 branch, which reads wq0s .. sh1s in place of w0s and w1s.
+// runs the int8 branch, which reads wq0s .. sh1s in place of w0s and w1s
+// and needs 4 pb a multiple of 8, at most 128.
 // The grid is `blocks` blocks owning pb hidden units, jb pred_proj columns
 // and vb joint columns each (jb, vb even; the tensor-core path also needs
 // 4 pb, jb and vb multiples of 8, else it takes the FMA path), the slices
@@ -803,8 +772,11 @@ extern "C" int amira_greedy_loop(
       (int64_t)blocks * pb < d_pred || (int64_t)blocks * jb < d_joint ||
       (int64_t)blocks * vb < vocab || lookahead <= 0)
     return (int)cudaErrorInvalidValue;
-  // rows are staged four values at a time
-  if ((d_embed | d_pred | d_joint) & 3) return (int)cudaErrorInvalidValue;
+  // rows are staged four values at a time; the int8 gates take the block's
+  // 4 pb columns in 8-column tiles, at most one per warp
+  if ((d_embed | d_pred | d_joint) & 3 ||
+      (quant && ((4 * pb) % 8 || 4 * pb > amira::THREADS / 4)))
+    return (int)cudaErrorInvalidValue;
   const Dims d{batch,     t_max,    d_joint,  d_pred,      d_embed,
                vocab,     max_total, lookahead, blank_id,  max_symbols,
                blocks,    pb,        jb,        vb,        1,       0};

@@ -51,10 +51,12 @@ SIGNATURES = {
     "amira_beam_loop_scratch_bytes": [I] * 12,
     "amira_beam_loop": [I] * 16 + [P] * 31,
     "amira_quant_matmul": [I] * 5 + [P] * 6,
-    "amira_joint_argmax": [I] * 6 + [P] * 9,
+    "amira_joint_argmax_scratch_bytes": [I] * 4,
+    "amira_joint_argmax": [I] * 9 + [P] * 10,
 }
 RESTYPES = {"amira_beam_loop_scratch_bytes": ctypes.c_longlong,
-            "amira_greedy_loop_scratch_bytes": ctypes.c_longlong}
+            "amira_greedy_loop_scratch_bytes": ctypes.c_longlong,
+            "amira_joint_argmax_scratch_bytes": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:

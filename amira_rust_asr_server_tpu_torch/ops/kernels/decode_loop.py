@@ -20,7 +20,9 @@ Its launches count in ``greedy_loop_int8.launches``.
 
 The kernel runs one block per SM, each owning a slice of the columns
 (:func:`slice_plan`); :meth:`DecodeWeights.block_slices` packs the weights
-per block once (:func:`pack_columns`).
+per block once (:func:`pack_columns`), the int8 halves' words zero-padded to
+the int8 tensor cores' k-step (:func:`pad_words`). The step kernel
+(``decode_step``) runs on the same grid with :meth:`JointWeights.block_slices`.
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ def quantize_pred_lstm(lstm_w: Sequence[torch.Tensor]
 
 def pack_rows4(q: torch.Tensor) -> torch.Tensor:
     """int8 ``[K, N]`` -> int32 ``[K / 4, N]``: each word holds rows 4r ..
-    4r + 3 of a column (lowest byte first), the operand of one ``__dp4a``."""
+    4r + 3 of a column (lowest byte first), as the int8 tensor cores'
+    ``mma.sync`` m16n8k32 fragments take them."""
     k, n = q.shape
     if k % 4:
         raise ValueError(f"the int8 decode kernels take rows in fours, got {k}")
@@ -75,15 +78,25 @@ def pack_rows4(q: torch.Tensor) -> torch.Tensor:
             .view(torch.int32).reshape(k // 4, n))
 
 
+def pad_words(words: torch.Tensor) -> torch.Tensor:
+    """int32 words ``[K / 4, N]`` (:func:`pack_rows4`) with zero words
+    appended to a multiple of 8: one k-step of the int8 tensor cores'
+    ``mma.sync`` m16n8k32 (32 int8 rows). Zero words add nothing to the
+    exact int32 sums."""
+    pad = -words.shape[0] % 8
+    return torch.cat([words, words.new_zeros((pad, words.shape[1]))]) \
+        if pad else words
+
+
 def slice_plan(d_pred: int, d_joint: int, vocab: int, max_blocks: int,
                tensor_cores: bool):
-    """``(blocks, pb, jb, vb)``: the decode kernel's grid of at most
+    """``(blocks, pb, jb, vb)``: the decode kernels' grid of at most
     ``max_blocks`` blocks, each owning ``pb`` hidden units (the four gate
     columns of each, in both LSTM layers), ``jb`` columns of pred_proj and
-    ``vb`` of the joint's output matrix. With ``tensor_cores`` (bf16 weights
-    without the int8 LSTM: the kernel's tile products run as mma.sync) every
-    block's column counts are multiples of 8, the tiles' width; otherwise
-    even, so the FMA products keep the most blocks busy."""
+    ``vb`` of the joint's output matrix. With ``tensor_cores`` (bf16 weights,
+    whose tile products run as mma.sync, or the int8 LSTM, whose gates do)
+    every block's column counts are multiples of 8, the tiles' width;
+    otherwise even, so the FMA products keep the most blocks busy."""
     align = 8 if tensor_cores else 2
     pb = -(-d_pred // max_blocks)
     if tensor_cores:  # 4 pb gate columns, a multiple of 8
@@ -123,6 +136,29 @@ class JointWeights:
     bp: torch.Tensor      # [J] f32
     wo: torch.Tensor      # [J, V]
     bo: torch.Tensor      # [V] f32
+
+    def block_slices(self, blocks: int, jb: int, vb: int
+                     ) -> Dict[str, torch.Tensor]:
+        """pred_proj's and the output matrix's columns packed per block for
+        the kernels' grid (:func:`slice_plan`), made once per grid and
+        kept: ``wps``, ``bps``, ``wos``, ``bos``."""
+        key = (blocks, jb, vb)
+        cache = self.__dict__.setdefault("_block_slices", {})
+        if key not in cache:
+            cache[key] = {"wps": pack_columns(self.wp, blocks, jb),
+                          "bps": pack_columns(self.bp, blocks, jb),
+                          "wos": pack_columns(self.wo, blocks, vb),
+                          "bos": pack_columns(self.bo, blocks, vb)}
+        return cache[key]
+
+    def step_scratch(self, n_bytes: int, rows: int) -> torch.Tensor:
+        """The step kernel's scratch for ``rows`` rows, zeroed once and
+        kept: each launch leaves it as it found it."""
+        cache = self.__dict__.setdefault("_step_scratch", {})
+        if rows not in cache:
+            cache[rows] = torch.zeros((n_bytes,), dtype=torch.uint8,
+                                      device=self.wo.device)
+        return cache[rows]
 
     @classmethod
     def from_model(cls, model, dtype: torch.dtype) -> "JointWeights":
@@ -188,7 +224,9 @@ class DecodeWeights:
     def block_slices(self, blocks: int, pb: int, jb: int, vb: int
                      ) -> Dict[str, torch.Tensor]:
         """The weights packed per block for the decode kernel's grid
-        (:func:`slice_plan`), made once per grid and kept."""
+        (:func:`slice_plan`), made once per grid and kept; the joint's are
+        :attr:`joint`'s own. The int8 layers' words hold each half padded by
+        :func:`pad_words`, the x half's first."""
         key = (blocks, pb, jb, vb)
         cache = self.__dict__.setdefault("_block_slices", {})
         if key not in cache:
@@ -197,12 +235,9 @@ class DecodeWeights:
                    "b0s": pack_columns(self.b0, **gates),
                    "w1s": pack_columns(self.w1, **gates),
                    "b1s": pack_columns(self.b1, **gates),
-                   "wps": pack_columns(self.wp, blocks, jb),
-                   "bps": pack_columns(self.bp, blocks, jb),
-                   "wos": pack_columns(self.wo, blocks, vb),
-                   "bos": pack_columns(self.bo, blocks, vb)}
+                   **self.joint.block_slices(blocks, jb, vb)}
             if self.quant is not None:
-                w = self.quant_words
+                w = {k: pad_words(v) for k, v in self.quant_words.items()}
                 out["wq0s"] = pack_columns(torch.cat([w["wx0"], w["wh0"]]),
                                            **gates)
                 out["wq1s"] = pack_columns(torch.cat([w["wx1"], w["wh1"]]),
@@ -218,7 +253,11 @@ class DecodeWeights:
 
     @property
     def joint(self) -> JointWeights:
-        return JointWeights(wp=self.wp, bp=self.bp, wo=self.wo, bo=self.bo)
+        """The joint alone (made once, so its block slices are kept)."""
+        if "_joint" not in self.__dict__:
+            self.__dict__["_joint"] = JointWeights(wp=self.wp, bp=self.bp,
+                                                   wo=self.wo, bo=self.bo)
+        return self.__dict__["_joint"]
 
     def check(self, what: str, device: torch.device) -> None:
         """Raise unless every weight is what the kernel ``what`` reads."""
@@ -337,19 +376,27 @@ SLICES = ("w0s", "b0s", "w1s", "b1s", "wps", "bps", "wos", "bos")
 INT8_SLICES = ("wq0s", "sx0s", "sh0s", "wq1s", "sx1s", "sh1s")
 
 
+def grid_plan(weights, device: torch.device) -> Tuple[int, int, int, int]:
+    """The kernels' grid on ``device`` for :class:`DecodeWeights` or
+    :class:`JointWeights`: one block per SM, :func:`slice_plan` on the
+    tensor cores for bf16 weights and for the int8 LSTM (whose gates run on
+    the int8 tensor cores)."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    d_pred, d_joint = weights.wp.shape
+    return slice_plan(d_pred, d_joint, weights.bo.shape[0], n_sm,
+                      tensor_cores=(weights.dtype == torch.bfloat16
+                                    or getattr(weights, "quant", None)
+                                    is not None))
+
+
 def loop_grid(weights: DecodeWeights, device: torch.device
               ) -> Tuple[Tuple[int, int, int, int], List[int],
                          List[Optional[int]]]:
-    """The grid of both loop kernels (greedy and beam) on ``device``: one
-    block per SM (:func:`slice_plan`, on the tensor cores for bf16 weights
-    without the int8 LSTM), and the addresses of its per-block slices, as
+    """The grid of both loop kernels (greedy and beam) on ``device``
+    (:func:`grid_plan`), and the addresses of its per-block slices, as
     ``(plan, slice pointers, int8 slice pointers)``; the int8 ones are
     ``None`` without ``weights.quant``."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    d_pred, d_joint = weights.wp.shape
-    plan = slice_plan(d_pred, d_joint, weights.bo.shape[0], n_sm,
-                      tensor_cores=(weights.dtype == torch.bfloat16
-                                    and weights.quant is None))
+    plan = grid_plan(weights, device)
     sl = weights.block_slices(*plan)
     return (plan, [sl[k].data_ptr() for k in SLICES],
             [sl[k].data_ptr() if weights.quant is not None else None

@@ -13,6 +13,13 @@ or raises. :func:`make_fused_step_fn` binds it to the joint's weights as
 ``ops.greedy.greedy_decode``'s ``fused_step_fn``. The kernel reads only the
 joint: it takes a :class:`JointWeights` (``JointWeights.from_model`` for any
 prediction-net depth, or ``DecodeWeights.joint``).
+
+The kernel is one cooperative launch on the loop kernels' grid
+(``decode_loop.grid_plan``): each block reads only its own columns of the
+two matrices, which :meth:`JointWeights.block_slices` packs once per grid,
+and a scratch the weights keep per row count (:meth:`JointWeights.
+step_scratch`), so a call packs and clears nothing. Calls that share the
+weights run in stream order (the scratch is theirs in turn).
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .decode_loop import JointWeights, check_tensor, joint_fn
+from .decode_loop import JointWeights, check_tensor, grid_plan, joint_fn
 
 _count_lock = threading.Lock()
 
@@ -68,12 +75,18 @@ def joint_argmax(enc_win: torch.Tensor, pred_out: torch.Tensor,
         check_tensor(what, name, x, xdt, shape, dev)
     k = torch.empty((b, f), dtype=torch.int32, device=dev)
     conf = torch.empty((b, f), dtype=torch.float32, device=dev)
-    w = weights
-    err = _build.library().amira_joint_argmax(
-        int(dt == torch.bfloat16), b, f, d_pred, d_joint, v,
-        enc_win.data_ptr(), pred_out.data_ptr(), w.wp.data_ptr(),
-        w.bp.data_ptr(), w.wo.data_ptr(), w.bo.data_ptr(), k.data_ptr(),
-        conf.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    blocks, _, jb, vb = grid_plan(weights, dev)
+    sl = weights.block_slices(blocks, jb, vb)
+    lib = _build.library()
+    is_bf16 = int(dt == torch.bfloat16)
+    scratch = weights.step_scratch(lib.amira_joint_argmax_scratch_bytes(
+        is_bf16, b * f, d_joint, blocks), b * f)
+    err = lib.amira_joint_argmax(
+        is_bf16, b, f, d_pred, d_joint, v, blocks, jb, vb,
+        enc_win.data_ptr(), pred_out.data_ptr(),
+        *(sl[name].data_ptr() for name in ("wps", "bps", "wos", "bos")),
+        k.data_ptr(), conf.data_ptr(), scratch.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_joint_argmax")
     with _count_lock:
         joint_argmax.launches += 1

@@ -34,12 +34,15 @@ the hand-written kernels against their plain PyTorch versions:
      at M = 25 (1 x 2 s) and M = 6016 (16 x 30 s), f32 (rtol 1e-6) and bf16
      inputs (one bf16 ulp); times beside the bf16 torch.matmul's
   J  the int8 branches of the greedy and beam kernels vs their plain
-     versions at flagship widths: greedy B=16, T'=376 (f32 >= 99%, bf16
-     >= 90% identical tokens); beam B=16, K=10, S=3 with the phase-G bias
-     and graph (f32 identical best tokens on >= 15 of 16 lanes, bf16 >= 90%
+     versions at flagship widths: greedy B=16, T'=376 (f32 tokens, frames
+     and counts identical and confidences within 1e-5, bf16 >= 90%
+     identical tokens); beam B=16, K=10, S=3 with the phase-G bias and
+     graph (f32 identical best tokens on >= 15 of 16 lanes, bf16 >= 90%
      identical best tokens); times beside the bf16-weight kernels'
-  K  joint-argmax kernel vs plain version, B=16, F=8, flagship widths: f32
-     identical ids and confidences within 1e-5, bf16 >= 99% identical ids
+  K  joint-argmax kernel vs plain version, B=16 and B=1, F=8, flagship
+     widths: f32 identical ids and confidences within 1e-5, bf16 >= 99%
+     identical ids; an output column copied into another block's slice,
+     both the rows' max, gives the first index
   L  the int8 and per-step paths end to end: tiny-digits on the card must
      transcribe "two five nine" with quantization="int8" +
      int8_decode_weights (greedy and beam) and with
@@ -862,16 +865,23 @@ def phase_j(results):
         # confidences where both emitted the same token at the same frame
         same = (tk == tp) & (fk == fp) & (qk > 0) & (qp > 0)
         err = float(np.abs(qk - qp)[same].max()) if same.any() else 0.0
+        identical = (np.array_equal(tk, tp) and np.array_equal(ck, cp)
+                     and np.array_equal(fk, fp))
         ms_k = cuda_ms(lambda: greedy_loop(*args, wq, **kw), 5)
         ms_p = cuda_ms(lambda: greedy_loop_reference(*args, wq, **kw), 2)
         ms_w = cuda_ms(lambda: greedy_loop(*args, w, **kw), 5)
-        need = 0.99 if dtype == torch.float32 else 0.9
-        say("J", f"greedy int8 {name}: identical-token share {share:.4f} "
-            f"(>= {need}); max|d conf| (same token) {err:.3e}; counts "
-            f"{ck.tolist()}; int8 kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms,"
-            f" {name}-weight kernel {ms_w:.3f} ms")
-        if share < need:
-            raise AssertionError(f"[J] greedy int8 {name} agreement {share}")
+        need = ("tokens, frames, counts identical, conf within 1e-5"
+                if dtype == torch.float32 else ">= 0.9")
+        say("J", f"greedy int8 {name}: identical-token share {share:.4f}, "
+            f"tokens/frames/counts identical {identical} ({need}); max|d "
+            f"conf| (same token) {err:.3e}; counts {ck.tolist()}; int8 "
+            f"kernel {ms_k:.3f} ms, {name}-weight kernel {ms_w:.3f} ms (same "
+            f"call), plain {ms_p:.3f} ms")
+        if (not (identical and err <= 1e-5) if dtype == torch.float32
+                else share < 0.9):
+            raise AssertionError(f"[J] greedy int8 {name} disagrees: share "
+                                 f"{share}, identical {identical}, conf "
+                                 f"{err}")
         if dtype == torch.float32:
             g_res["max_abs_err"] = err
         else:
@@ -940,9 +950,12 @@ def phase_j(results):
 
 def phase_k(results):
     """The joint-argmax kernel against its plain version: the greedy
-    loop's window of 8 frames for 16 lanes at flagship widths."""
+    loop's window of 8 frames for 16 lanes and for one at flagship widths,
+    and a tie across two blocks' slices."""
     import torch
 
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
+        grid_plan
     from amira_rust_asr_server_tpu_torch.ops.kernels.decode_step import (
         joint_argmax, joint_argmax_reference)
     res = results["joint_argmax"] = {}
@@ -950,33 +963,59 @@ def phase_k(results):
         name = str(dtype).replace("torch.", "")
         enc_pre, _, _, _, pred0, _, _, w, _ = flagship_decode_inputs(dtype)
         w = w.joint  # the kernel reads the joint alone
-        enc_win = enc_pre[:, :8].contiguous()
-        kk, ck = joint_argmax(enc_win, pred0, w)
-        kp, cp = joint_argmax_reference(enc_win, pred0, w)
-        torch.cuda.synchronize()
-        if kk.shape != (16, 8) or not torch.isfinite(ck).all():
-            raise AssertionError(f"[K] bad output {tuple(kk.shape)}")
-        share = (kk == kp).float().mean().item()
-        err = (ck - cp).abs().max().item()
-        ms_k = cuda_ms(lambda: joint_argmax(enc_win, pred0, w), 50)
-        ms_p = cuda_ms(lambda: joint_argmax_reference(enc_win, pred0, w), 20)
-        say("K", f"{name}: identical ids {share:.4f}, max|d conf| {err:.3e};"
-            f" {len(torch.unique(kk))} distinct ids; kernel {ms_k:.4f} ms, "
-            f"plain {ms_p:.4f} ms")
-        if dtype == torch.float32:
-            if share < 1.0 or err > 1e-5:
-                raise AssertionError("[K] f32 joint argmax disagrees")
-            res["max_abs_err"] = err
-        else:
+        for b in (16, 1):
+            enc_win = enc_pre[:b, :8].contiguous()
+            pred = pred0[:b].contiguous()
+            kk, ck = joint_argmax(enc_win, pred, w)
+            kp, cp = joint_argmax_reference(enc_win, pred, w)
+            torch.cuda.synchronize()
+            if kk.shape != (b, 8) or not torch.isfinite(ck).all():
+                raise AssertionError(f"[K] bad output {tuple(kk.shape)}")
+            share = (kk == kp).float().mean().item()
+            err = (ck - cp).abs().max().item()
+            ms_k = cuda_ms(lambda: joint_argmax(enc_win, pred, w), 50)
+            ms_p = cuda_ms(lambda: joint_argmax_reference(enc_win, pred, w),
+                           20)
+            say("K", f"{name} B={b}: identical ids {share:.4f}, max|d conf| "
+                f"{err:.3e}; {len(torch.unique(kk))} distinct ids; kernel "
+                f"{ms_k:.4f} ms, plain {ms_p:.4f} ms")
+            if dtype == torch.float32:
+                if share < 1.0 or err > 1e-5:
+                    raise AssertionError(f"[K] f32 B={b} joint argmax "
+                                         "disagrees")
+                res["max_abs_err"] = max(res.get("max_abs_err", 0.0), err)
+                res[f"f32_b{b}_ms"] = ms_k
+                continue
             if share < 0.99:
-                raise AssertionError(f"[K] bf16 id agreement {share}")
-            b_, f_, j_ = enc_win.shape
-            p_, v_ = w.wp.shape[0], w.wo.shape[1]
-            bnd = bound(nbytes(enc_win, pred0, w.wp, w.bp, w.wo, w.bo, kk, ck),
-                        {"bf16": 2 * (b_ * p_ * j_ + b_ * f_ * j_ * v_)})
-            say("K", f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
-                "no single library call")
-            res.update(ms=ms_k, plain_ms=ms_p, library_ms=None, **bnd)
+                raise AssertionError(f"[K] bf16 B={b} id agreement {share}")
+            f_ = enc_win.shape[1]
+            j_, p_, v_ = w.wp.shape[1], w.wp.shape[0], w.wo.shape[1]
+            bnd = bound(nbytes(enc_win, pred, w.wp, w.bp, w.wo, w.bo, kk, ck),
+                        {"bf16": 2 * (b * p_ * j_ + b * f_ * j_ * v_)})
+            say("K", f"bf16 B={b}: bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}), no single library call")
+            if b == 16:
+                res.update(ms=ms_k, plain_ms=ms_p, library_ms=None, **bnd)
+            else:
+                res.update(b1_ms=ms_k, b1_plain_ms=ms_p,
+                           b1_bound_ms=bnd["bound_ms"])
+        # a tie: output column `second` (block 1's slice) a copy of `first`
+        # (block 0's), both the max of every row: the first index wins
+        vb = grid_plan(w, torch.device("cuda"))[3]
+        first, second = 1, vb + 3
+        wo, bo = w.wo.clone(), w.bo.clone()
+        wo[:, second] = wo[:, first]
+        bo[first] = bo[second] = 60.0
+        wt = dataclasses.replace(w, wo=wo, bo=bo)
+        kk, ck = joint_argmax(enc_pre[:, :8].contiguous(), pred0, wt)
+        kp, _ = joint_argmax_reference(enc_pre[:, :8].contiguous(), pred0, wt)
+        ok = bool((kk == first).all() and (kp == first).all())
+        say("K", f"{name} tie between columns {first} and {second} (blocks 0 "
+            f"and 1): every id {first} {ok}, conf {ck.min().item():.6f}.."
+            f"{ck.max().item():.6f}")
+        if not ok:
+            raise AssertionError(f"[K] {name} tie not resolved to the first "
+                                 "index")
 
 
 def phase_l(results):

@@ -149,6 +149,41 @@ def test_joint_argmax_ties_take_the_first_index(tiny):
     np.testing.assert_allclose(conf.numpy(), 0.5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("layers", [1, 2, 3])
+def test_joint_weights_carry_the_loop_kernels_slices(tiny, layers):
+    """``JointWeights.from_model`` of a 1-, 2- or 3-layer net (the joint of
+    the 2-layer one) packs its block slices once per grid, equal to the
+    2-layer ``DecodeWeights``' own (which are its ``joint``'s), on the grid
+    of both the bf16 and the int8 plan, so the step route's per-dispatch
+    ``make_fused_step_fn`` packs nothing."""
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
+        DecodeWeights, slice_plan)
+    _, _, model2 = tiny
+    cfg = dataclasses.replace(model2.config, pred_layers=layers)
+    model = Transducer(cfg).init_weights(torch.Generator().manual_seed(5))
+    model.joint.load_state_dict(model2.joint.state_dict())
+    jw = JointWeights.from_model(model, torch.bfloat16)
+    dw = DecodeWeights.from_model(model2, torch.bfloat16)
+    assert dw.joint is dw.joint  # made once
+    p, j = jw.wp.shape
+    for max_blocks in (3, 7, 132):
+        plan = slice_plan(p, j, jw.bo.shape[0], max_blocks,
+                          tensor_cores=True)
+        blocks, _, jb, vb = plan
+        sl = jw.block_slices(blocks, jb, vb)
+        assert sl is jw.block_slices(blocks, jb, vb)  # packed once
+        assert set(sl) == {"wps", "bps", "wos", "bos"}
+        loop = dw.block_slices(*plan)
+        for name, x in sl.items():
+            assert loop[name] is dw.joint.block_slices(blocks, jb, vb)[name]
+            assert torch.equal(x, loop[name]), name
+    make_fused_step_fn(jw)  # binds the weights, packs nothing
+    assert jw.__dict__["_block_slices"].keys() == {
+        (b, jb_, vb_) for b, _, jb_, vb_ in (
+            slice_plan(p, j, jw.bo.shape[0], m, tensor_cores=True)
+            for m in (3, 7, 132))}
+
+
 # -- greedy_decode with the fused step ----------------------------------------------
 STEP_CASES = {
     "random_batch": dict(b=4, t=21, lens=[21, 13, 1, 7], bias=0.0,

@@ -374,12 +374,24 @@ def unpack_columns(packed: torch.Tensor, n: int,
     return out[0] if vec else out
 
 
+def unpack_rows4(words: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``decode_loop.pack_rows4``: int32 ``[K / 4, N]`` ->
+    int8 ``[K, N]``."""
+    kw, n = words.shape
+    return (words.contiguous().view(torch.int8).reshape(kw, n, 4)
+            .permute(0, 2, 1).reshape(4 * kw, n))
+
+
+# quant: False (bf16, the tensor-core plan), True (the int8 LSTM on the
+# FMA plan, odd pb allowed) and "tensor_cores" (the int8 LSTM on the
+# tensor-core plan the int8 kernels take: pb even)
 @pytest.mark.parametrize("max_blocks", [3, 7, 132])
-@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("quant", [False, True, "tensor_cores"])
 def test_block_slices_unpack_to_weights(tiny, max_blocks, quant):
     """The decode kernel's per-block weight slices (``block_slices``) hold
     the weights exactly: unpacking each gives the original matrix, bias or
-    int8 half, and the padding past each width is zero."""
+    int8 half (``quantize_pred_lstm``'s, with its scales), and the padding
+    past each width is zero."""
     from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
         slice_plan
     _, _, model = tiny
@@ -388,10 +400,11 @@ def test_block_slices_unpack_to_weights(tiny, max_blocks, quant):
         w = w.with_int8_lstm()
     p, j = w.wp.shape
     v = w.wo.shape[1]
+    fma_plan = quant is True
     blocks, pb, jb, vb = slice_plan(p, j, v, max_blocks,
-                                    tensor_cores=not quant)
+                                    tensor_cores=not fma_plan)
     assert blocks <= max_blocks and (blocks - 1) * pb < p <= blocks * pb
-    align = 2 if quant else 8
+    align = 2 if fma_plan else 8
     assert 4 * pb % align == jb % align == vb % align == 0
     assert blocks * jb >= j and blocks * vb >= v
     sl = w.block_slices(blocks, pb, jb, vb)
@@ -412,3 +425,64 @@ def test_block_slices_unpack_to_weights(tiny, max_blocks, quant):
         n = orig.shape[-1] // groups
         assert torch.equal(unpack_columns(packed, n, groups), orig), name
         assert int((packed != 0).sum()) == int((orig != 0).sum()), name
+    if quant == "tensor_cores":  # the words are quantize_pred_lstm's halves
+        for layer in (0, 1):
+            x_rows = w.quant[f"wx{layer}_q"].shape[0]
+            got = unpack_rows4(unpack_columns(sl[f"wq{layer}s"], p, 4))
+            assert torch.equal(got[:x_rows], w.quant[f"wx{layer}_q"])
+            assert torch.equal(got[x_rows:], w.quant[f"wh{layer}_q"])
+
+
+@pytest.mark.parametrize("d_embed", [48, 20])
+def test_int8_block_slices_pad_halves(d_embed):
+    """An x half whose width is not a multiple of 32 (48, 20 inputs): the
+    int8 words of each half are zero-padded to a multiple of 8 words (the
+    int8 tensor cores' k-step), unpack to ``quantize_pred_lstm``'s halves,
+    and the gates computed from the padded per-block slices, as the kernels
+    compute them (zero-padded quantized inputs, exact integer sums, then
+    ``acc * (s * ws)`` per half plus the bias), equal the plain int8 gates
+    (``_qdot``) exactly."""
+    from amira_rust_asr_server_tpu_torch.models import get_preset
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
+        _qdot, pad_words, quant_scale, slice_plan)
+    cfg = dataclasses.replace(get_preset("tiny"), n_layers=0, d_embed=d_embed)
+    model = Transducer(cfg).init_weights(torch.Generator().manual_seed(4))
+    w = DecodeWeights.from_model(model, torch.float32).with_int8_lstm()
+    p, j = w.wp.shape
+    blocks, pb, jb, vb = slice_plan(p, j, w.wo.shape[1], 5,
+                                    tensor_cores=True)
+    sl = w.block_slices(blocks, pb, jb, vb)
+    rng = np.random.default_rng(d_embed)
+    b = 3
+    for layer, d_x in ((0, d_embed), (1, p)):
+        qx, qh = w.quant[f"wx{layer}_q"], w.quant[f"wh{layer}_q"]
+        xw = pad_words(w.quant_words[f"wx{layer}"]).shape[0]
+        hw = pad_words(w.quant_words[f"wh{layer}"]).shape[0]
+        assert xw % 8 == hw % 8 == 0 and 4 * xw >= d_x and 4 * hw >= p
+        got = unpack_rows4(unpack_columns(sl[f"wq{layer}s"], p, 4))
+        assert got.shape[0] == 4 * (xw + hw)
+        assert torch.equal(got[:d_x], qx)
+        assert not got[d_x:4 * xw].any()  # the x half's padding
+        assert torch.equal(got[4 * xw:4 * xw + p], qh)
+        assert not got[4 * xw + p:].any()  # the h half's padding
+        x = torch.from_numpy(rng.standard_normal((b, d_x)).astype(np.float32))
+        h = torch.from_numpy(rng.standard_normal((b, p)).astype(np.float32))
+        bias = w.b0 if layer == 0 else w.b1
+        want = (_qdot(x, qx.double(), w.quant[f"sx{layer}"])
+                + _qdot(h, qh.double(), w.quant[f"sh{layer}"]) + bias)
+        # per block, as the kernels read their slices
+        sx, sh = (quant_scale(v.abs().amax(dim=1, keepdim=True))
+                  for v in (x, h))
+        xq = torch.zeros((b, 4 * (xw + hw)), dtype=torch.float64)
+        xq[:, :d_x] = torch.round(x / sx).double()
+        xq[:, 4 * xw:4 * xw + p] = torch.round(h / sh).double()
+        gates = []
+        for g in range(blocks):
+            words = unpack_rows4(sl[f"wq{layer}s"][g]).double()
+            acc_x = (xq[:, :4 * xw] @ words[:4 * xw]).float()
+            acc_h = (xq[:, 4 * xw:] @ words[4 * xw:]).float()
+            gates.append(acc_x * (sx * sl[f"sx{layer}s"][g])
+                         + acc_h * (sh * sl[f"sh{layer}s"][g])
+                         + sl[f"b{layer}s"][g])
+        got_gates = unpack_columns(torch.stack(gates), p, 4)
+        assert torch.equal(got_gates, want)

@@ -17,11 +17,13 @@ their tokens agree. The W8A8 matmul computes the plain version's arithmetic
 in its order (IEEE division, round half to even, exact int32 sums, the
 dequant unfused): identical outputs in f32 and bf16. The joint-argmax kernel
 sums in another order than cuBLAS: f32 ids identical and confidences within
-1e-5, bf16 at least 99% identical ids. The int8 branches of the loop
-kernels quantize values that went through the kernel's own sigmoid and
-tanh, so a value at a rounding tie may quantize a step apart and the decode
-drift from there: greedy f32 needs 99% identical tokens, bf16 90%; beam f32
-identical best tokens on all lanes but at most one, bf16 90%.
+1e-5, bf16 at least 99% identical ids; ties take the first index. The int8
+branches of the loop kernels quantize values that went through the kernel's
+own sigmoid and tanh, so a value at a rounding tie may quantize a step apart
+and the decode drift from there: greedy f32 needs 99% identical tokens on
+random lanes (and, at the widths tested, gives identical tokens, frames and
+counts), bf16 90%; beam f32 identical best tokens on all lanes but at most
+one, bf16 90%.
 """
 
 import dataclasses
@@ -38,7 +40,8 @@ from amira_rust_asr_server_tpu_torch.ops.kernels import mel
 from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
     beam_loop, beam_loop_int8, beam_loop_reference)
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
-    DecodeWeights, greedy_loop, greedy_loop_int8, greedy_loop_reference)
+    DecodeWeights, greedy_loop, greedy_loop_int8, greedy_loop_reference,
+    grid_plan)
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_step import (
     JointWeights, joint_argmax, joint_argmax_reference)
 from amira_rust_asr_server_tpu_torch.ops.kernels.quant_matmul import (
@@ -98,8 +101,11 @@ def test_log_mel_kernel_rejects_bad_input(dev):
 
 
 # variants of the tiny preset: an embedding narrower than the prediction
-# net, and a 3-layer prediction net (the step kernel reads the joint alone)
-VARIANTS = {"tiny-e48": dict(d_embed=48), "tiny-3layer": dict(pred_layers=3)}
+# net (48 inputs: an int8 x half that is not a multiple of 32), a 3-layer
+# prediction net (the step kernel reads the joint alone), and a vocabulary
+# of 22 (not a multiple of the kernels' 8-column vocabulary slices)
+VARIANTS = {"tiny-e48": dict(d_embed=48), "tiny-3layer": dict(pred_layers=3),
+            "tiny-v22": dict(vocab_size=22, blank_id=21)}
 
 
 def decode_case(preset: str, dtype, dev, b=6, t=60, seed=0):
@@ -221,6 +227,77 @@ def test_joint_argmax_kernel_matches_plain(dev, preset, dtype):
         torch.testing.assert_close(conf, conf_ref, rtol=0, atol=1e-5)
     else:
         assert (k == k_ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 8])
+@pytest.mark.parametrize("b", [1, 5, 16])
+@pytest.mark.parametrize("preset", ["tiny-v22", "large"])
+def test_joint_argmax_kernel_rows(dev, preset, b, f, dtype):
+    """The column-sliced step kernel at 1 to 128 rows (one lane, a ragged
+    16-row tile, eight tiles), a window of 1 and 8 frames, and vocabularies
+    (22, 1030) that are not multiples of the bf16 plan's 8-aligned column
+    slices (the f32 plan's are even, so they divide these); f32 ids
+    identical and confidences within 1e-5, bf16 at least 99% identical ids.
+    A second call with the same weights (the scratch the first one left)
+    gives the same result."""
+    args, _ = decode_case(preset, dtype, dev, b=b, t=max(f, 2), seed=b + f)
+    enc_pre, pred0, w = args[0], args[4], args[7].joint
+    v = w.bo.shape[0]
+    vb = grid_plan(w, dev)[3]
+    assert v % vb if dtype == torch.bfloat16 else vb % 2 == 0
+    enc_win = enc_pre[:, :f].contiguous()
+    before = joint_argmax.launches
+    k, conf = joint_argmax(enc_win, pred0, w)
+    k2, conf2 = joint_argmax(enc_win, pred0, w)
+    assert joint_argmax.launches == before + 2
+    assert torch.equal(k, k2) and torch.equal(conf, conf2)
+    k_ref, conf_ref = joint_argmax_reference(enc_win, pred0, w)
+    assert k.shape == conf.shape == (b, f)
+    if dtype == torch.float32:
+        assert torch.equal(k, k_ref)
+        torch.testing.assert_close(conf, conf_ref, rtol=0, atol=1e-5)
+    else:
+        assert (k == k_ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("preset", ["tiny-v22", "large"])
+def test_joint_argmax_kernel_ties_take_the_first_index(dev, preset, dtype):
+    """An output column copied into another block's slice, both the max of
+    every row: the kernel's blocks compute the two logits alike, and the
+    key order gives the first index."""
+    args, _ = decode_case(preset, dtype, dev, b=5)
+    enc_pre, pred0, w = args[0], args[4], args[7].joint
+    vb = grid_plan(w, dev)[3]
+    first, second = 1, vb + 3  # in blocks 0 and 1
+    wo, bo = w.wo.clone(), w.bo.clone()
+    wo[:, second] = wo[:, first]
+    bo[first] = bo[second] = 60.0
+    w = dataclasses.replace(w, wo=wo, bo=bo)
+    k, conf = joint_argmax(enc_pre[:, :8].contiguous(), pred0, w)
+    k_ref, _ = joint_argmax_reference(enc_pre[:, :8].contiguous(), pred0, w)
+    assert (k == first).all() and (k_ref == first).all()
+    torch.testing.assert_close(conf, torch.full_like(conf, 0.5), rtol=1e-5,
+                               atol=0)
+
+
+@pytest.mark.parametrize("b", [1, 5, 16, 17])
+@pytest.mark.parametrize("preset", ["tiny", "tiny-e48", "large"])
+def test_decode_loop_int8_f32_identical(dev, preset, b):
+    """The int8 branch's gates on the int8 tensor cores sum exactly, as the
+    plain version's float64 sums: in f32 tokens, frames, counts and last
+    tokens identical and confidences within 1e-5, at 1 to 17 lanes (past one
+    16-row tile) and with an x half of 48 inputs (zero-padded words)."""
+    args, kw = decode_case(preset, torch.float32, dev, b=b, seed=b)
+    args = (*args[:7], args[7].with_int8_lstm())
+    got = greedy_loop(*args, **kw)
+    ref = greedy_loop_reference(*args, **kw)
+    assert got.counts.sum() > 0
+    for field in ("counts", "tokens", "frame_idx", "last_token"):
+        assert torch.equal(getattr(got, field), getattr(ref, field)), field
+    torch.testing.assert_close(got.confidence, ref.confidence, rtol=0,
+                               atol=1e-5)
 
 
 def test_decode_loop_token_offset_and_budget(dev):
