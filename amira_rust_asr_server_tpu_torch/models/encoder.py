@@ -28,7 +28,7 @@ subsampler's and the output projection stay plain, as in the reference.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,16 +49,23 @@ def _same_pad(t: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def rope(x: torch.Tensor) -> torch.Tensor:
+def rope(x: torch.Tensor, pos_offset: Optional[torch.Tensor] = None
+         ) -> torch.Tensor:
     """Rotary position embedding over the last dim of ``x [B, H, T, Dh]``,
-    rotating the two halves (not interleaved pairs); angles in f32."""
+    rotating the two halves (not interleaved pairs); angles in f32.
+    Positions are absolute: ``pos_offset [B]`` (a streaming chunk's first
+    frame per lane, ``ops/streaming.py``) + ``[0, T)``, or ``[0, T)``."""
     dh = x.shape[-1]
     half = dh // 2
     t = x.shape[-2]
     freqs = torch.as_tensor(1.0 / (10000.0 ** (np.arange(0, half) / half)),
                             dtype=torch.float32, device=x.device)
     positions = torch.arange(t, dtype=torch.float32, device=x.device)
-    angles = positions[:, None] * freqs[None, :]
+    if pos_offset is None:
+        angles = positions[:, None] * freqs[None, :]              # [T, half]
+    else:
+        positions = pos_offset.to(torch.float32)[:, None] + positions[None]
+        angles = (positions[:, :, None] * freqs)[:, None]   # [B, 1, T, half]
     cos = torch.cos(angles).to(x.dtype)
     sin = torch.sin(angles).to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]

@@ -8,10 +8,13 @@ short request is not padded to the longest one, and each group is capped at
 the largest batch bucket already warm for its length. In beam mode
 (``decoding_mode="beam"``) groups run the beam program, with
 ``beam_n_best`` alternatives; stream state is not carried there (beam serves
-the batch endpoint). Admission is bounded
-(``inference_queue_size``): a full queue rejects with 503. The reference's
-second admission class, for WebSocket stream chunks, comes with the
-WebSocket route.
+the batch endpoint). Admission is bounded per class: batch POSTs
+(``kind="batch"``) and the chunked WebSocket streams' window re-decodes
+(``kind="stream"``, :meth:`ContinuousBatcher.submit_from_thread`) each
+have a queue of ``inference_queue_size``; a full queue rejects with 503,
+and each dispatch takes from both round-robin, so neither class starves the
+other. Stream windows carry their decoder state per lane, so both classes
+share dispatches.
 """
 
 from __future__ import annotations
@@ -72,14 +75,16 @@ class ContinuousBatcher:
             max_retries=2, base_delay_s=0.05,
             retryable=(RuntimeError, TimeoutError))
         self._maxsize = max(cfg.inference_queue_size, self.max_lanes)
-        self._pending: deque = deque()
+        self._pending = {"batch": deque(), "stream": deque()}
         self._work = asyncio.Event()
         self._task: Optional[asyncio.Task] = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
 
     async def start(self) -> None:
         """Idempotent: a second start() never spawns a second dispatcher."""
         if self._task is not None and not self._task.done():
             return
+        self._loop = asyncio.get_running_loop()
         self._task = asyncio.create_task(self._run(), name="batcher")
 
     async def stop(self) -> None:
@@ -92,24 +97,53 @@ class ContinuousBatcher:
             self._task = None
 
     async def submit(self, samples: np.ndarray,
-                     stream_state: Optional[StreamState] = None
+                     stream_state: Optional[StreamState] = None,
+                     kind: str = "batch"
                      ) -> Tuple[Transcription, StreamState]:
-        """Queue one decode (``stream_state`` carries a stream's decoder
-        state); resolves when its device batch completes. Raises
-        CapacityExceededError when the queue is full."""
-        if len(self._pending) >= self._maxsize:
-            raise CapacityExceededError("inference queue is full")
+        """Queue one decode of admission class ``kind`` ("batch" or
+        "stream"; ``stream_state`` carries a stream's decoder state);
+        resolves when its device batch completes. Raises
+        CapacityExceededError when that class's queue is full."""
+        if kind not in self._pending:
+            raise ValueError(
+                f"unknown admission class {kind!r}; expected one of "
+                f"{sorted(self._pending)}")
+        q = self._pending[kind]
+        if len(q) >= self._maxsize:
+            raise CapacityExceededError(f"{kind} inference queue is full")
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        self._pending.append((samples, stream_state, fut))
+        q.append((samples, stream_state, fut))
         self._work.set()
         return await fut
 
-    def queue_depth(self) -> int:
-        return len(self._pending)
+    def submit_from_thread(self, samples: np.ndarray,
+                           stream_state: Optional[StreamState] = None,
+                           timeout: Optional[float] = None
+                           ) -> Tuple[Transcription, StreamState]:
+        """Blocking submit from a worker thread (a chunked stream's
+        session thread), in the "stream" class."""
+        if self._loop is None:
+            raise RuntimeError("batcher not started")
+        cfut = asyncio.run_coroutine_threadsafe(
+            self.submit(samples, stream_state, kind="stream"), self._loop)
+        return cfut.result(timeout)
 
-    def _take(self) -> list:
-        n = min(self.max_lanes, len(self._pending))
-        return [self._pending.popleft() for _ in range(n)]
+    def queue_depth(self) -> int:
+        """Pending admissions of both classes."""
+        return sum(len(q) for q in self._pending.values())
+
+    def _take_fair(self) -> list:
+        """Up to max_lanes pending items, round-robin across the classes."""
+        out: list = []
+        while len(out) < self.max_lanes:
+            took = False
+            for q in self._pending.values():
+                if q and len(out) < self.max_lanes:
+                    out.append(q.popleft())
+                    took = True
+            if not took:
+                break
+        return out
 
     async def _run(self) -> None:
         loop = asyncio.get_running_loop()
@@ -128,7 +162,7 @@ class ContinuousBatcher:
                                            timeout=remaining)
                 except asyncio.TimeoutError:
                     break
-            await self._dispatch(self._take())
+            await self._dispatch(self._take_fair())
 
     def _group_by_bucket(self, batch, mode: str = "greedy") -> List[list]:
         """Group by length bucket; cap each group at the largest warm batch

@@ -26,7 +26,10 @@ beam kernel on CUDA, or the plain scan ``ops.beam.beam_decode`` where the
 reference runs its XLA scan (see :meth:`AsrPipeline.beam_decode_path`).
 
 Streaming state (prediction-net h/c, pred_out, last token) stays on the
-device between chunks in :class:`StreamState`.
+device between chunks in :class:`StreamState`. :meth:`AsrPipeline.
+decode_carried` is the one carried greedy decode: the batch dispatch, the
+chunked streams' window re-decodes and the native streams (the lane engine,
+the solo session) all decode through it.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from ..errors import ConfigValidationError, InvalidAudioFormatError
 from ..reliability import get_logger
 from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
-from ..device import resolve_device
+from ..device import disable_tf32, resolve_device
 from ..models import Transducer
 from ..ops.beam import (BeamResult, BeamTrace, TokenTrie, backtrace,
                         beam_decode, finish_trace)
@@ -58,14 +61,21 @@ from ..types import TokenInfo, Transcription
 log = get_logger("asr.pipeline")
 
 
-def check_supported(cfg: Config, device: torch.device) -> None:
-    """Reject, loudly, what this slice of the port does not serve yet."""
+def check_supported(cfg: Config, device: torch.device,
+                    causal: bool = False) -> None:
+    """Reject, loudly, what this slice of the port does not serve yet;
+    ``causal``: the model preset is causal (native streaming runs on it,
+    a non-causal preset streams chunked in either mode)."""
     todo = []
     if cfg.model_family != "transducer":
         todo.append(f"model_family={cfg.model_family!r} (ROADMAP.md queue 1 "
                     "item 11)")
-    if cfg.streaming_mode == "native":
-        todo.append("streaming_mode='native' (ROADMAP.md queue 1 item 9)")
+    if cfg.decoding_mode == "beam" and cfg.streaming_mode == "native" \
+            and causal:
+        # the reference streams beam with carried hypotheses here
+        todo.append("decoding_mode='beam' with streaming_mode='native' on a "
+                    "causal preset: streaming beam (ROADMAP.md queue 1 "
+                    "item 4, [#10])")
     if device.type == "cuda":
         # the kernels' wrappers choose the plain version by device alone, so
         # on the card the flags that would turn a kernel off are refused
@@ -104,7 +114,9 @@ class AsrPipeline:
                  device: Optional[torch.device] = None):
         self.config = cfg = config or Config()
         self.device = device or resolve_device(cfg.inference_backend)
-        check_supported(cfg, self.device)
+        if self.device.type == "cuda":
+            disable_tf32()  # also when the caller chose the device
+        check_supported(cfg, self.device, model.config.causal)
         self.model = model
         self.greedy_route = self._greedy_route()  # before any device work
         self.vocab = vocab
@@ -230,29 +242,48 @@ class AsrPipeline:
             feat_lens, enc_lens
 
     @torch.inference_mode()
-    def _forward(self, audio, audio_lens, h0, c0, pred0, last_token,
-                 token_offset, *, max_symbols: int, max_total: int):
+    def decode_carried(self, enc_pre, enc_lens, h0, c0, pred0, last_token,
+                       token_offset=None, *, max_symbols: int,
+                       max_total: int) -> GreedyResult:
+        """The carried greedy decode of L lanes through the route
+        :meth:`_greedy_route` chose: ``enc_pre [L, T', J]`` (the joint's
+        encoder projection), ``enc_lens [L]`` (0 leaves a lane's carry as
+        it is), the carry ``h0, c0 [layers, L, P]``, ``pred0 [L, P]``,
+        ``last_token [L]``, and ``token_offset [L]`` (default 0: each call
+        has its own ``max_total`` budget). Returns the tokens and the new
+        carry. The batch dispatch and both native streaming paths (the
+        lane engine's tick, the solo session) decode here."""
         dt = self.compute_dtype
-        cfg = self.config
-        enc_pre, feat_lens, enc_lens = self._encode(audio, audio_lens)
+        if token_offset is None:
+            token_offset = torch.zeros((enc_pre.shape[0],), dtype=torch.int32,
+                                       device=enc_pre.device)
         if self.greedy_route != "loop":
             # the host loop with the model's prediction net; on the step
             # route the joint + argmax kernel takes each window
-            res = greedy_decode(
+            return greedy_decode(
                 self.model.predict_step, self.model.joint_step_pre, enc_pre,
                 enc_lens, (h0.to(dt), c0.to(dt)), self.model.config.blank_id,
                 max_symbols=max_symbols, max_total=max_total,
-                lookahead=cfg.greedy_lookahead,
+                lookahead=self.config.greedy_lookahead,
                 fused_step_fn=(make_fused_step_fn(self.step_weights)
                                if self.greedy_route == "step" else None),
                 init_pred_out=pred0.to(dt), init_last_token=last_token,
                 token_offset=token_offset)
-            return res, feat_lens, enc_lens
-        res = greedy_loop(
-            enc_pre, enc_lens, h0.to(dt), c0.to(dt), pred0.to(dt), last_token,
-            token_offset, self.decode_weights,
-            blank_id=self.model.config.blank_id, max_symbols=max_symbols,
-            max_total=max_total, lookahead=self.config.greedy_lookahead)
+        return greedy_loop(
+            enc_pre, enc_lens, h0.to(dt).contiguous(), c0.to(dt).contiguous(),
+            pred0.to(dt).contiguous(), last_token, token_offset,
+            self.decode_weights, blank_id=self.model.config.blank_id,
+            max_symbols=max_symbols, max_total=max_total,
+            lookahead=self.config.greedy_lookahead)
+
+    @torch.inference_mode()
+    def _forward(self, audio, audio_lens, h0, c0, pred0, last_token,
+                 token_offset, *, max_symbols: int, max_total: int):
+        enc_pre, feat_lens, enc_lens = self._encode(audio, audio_lens)
+        res = self.decode_carried(enc_pre, enc_lens, h0, c0, pred0,
+                                  last_token, token_offset,
+                                  max_symbols=max_symbols,
+                                  max_total=max_total)
         return res, feat_lens, enc_lens
 
     def _run(self, audio, lens: np.ndarray, h0, c0, pred0,

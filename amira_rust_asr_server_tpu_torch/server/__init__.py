@@ -1,4 +1,4 @@
-"""HTTP serving layer with the reference's batch surface."""
+"""HTTP and WebSocket serving layer with the reference's surface."""
 
 from .app import build_state, create_app, main, run_server
 from .metrics import PrometheusMetrics, ServiceMetrics

@@ -1,5 +1,9 @@
-"""HTTP front-end on aiohttp (port of server/app.py, the batch surface).
+"""HTTP and WebSocket front-end on aiohttp (port of server/app.py).
 
+    GET  /v2/decode/stream/{model}   WebSocket streaming: chunked (window
+                                     re-decode through the batcher), or
+                                     native on a causal preset (the lane
+                                     engine); see server/stream.py
     POST /v2/decode/batch/{model}    batch transcription (greedy or beam;
                                      beam adds n_best, decode_path and, on
                                      request, a lattice)
@@ -9,11 +13,12 @@
     GET  /admin/config               effective configuration
 
 Request validation, status codes and the camelCase response schema are the
-reference's. Not served yet: the WebSocket route ``/v2/decode/stream/{model}``
-(ROADMAP.md queue 1 item 7) and the model-repository routes (item 12).
+reference's. Not served yet: the model-repository routes (ROADMAP.md queue
+1 item 6, [#12]) and streaming beam (item 4, [#10], refused at startup).
 
 Entry point: ``python -m amira_rust_asr_server_tpu_torch.server --preset
-large``.
+large`` (``AMIRA_STREAMING_MODE=native`` with ``--preset large-streaming``
+for native streaming).
 """
 
 from __future__ import annotations
@@ -39,12 +44,14 @@ from ..audio import pcm16_bytes_to_f32
 from ..convert import load_npz
 from ..device import resolve_device
 from ..models import Transducer
+from ..models.presets import get_preset
 from ..ops.lattice import decode_beam_lattice
 from ..runtime import AsrPipeline
 from ..runtime.pipeline import check_supported
 from ..types import AsrResponse, StreamStatus
 from ..utils.platform import initialize_platform
 from .state import AppState
+from .stream import StreamProcessor
 
 log = get_logger("asr.server")
 
@@ -221,6 +228,68 @@ async def handle_batch(request: web.Request) -> web.Response:
         state.batch_semaphore.release()
 
 
+async def handle_stream(request: web.Request) -> web.StreamResponse:
+    state: AppState = request.app["state"]
+    cfg = state.config
+    if cfg.model_family != "transducer":
+        # the WebSocket contract carries decoder state across chunks
+        return web.json_response(
+            {"error": "unsupported_model_family",
+             "message": f"streaming requires the transducer family; "
+                        f"model_family={cfg.model_family} serves "
+                        f"the batch endpoint only"},
+            status=400)
+    if cfg.decoding_mode == "beam" and not (
+            cfg.streaming_mode == "native"
+            and state.pipeline.model.config.causal):
+        # the chunked mode cannot carry a beam across windows
+        return web.json_response(
+            {"error": "unsupported_decoding_mode",
+             "message": "beam streaming requires streaming_mode=native "
+                        "with a causal model; batch endpoint serves beam "
+                        "for non-native configurations"},
+            status=400)
+    ws = web.WebSocketResponse(heartbeat=None,
+                               max_msg_size=2 * C.MAX_WS_CHUNK_BYTES)
+    await ws.prepare(request)
+
+    if not state.stream_semaphore.try_acquire():
+        state.metrics.record_rejection()
+        log.error("rejected stream: too many concurrent streams")
+        await ws.close(code=1013, message=b"too many concurrent streams")
+        return ws
+
+    # built before any gauge moves: an exception here leaves none raised
+    try:
+        processor = StreamProcessor(ws, state)
+    except BaseException:
+        state.stream_semaphore.release()
+        raise
+    stream_id = processor.stream_id
+    state.metrics.increment_stream()
+    if state.prometheus:
+        state.prometheus.ws_connections.inc()
+        state.prometheus.ws_active.inc()
+    state.active_streams[stream_id] = processor
+    log.info("stream %s started (model=%s)", stream_id,
+             request.match_info.get("model"))
+    try:
+        async with state.shutdown.guard():
+            with request_span("stream", model=request.match_info.get(
+                    "model")):
+                await processor.process()
+    finally:
+        state.active_streams.pop(stream_id, None)
+        state.metrics.decrement_stream()
+        if state.prometheus:
+            state.prometheus.ws_active.dec()
+        state.stream_semaphore.release()
+        if not ws.closed:
+            await ws.close()
+        log.info("stream %s ended", stream_id)
+    return ws
+
+
 async def health_check(request: web.Request) -> web.Response:
     state: AppState = request.app["state"]
     payload = {"status": "healthy", "service": "amira-asr-tpu-server",
@@ -254,6 +323,10 @@ async def metrics_handler(request: web.Request) -> web.Response:
     payload = state.metrics.to_json()
     payload["circuit_breaker"] = state.breaker.stats()
     payload["batcher"] = state.batcher.stats.to_json()
+    if state.lane_engine is not None:
+        eng = state.lane_engine
+        payload["lane_engine"] = eng.stats.to_json(
+            eng.live_lanes, eng.n_lanes, eng.warmed_up)
     if state.config.decoding_mode == "beam":
         payload["beam_decode_paths"] = dict(state.pipeline.decode_path_counts)
     return web.json_response(payload)
@@ -296,6 +369,7 @@ def create_app(state: AppState) -> web.Application:
 
     app.on_startup.append(_start_batcher)
     app.on_cleanup.append(_stop_batcher)
+    app.router.add_get("/v2/decode/stream/{model}", handle_stream)
     app.router.add_post("/v2/decode/batch/{model}", handle_batch)
     app.router.add_get("/health", health_check)
     app.router.add_get("/metrics", metrics_handler)
@@ -336,7 +410,7 @@ def build_state(config: Optional[Config] = None,
         # effective config picks it (the reference serves it too)
         cfg = initialize_platform(cfg).effective_config
     device = resolve_device(cfg.inference_backend)
-    check_supported(cfg, device)
+    check_supported(cfg, device, get_preset(preset or cfg.model_preset).causal)
     try:
         vocab = Vocabulary.load(cfg.vocabulary_path)
     except FileNotFoundError:
@@ -349,7 +423,15 @@ def build_state(config: Optional[Config] = None,
         t0 = time.time()
         n = pipeline.warmup()
         log.info("warmed %d bucket programs in %.1fs", n, time.time() - t0)
-        pipeline.start_background_warmup()
+        # the remaining buckets warm off-thread; in native mode only while
+        # no stream is live
+        state.start_warmup_supervisor()
+        if state.lane_engine is not None:
+            # warm before accepting: the chunk step is native mode's hot
+            # path, and its first run would land inside a live stream
+            took = state.lane_engine.warm()
+            log.info("warmed the lane engine (%d lanes) in %.1fs",
+                     state.lane_engine.n_lanes, took)
     return state
 
 

@@ -1,5 +1,6 @@
 """Service metrics (port of server/metrics.py; that module's package imports
-jax through ``server/__init__`` -> ``app`` -> ``runtime``).
+jax through ``server/__init__`` -> ``app`` -> ``runtime``), the streams'
+and the lane engine's included.
 
 - :class:`ServiceMetrics`: JSON counters served at /metrics.
 - :class:`PrometheusMetrics`: the prometheus_client series this port feeds,
@@ -27,6 +28,15 @@ class ServiceMetrics:
         self.total_batches = 0
         self.rejections = 0
         self.errors = 0
+
+    def increment_stream(self) -> None:
+        with self._lock:
+            self.active_streams += 1
+            self.total_streams += 1
+
+    def decrement_stream(self) -> None:
+        with self._lock:
+            self.active_streams = max(0, self.active_streams - 1)
 
     def increment_batch(self) -> None:
         with self._lock:
@@ -86,8 +96,19 @@ class PrometheusMetrics:
         self.audio_seconds_total = Counter(
             "asr_audio_seconds_total", "Seconds of audio processed",
             registry=r)
+        self.active_streams = Gauge(
+            "asr_active_streams", "Active WebSocket streams", registry=r)
         self.active_batches = Gauge(
             "asr_active_batches", "Active batch requests", registry=r)
+        self.websocket_messages = Counter(
+            "asr_websocket_messages_total", "WebSocket messages",
+            ["direction"], registry=r)
+        self.ws_connections = Counter(
+            "asr_websocket_connections_total", "WebSocket connections opened",
+            registry=r)
+        self.ws_active = Gauge(
+            "asr_websocket_connections_active", "Open WebSocket connections",
+            registry=r)
         self.batch_lanes = Histogram(
             "asr_batch_lanes", "Lanes per device dispatch", registry=r,
             buckets=(1, 2, 4, 8, 16, 32))
@@ -127,6 +148,22 @@ class PrometheusMetrics:
             "asr_inference_queue_depth", "Batcher admission queue depth",
             registry=r)
         self.queue_depth_fn = None
+        # the native mode's lane engine (its hot path)
+        self.lane_ticks = Counter(
+            "asr_lane_ticks_total", "Lane-engine chunk steps", registry=r)
+        self.lane_tick_duration = Histogram(
+            "asr_lane_tick_duration_seconds",
+            "Chunk-step latency (all ready lanes, one step)", registry=r,
+            buckets=(.005, .01, .025, .05, .1, .25, .5, 1, 2.5, 5))
+        self.lane_lanes_per_tick = Histogram(
+            "asr_lane_lanes_per_tick", "Ready lanes advanced per tick",
+            registry=r, buckets=(1, 2, 4, 8, 16, 32, 64))
+        self.lane_live = Gauge(
+            "asr_lane_live", "Attached (live) lane-engine lanes", registry=r)
+        self.lane_sheds = Counter(
+            "asr_lane_sheds_total",
+            "Stream attaches rejected: all lanes busy", registry=r)
+        self.lane_live_fn = None
         self.beam_path = Counter(
             "asr_beam_decode_path_total",
             "Beam decodes by program (graphs past the kernel's state cap "
@@ -153,9 +190,17 @@ class PrometheusMetrics:
         else:
             self.dispatch_failures.labels(program=program).inc()
 
+    def observe_lane_tick(self, lanes: int, duration_s: float) -> None:
+        self.lane_ticks.inc()
+        self.lane_tick_duration.observe(duration_s)
+        self.lane_lanes_per_tick.observe(lanes)
+
     def exposition(self) -> bytes:
         from prometheus_client import generate_latest
+        self.active_streams.set(self._svc.active_streams)
         self.active_batches.set(self._svc.active_batches)
         if self.queue_depth_fn is not None:
             self.queue_depth.set(self.queue_depth_fn())
+        if self.lane_live_fn is not None:
+            self.lane_live.set(self.lane_live_fn())
         return generate_latest(self.registry)

@@ -21,6 +21,20 @@ class StreamStatus(str, enum.Enum):
 
 
 @dataclasses.dataclass
+class SeqSlice:
+    """Half-open [start, end) slice of a sequence."""
+
+    start: int
+    end: int
+
+    def __len__(self) -> int:
+        return max(0, self.end - self.start)
+
+    def map(self, fn) -> "SeqSlice":
+        return SeqSlice(fn(self.start), fn(self.end))
+
+
+@dataclasses.dataclass
 class TokenInfo:
     """Per-token detail: timing + confidence."""
 
@@ -41,6 +55,20 @@ class Transcription:
     # which decode program ran a beam decode: "pallas_kernel" (the CUDA
     # kernel) or "xla_scan" (the plain scan; graphs past the kernel's cap)
     decode_path: Optional[str] = None
+
+
+@dataclasses.dataclass
+class AccumulatedPredictions:
+    """A chunked stream's accumulated transcript and token ids."""
+
+    transcript: str = ""
+    token_ids: List[int] = dataclasses.field(default_factory=list)
+    mean_amplitude: float = 0.0
+
+    def clear(self) -> None:
+        self.transcript = ""
+        self.token_ids = []
+        self.mean_amplitude = 0.0
 
 
 @dataclasses.dataclass

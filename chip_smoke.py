@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It drives the
-port's batch serving path once at the flagship (``large``) width and checks
-the hand-written kernels against their plain PyTorch versions:
+port's batch and streaming serving paths once at the flagship (``large``,
+``large-streaming``) width and checks the hand-written kernels against
+their plain PyTorch versions:
 
   A  a CUDA device is present; prints nvidia-smi's name and power limit;
      imports every module of the port and asserts that no module of the
@@ -52,11 +53,39 @@ the hand-written kernels against their plain PyTorch versions:
      per-step route (2 s); 200/COMPLETE, and the counters of quant_matmul,
      greedy_loop_int8, beam_loop_int8 and joint_argmax must rise
 
+  M  chunked WebSocket streaming: build_state(preset=large), bf16, the
+     default config but one batch bucket (8), behind the server; the
+     seeded weights' blank bias is raised to the largest value at which
+     some stream's audio still decodes to a token, and each stream's final
+     is decoded directly (IncrementalAsr, one window at a time); four 10 s
+     streams and one 30 s stream at once, 100 ms frames as fast as the
+     server answers, then END: each gets partials and a COMPLETE final
+     equal to its direct decode, at least one final has words, and the
+     log-mel and greedy kernels ran once per window dispatch; prints each
+     dispatch's ms and the server-side partial latency p50/p95; the same
+     with the trained tiny-digits weights and five digit sentences, where
+     every final must have words; then, on the large weights in f32, every
+     window of the first stream decodes through the loop kernel and its
+     plain version from the same carry: tokens, frames and counts identical
+  N  native streaming on large-streaming: encode_chunk over 10 s in
+     64-frame chunks against the full causal forward (f32 within atol
+     2e-4, rtol 1e-3; bf16's largest difference and token agreement
+     printed); the loop kernel at B = 64 from a carry with 51 idle lanes
+     against its plain version, f32 (identical, idle lanes bit-identical);
+     the 64-lane engine with staggered starts against solo sessions, f32
+     (identical tokens); sixteen 10 s native streams behind the server,
+     bf16, the blank bias raised to the largest value at which every
+     stream's direct decode through the served engine has words: each
+     COMPLETE final has words and equals its direct decode, and the
+     greedy kernel ran once per lane-engine tick and no other kernel ran;
+     the tick's wall ms at 1, 16 and 64 ready lanes, the kernels and idle
+     share of one chunk step, and the real-time streams one card sustains
+
 Any failure raises and exits non-zero. The line before the last holds the
 kernels' measurements as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (no result
 lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
-the int8 and per-step phases.
+the int8 and per-step phases, ``--phases ABMN`` the streaming phases.
 """
 
 from __future__ import annotations
@@ -74,7 +103,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKL"
+ALL_PHASES = "ABCDEFGHIJKLMN"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -1082,6 +1111,665 @@ def phase_l(results):
             req_ms[f"{label}-{s:.0f}s"] = wall * 1e3
 
 
+# -- WebSocket streaming (phases M and N) -----------------------------------
+def pcm16(samples: np.ndarray) -> bytes:
+    return (np.clip(samples, -1, 1) * 32767).astype("<i2").tobytes()
+
+
+def percentile(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q)) \
+        if len(values) else float("nan")
+
+
+async def _serve_streams(state, port: int, pcms, step: int = 3200,
+                         gap: float = 0.0):
+    """Serve ``state`` on ``port`` and run one WebSocket stream per PCM
+    buffer of ``pcms``, all at once: each sends ``step``-byte frames (100 ms
+    at 3200), the next as soon as the server has answered the last and at
+    least ``gap`` s after it (native partials answer at once, and the
+    server refuses more than 100 messages a second), then END. Returns per
+    stream (final body or None, partial bodies, wall s), the kernels'
+    launch counts over the streams alone and /metrics."""
+    import aiohttp
+
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.server.app import run_server
+    server = asyncio.create_task(run_server(state, "127.0.0.1", port))
+    url = f"http://127.0.0.1:{port}"
+    try:
+        async with aiohttp.ClientSession() as session:
+            for _ in range(600):
+                try:
+                    async with session.get(f"{url}/health") as r:
+                        if r.status == 200:
+                            break
+                except aiohttp.ClientConnectionError:
+                    pass
+                await asyncio.sleep(0.1)
+
+            async def one(pcm: bytes):
+                t0 = time.perf_counter()
+                partials, final = [], None
+                async with session.ws_connect(
+                        f"{url}/v2/decode/stream/default") as ws:
+                    for i in range(0, len(pcm), step):
+                        sent = time.perf_counter()
+                        await ws.send_bytes(pcm[i:i + step])
+                        while True:  # skip "processing" heartbeats
+                            msg = await ws.receive_json(timeout=120)
+                            if msg.get("message") != "processing":
+                                break
+                        if msg["status"] != "ACTIVE":
+                            raise AssertionError(f"stream frame: {msg}")
+                        partials.append(msg)
+                        await asyncio.sleep(
+                            max(0.0, gap - (time.perf_counter() - sent)))
+                    await ws.send_bytes(b"\xff")
+                    while True:
+                        raw = await ws.receive(timeout=120)
+                        if raw.type != aiohttp.WSMsgType.TEXT:
+                            break
+                        body = json.loads(raw.data)
+                        if body["status"] == "COMPLETE":
+                            final = body
+                            break
+                return final, partials, time.perf_counter() - t0
+
+            async with session.get(f"{url}/metrics") as r:
+                before = await r.json()
+            kernels.reset_launch_counts()
+            outs = await asyncio.gather(*(one(p) for p in pcms))
+            counts = kernels.launch_counts()
+            async with session.get(f"{url}/metrics") as r:
+                metrics = await r.json()
+    finally:
+        state.shutdown.trigger()
+        await server
+    return outs, counts, before, metrics
+
+
+def check_streams(phase: str, outs, secs, want, every_stream=True) -> list:
+    """Every stream got at least one partial and a COMPLETE final equal to
+    ``want``, the direct decode of the same audio on the same weights; no
+    final is empty (``every_stream``) or at least one is not. Returns the
+    server-side partial latencies (processing_time_ms, ms)."""
+    lat, bad = [], []
+    for i, ((final, partials, wall), s, w) in enumerate(zip(outs, secs,
+                                                           want)):
+        real = [p for p in partials if "processing_time_ms" in
+                p.get("metadata", {})]
+        lat += [p["metadata"]["processing_time_ms"] for p in real]
+        text = (final or {}).get("transcription")
+        same = text == w
+        say(phase, f"{s:.1f} s stream: {len(partials)} partials "
+            f"({len(partials) - len(real)} deferred), final "
+            f"{(final or {}).get('status')} with "
+            f"{len((text or '').split())} words, equal to the direct "
+            f"decode's ({len(w.split())} words): {same}; wall {wall:.2f} s")
+        if (final is None or not partials or not same
+                or (every_stream and not (text or "").strip())):
+            bad.append(i)
+    if bad:
+        raise AssertionError(f"[{phase}] streams {bad}: no partial, no "
+                             "COMPLETE final, an empty one, or one that "
+                             "differs from the direct decode")
+    if not any(w.strip() for w in want):
+        raise AssertionError(f"[{phase}] every final is empty")
+    return lat
+
+
+def blank_bias_setter(pipe):
+    """``set(bias)`` adds ``bias`` to the seeded weights' blank logit in the
+    served joint and rebuilds the decode kernels' weights; returns the
+    bias as the joint's type holds it."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
+        DecodeWeights
+    blank = pipe.model.config.blank_id
+    b = pipe.model.joint.out.b
+    base = float(b[blank].detach())
+
+    def set_bias(bias: float) -> float:
+        with torch.no_grad():
+            b[blank] = base + bias
+        pipe.decode_weights = DecodeWeights.from_model(pipe.model,
+                                                       pipe.compute_dtype)
+        return float(b[blank].detach()) - base
+
+    return set_bias
+
+
+def emitting_blank_bias(set_bias, decode, enough=all, top: float = 8.0,
+                        steps: int = 9):
+    """Seeded random weights emit a token on nearly every frame (the
+    200-token budget of every window), where a trained model emits a few
+    per second; the chunked mode then weaves window transcripts of hundreds
+    of words on the host, for minutes. Bisect the blank bias in [0, ``top``]
+    for the largest one at which ``decode()`` (token lists, one per stream)
+    still emits ``enough`` (every stream, or ``any``), and leave the
+    weights there; fails if no bias does, or if the decode there does not
+    repeat. Returns (bias, ``decode()`` there)."""
+    set_bias(0.0)
+    lo, out = 0.0, decode()
+    if not enough(out):
+        raise AssertionError("the decodes emit too little with no bias")
+    hi = top
+    for _ in range(steps):
+        mid = (lo + hi) / 2
+        set_bias(mid)
+        got = decode()
+        if enough(got):
+            lo, out = mid, got
+        else:
+            hi = mid
+    bias = set_bias(lo)
+    if decode() != out:
+        raise AssertionError("the biased decode does not repeat")
+    return bias, out
+
+
+def chunked_reference(pipe, cfg, pcm: bytes, step: int = 3200) -> str:
+    """The chunked mode's final for ``pcm`` sent in ``step``-byte frames,
+    decoded directly: one IncrementalAsr, each window on its own through
+    the pipeline (no batcher, no server)."""
+    from amira_rust_asr_server_tpu_torch.runtime.incremental import \
+        IncrementalAsr
+    inc = IncrementalAsr(pipe, cfg.chunk_size_seconds,
+                         cfg.leading_context_seconds,
+                         cfg.trailing_context_seconds,
+                         cfg.buffer_capacity_seconds)
+    text = ""
+    for i in range(0, len(pcm), step):
+        text = inc.process_chunk(pcm[i:i + step])
+    return text
+
+
+def serve_chunked(phase, state, pcms, secs, want, every_stream=True):
+    """Serve ``state`` (chunked mode) and stream ``pcms`` at once; each
+    final must equal ``want``, and the mel and loop kernels must have run
+    once per window dispatch and never else. Returns (dispatches as
+    (windows, ms), server-side partial latencies, launch counts,
+    /metrics)."""
+    pipe = state.pipeline
+    dispatch = []
+    served = pipe.decode_samples_batch
+
+    def timed(samples, states=None):
+        ta = time.perf_counter()
+        out = served(samples, states)  # returns after the host copy
+        dispatch.append((len(samples), (time.perf_counter() - ta) * 1e3))
+        return out
+
+    pipe.decode_samples_batch = timed
+    try:
+        outs, counts, _, metrics = asyncio.run(_serve_streams(
+            state, free_port(), pcms, gap=0.02))
+    finally:
+        pipe.decode_samples_batch = served
+    lat = check_streams(phase, outs, secs, want, every_stream)
+    for name in ("log_mel", "greedy_loop"):
+        if counts[name] != len(dispatch) or not dispatch:
+            raise AssertionError(
+                f"[{phase}] kernel {name}: {counts[name]} launches for "
+                f"{len(dispatch)} window dispatches")
+    return dispatch, lat, counts, metrics
+
+
+def phase_m(results):
+    """Chunked streaming behind the server: the large preset, bf16, the
+    default config but one batch bucket, then the trained tiny-digits
+    weights; then the carried decode of one stream's successive windows,
+    kernel against plain version, f32."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.audio import (OverlappingAudioBuffer,
+                                                       pcm16_bytes_to_f32)
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
+        greedy_loop_reference
+    from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.server.app import (build_state,
+                                                            load_model)
+    from amira_rust_asr_server_tpu_torch.testing import (DIGIT_WORDS,
+                                                         TINY_DIGITS_NPZ,
+                                                         TINY_DIGITS_VOCAB,
+                                                         pcm16_digits)
+    # one batch bucket: in bf16 a window's tokens depend on the bucket its
+    # dispatch pads to, so only then can a served final be held exactly
+    # against a direct decode
+    cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                 inference_backend="tpu", batch_buckets=[8])
+    t0 = time.perf_counter()
+    state = build_state(cfg, preset="large")
+    warm = state.pipeline._warmup_thread
+    if warm is not None:
+        warm.join(timeout=600)
+    pipe = state.pipeline
+    secs = [10.0, 10.0, 10.0, 10.0, 30.0]
+    pcms = [pcm16(digits_audio(1, s, seed=20 + i)[0])
+            for i, s in enumerate(secs)]
+    waves = [pcm16_bytes_to_f32(p) for p in pcms]
+    set_bias = blank_bias_setter(pipe)
+    t1 = time.perf_counter()
+    # random weights go from babble to silence stream by stream: no bias
+    # makes all five emit without others babbling (weaving then takes
+    # minutes), so the bias is the largest at which some stream emits
+    bias, toks = emitting_blank_bias(set_bias, lambda: [
+        pipe.process_batch_samples(w).tokens for w in waves], enough=any)
+    for _ in range(4):
+        want = [chunked_reference(pipe, cfg, p) for p in pcms]
+        if any(w.strip() for w in want):
+            break
+        say("M", f"blank bias +{bias:.4f}: every direct chunked decode is "
+            "empty, stepping down 1/32")
+        bias = set_bias(bias - 1 / 32)
+    say("M", f"large, {pipe.compute_dtype}, streaming_mode "
+        f"{cfg.streaming_mode}, batch bucket {cfg.batch_buckets}: built and "
+        f"warmed every bucket in {t1 - t0:.1f} s; blank bias +{bias:.4f}: "
+        f"whole-utterance decodes {[len(t) for t in toks]} tokens, direct "
+        f"chunked finals {[len(w.split()) for w in want]} words "
+        f"({time.perf_counter() - t1:.1f} s)")
+    dispatch, lat, counts, metrics = serve_chunked(
+        "M", state, pcms, secs, want, every_stream=False)
+    ms = [m for _, m in dispatch]
+    say("M", f"{len(dispatch)} window dispatches, "
+        f"{np.mean([n for n, _ in dispatch]):.2f} windows each; dispatch "
+        f"ms p50 {percentile(ms, 50):.1f}, p95 {percentile(ms, 95):.1f}, "
+        f"max {max(ms):.1f}; server-side partial latency p50 "
+        f"{percentile(lat, 50):.0f} ms, p95 {percentile(lat, 95):.0f} ms "
+        f"over {len(lat)} partials")
+    say("M", "dispatch ms: " + " ".join(f"{m:.1f}" for m in ms))
+    say("M", f"kernel launches during the streams: {counts} (one each per "
+        f"dispatch); /metrics total_streams {metrics['total_streams']}, "
+        f"batcher {metrics['batcher']}")
+    for name in ("log_mel", "greedy_loop"):
+        results.setdefault(name, {})["ws_chunked_launches"] = counts[name]
+    results["ws_chunked"] = {
+        "streams_s": secs, "blank_bias": bias,
+        "final_words": [len(w.split()) for w in want],
+        "dispatches": len(dispatch),
+        "windows_per_dispatch": float(np.mean([n for n, _ in dispatch])),
+        "dispatch_ms_p50": percentile(ms, 50),
+        "dispatch_ms_p95": percentile(ms, 95),
+        "partial_ms_p50": percentile(lat, 50),
+        "partial_ms_p95": percentile(lat, 95), "partials": len(lat)}
+    del state, pipe
+    torch.cuda.empty_cache()
+
+    # the trained tiny-digits weights in the same chunked server: every
+    # stream's final carries words, each equal to its direct decode
+    dcfg = Config(checkpoint_path=str(TINY_DIGITS_NPZ),
+                  vocabulary_path=str(TINY_DIGITS_VOCAB),
+                  inference_backend="tpu", batch_buckets=[8])
+    state = build_state(dcfg, preset="tiny")
+    warm = state.pipeline._warmup_thread
+    if warm is not None:
+        warm.join(timeout=600)
+    rng = np.random.default_rng(50)
+    spoken = [[DIGIT_WORDS[j] for j in rng.integers(0, 10, n)]
+              for n in (8, 8, 8, 8, 16)]
+    # padded with silence to whole 100 ms frames: the server answers a
+    # frame once 100 ms of audio are buffered
+    pcms = [p + bytes(-len(p) % 3200) for p in
+            (pcm16_digits(w, seed=50 + i) for i, w in enumerate(spoken))]
+    dsecs = [len(p) / 32000 for p in pcms]
+    want = [chunked_reference(state.pipeline, dcfg, p) for p in pcms]
+    _, dlat, dcounts, _ = serve_chunked("M", state, pcms, dsecs, want)
+    say("M", f"tiny-digits (trained), {state.pipeline.compute_dtype}, "
+        f"chunked: {len(pcms)} streams of {[len(s) for s in spoken]} spoken "
+        f"digits, finals of {[len(w.split()) for w in want]} words, each "
+        f"equal to its direct decode (the first: {want[0][:60]!r}...); "
+        f"launches {dcounts['log_mel']} / {dcounts['greedy_loop']}; partial "
+        f"latency p50 {percentile(dlat, 50):.0f} ms, p95 "
+        f"{percentile(dlat, 95):.0f}")
+    results["ws_chunked"]["digits_final_words"] = [len(w.split())
+                                                   for w in want]
+    del state
+
+    # the large weights in f32 without the blank bias (every window spends
+    # the 200-token budget): the first stream's successive windows, as the
+    # chunked mode cuts them after each 1 s feed, each decoded from the
+    # carry of the window before through csrc/decode_loop.cu and through
+    # its plain version on the same inputs
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                batch_buckets=Config().batch_buckets)
+    pipe32 = AsrPipeline(load_model(cfg32, "large"), load_vocab(cfg32),
+                         cfg32, torch.device("cuda"))
+    checked = []
+    carried = pipe32.decode_carried
+
+    def compare(enc_pre, enc_lens, h0, c0, pred0, last, offset=None, *,
+                max_symbols, max_total):
+        res = carried(enc_pre, enc_lens, h0, c0, pred0, last, offset,
+                      max_symbols=max_symbols, max_total=max_total)
+        ref = greedy_loop_reference(
+            enc_pre, enc_lens, h0, c0, pred0, last,
+            torch.zeros_like(enc_lens, dtype=torch.int32)
+            if offset is None else offset, pipe32.decode_weights,
+            blank_id=pipe32.model.config.blank_id, max_symbols=max_symbols,
+            max_total=max_total, lookahead=cfg32.greedy_lookahead)
+        for field in ("counts", "tokens", "frame_idx", "last_token"):
+            if not torch.equal(getattr(res, field), getattr(ref, field)):
+                raise AssertionError(f"[M] window {len(checked)}: f32 "
+                                     f"{field} differ from the plain loop")
+        checked.append(int(res.counts.sum()))
+        return res
+
+    pipe32.decode_carried = compare
+    t0 = time.perf_counter()
+    buf = OverlappingAudioBuffer(
+        int(cfg.buffer_capacity_seconds * 16000), cfg.chunk_size_seconds,
+        cfg.leading_context_seconds, cfg.trailing_context_seconds)
+    carry = None
+    for i in range(0, waves[0].shape[0], 16000):
+        buf.add_samples(waves[0][i:i + 16000])
+        for source, _, _ in buf.overlapping_windows():
+            _, carry = pipe32.process_stream_samples(buf.get_slice(source),
+                                                     carry)
+    say("M", f"carried decode, f32, {len(checked)} successive windows of "
+        f"the first 10 s stream (1 s feeds): tokens, frames and counts "
+        f"identical to the plain loop; {sum(checked)} tokens "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not checked or min(checked) < 1:
+        raise AssertionError("[M] a checked window emitted nothing")
+    results["ws_chunked"]["f32_windows_identical"] = len(checked)
+
+
+def load_vocab(cfg):
+    from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+    return Vocabulary.load(cfg.vocabulary_path)
+
+
+def phase_n(results):
+    """Native streaming on the large-streaming preset: the chunk encoder
+    against the full causal forward, the loop kernel at 64 lanes with idle
+    lanes, the lane engine against solo sessions, then 16 streams behind
+    the server and the chunk step's cost."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from amira_rust_asr_server_tpu_torch.audio import pcm16_bytes_to_f32
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops.kernels import mel as mel_kernel
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
+        DecodeWeights, greedy_loop, greedy_loop_reference)
+    from amira_rust_asr_server_tpu_torch.ops.streaming import (
+        encode_chunk, init_encoder_cache)
+    from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.runtime.lane_engine import \
+        StreamingLaneEngine
+    from amira_rust_asr_server_tpu_torch.runtime.native_stream import (
+        NativeStreamSession, fresh_carry)
+    from amira_rust_asr_server_tpu_torch.server.app import (build_state,
+                                                            load_model)
+    dev = torch.device("cuda")
+    cfg32 = Config(vocabulary_path="model-repo/vocab.txt",
+                   inference_backend="tpu", compute_dtype="float32",
+                   streaming_mode="native", audio_sec_buckets=[2.0],
+                   batch_buckets=[1])
+    t0 = time.perf_counter()
+    pipe32 = AsrPipeline(load_model(cfg32, "large-streaming"),
+                         load_vocab(cfg32), cfg32, dev)
+    model = pipe32.model
+    mcfg = model.config
+    say("N", f"large-streaming (att_context {mcfg.att_context}), f32, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+
+    # 1. encode_chunk over 10 s in 64-frame chunks vs the full forward
+    audio = torch.from_numpy(digits_audio(1, 10.0, seed=30)).to(dev)
+    feats, _ = mel_kernel.log_mel_features(
+        audio, torch.tensor([audio.shape[1]], dtype=torch.int32,
+                            device=dev), mcfg.n_mels)
+    t_full = feats.shape[2] // 64 * 64
+    feats = feats[:, :, :t_full].contiguous()
+
+    def chunked(m, x):
+        cache = init_encoder_cache(m.config, 1, x.dtype, dev)
+        outs = []
+        for i in range(0, t_full, 64):
+            enc, cache = encode_chunk(m.encoder, x[:, :, i:i + 64], cache)
+            outs.append(enc)
+        return torch.cat(outs, dim=1)
+
+    lens = torch.tensor([t_full], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        full, _ = model.encode(feats, lens)
+        streamed = chunked(model, feats)
+        err32 = (streamed - full).abs().max().item()
+        ok32 = torch.allclose(streamed, full, atol=2e-4, rtol=1e-3)
+        model16 = copy.deepcopy(model).to(torch.bfloat16)
+        full16, _ = model16.encode(feats.to(torch.bfloat16), lens)
+        streamed16 = chunked(model16, feats.to(torch.bfloat16))
+        err16 = (streamed16.float() - full16.float()).abs().max().item()
+        w16 = DecodeWeights.from_model(model16, torch.bfloat16)
+        h, c, p, last = fresh_carry(model16, 1, torch.bfloat16, dev)
+        kw = dict(blank_id=mcfg.blank_id, max_symbols=30, max_total=200)
+        t_enc = torch.tensor([full16.shape[1]], dtype=torch.int32,
+                             device=dev)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        tok_f = greedy_loop(model16.joint_precompute_enc(full16).contiguous(),
+                            t_enc, h, c, p, last, zero, w16, **kw)
+        tok_s = greedy_loop(
+            model16.joint_precompute_enc(streamed16).contiguous(), t_enc, h,
+            c, p, last, zero, w16, **kw)
+    share16 = token_agreement(*(x.cpu().numpy() for x in (
+        tok_s.tokens, tok_s.counts, tok_f.tokens, tok_f.counts)))
+    say("N", f"encode_chunk over {t_full} mel frames (10 s) in 64-frame "
+        f"chunks vs the full causal forward {tuple(full.shape)}: f32 "
+        f"max|d| {err32:.3e} (atol 2e-4, rtol 1e-3: {ok32}); bf16 max|d| "
+        f"{err16:.3e}, greedy tokens of chunked vs full {share16:.4f} "
+        f"identical ({int(tok_s.counts[0])} / {int(tok_f.counts[0])})")
+    if not ok32:
+        raise AssertionError("[N] f32 chunked encoder differs from full")
+    del model16, full16, streamed16
+
+    # 2. the loop kernel at 64 lanes, 13 active, from a carry, f32
+    with torch.inference_mode():
+        enc_pre = model.joint_precompute_enc(streamed[0].reshape(
+            -1, 8, mcfg.d_enc)).contiguous()               # [chunks, 8, J]
+        enc_pre = enc_pre[torch.arange(64, device=dev) % enc_pre.shape[0]]
+        h, c, p, last = fresh_carry(model, 64, torch.float32, dev)
+        off = torch.zeros(64, dtype=torch.int32, device=dev)
+        full8 = torch.full((64,), 8, dtype=torch.int32, device=dev)
+        w32 = pipe32.decode_weights
+        first = greedy_loop(enc_pre, full8, h, c, p, last, off, w32, **kw)
+        lens64 = torch.where(torch.arange(64, device=dev) % 5 == 0, full8,
+                             torch.zeros_like(full8))
+        carry = (enc_pre.contiguous(), lens64, first.state[0],
+                 first.state[1], first.pred_out, first.last_token, off, w32)
+        got = greedy_loop(*carry, **kw)
+        ref = greedy_loop_reference(*carry, **kw)
+    idle = lens64 == 0
+    same = all(torch.equal(getattr(got, f), getattr(ref, f))
+               for f in ("counts", "tokens", "frame_idx", "last_token"))
+    kept = (torch.equal(got.state[0][:, idle], first.state[0][:, idle])
+            and torch.equal(got.state[1][:, idle], first.state[1][:, idle])
+            and torch.equal(got.pred_out[idle], first.pred_out[idle])
+            and torch.equal(got.last_token[idle], first.last_token[idle]))
+    ms_k = cuda_ms(lambda: greedy_loop(*carry, **kw), 5)
+    ms_p = cuda_ms(lambda: greedy_loop_reference(*carry, **kw), 2)
+    say("N", f"decode_loop.cu at B = 64 (13 active, 51 idle), f32, from a "
+        f"carry: tokens/frames/counts identical {same}, idle lanes' h, c, "
+        f"pred_out, last token bit-identical {kept}; counts "
+        f"{got.counts[~idle].tolist()}; kernel {ms_k:.3f} ms, plain "
+        f"{ms_p:.3f} ms")
+    if not (same and kept):
+        raise AssertionError("[N] the loop kernel at 64 lanes disagrees")
+    results.setdefault("greedy_loop", {}).update(b64_idle_ms=ms_k,
+                                                 b64_idle_plain_ms=ms_p)
+
+    # 3. the lane engine, 64 lanes, staggered starts, against solo sessions
+    rng = np.random.default_rng(31)
+    waves = [w[:int(16000 * (1.2 + 0.1 * (i % 8)))] for i, w in
+             enumerate(digits_audio(64, 2.0, seed=31))]
+    eng = StreamingLaneEngine(pipe32, n_lanes=64, chunk_frames=64,
+                              norm="none", max_symbols=30, max_total=200)
+    lanes, fed = {}, {}
+    step = 5120  # 0.32 s: half a chunk of mel frames per round
+    t0 = time.perf_counter()
+    while len(lanes) < 64 or any(fed[i] < waves[i].shape[0] for i in lanes):
+        for i in range(len(lanes), min(64, len(lanes) + 8)):
+            lanes[i] = eng.attach()  # eight more streams join each round
+            fed[i] = 0
+        for i, lane in lanes.items():
+            n = int(rng.integers(step // 2, step * 2))
+            eng.feed(lane, waves[i][fed[i]:fed[i] + n])
+            fed[i] += n
+        eng.tick()
+    for lane in lanes.values():
+        eng.feed(lane, np.zeros(0, np.float32), final=True)
+    while eng.pending():
+        eng.tick()
+    t_eng = time.perf_counter() - t0
+    solo = []
+    for w in waves:
+        sess = NativeStreamSession(pipe32, chunk_frames=64, norm="none",
+                                   max_symbols=30, max_total=200)
+        sess.feed(w)
+        solo.append(sess.end().tokens)
+    bad = [i for i in range(64) if eng.tokens[lanes[i]] != solo[i]]
+    say("N", f"lane engine, 64 lanes (8 join per tick), f32: "
+        f"{eng.stats.ticks} ticks in {t_eng:.2f} s, mean "
+        f"{eng.stats.to_json(0, 64, False)['mean_lanes_per_tick']} lanes "
+        f"per tick; {64 - len(bad)} / 64 lanes' tokens equal a solo "
+        f"session's ({sum(len(t) for t in solo)} tokens)")
+    if bad:
+        raise AssertionError(f"[N] lanes {bad} differ from solo sessions")
+    del eng, pipe32, model, streamed, full
+    torch.cuda.empty_cache()
+
+    # 4. sixteen native streams of 10 s behind the server, bf16; without
+    # running statistics (native_norm "none") a stream's transcript depends
+    # on its audio alone, not on how far its feeds ran ahead of a tick, so
+    # each final can be held exactly against a direct decode; the bucket
+    # warmup (which native streams do not use) stays off, so only the lane
+    # engine launches kernels during the streams
+    cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                 inference_backend="tpu", streaming_mode="native",
+                 native_norm="none", max_concurrent_streams=16)
+    t0 = time.perf_counter()
+    state = build_state(cfg, preset="large-streaming", warmup=False)
+    eng = state.lane_engine
+    took = eng.warm()
+    secs = [10.0] * 16
+    pcms = [pcm16(a) for a in digits_audio(16, 10.0, seed=40)]
+    waves = [pcm16_bytes_to_f32(p) for p in pcms]
+
+    def engine_decode():
+        """Every stream's whole audio through the served engine directly
+        (one lane each, ticked to the end under the lane lock)."""
+        with state.lane_lock:
+            lanes = [eng.attach() for _ in waves]
+            for lane, w in zip(lanes, waves):
+                eng.feed(lane, w, final=True)
+            while eng.pending():
+                eng.tick()
+            out = [list(eng.tokens[lane]) for lane in lanes]
+            for lane in lanes:
+                eng.detach(lane)
+        return out
+
+    t1 = time.perf_counter()
+    # random weights also emit ids the vocabulary does not hold (dropped
+    # in the text): every stream's text must have words
+    bias, toks = emitting_blank_bias(
+        blank_bias_setter(state.pipeline), engine_decode,
+        enough=lambda out: all(eng.vocab.decode_tokens(t).strip()
+                               for t in out))
+    want = [eng.vocab.decode_tokens(t) for t in toks]
+    solo = []
+    for w in waves:
+        sess = NativeStreamSession(
+            state.pipeline, chunk_frames=cfg.native_chunk_frames, norm="none",
+            max_symbols=cfg.max_symbols_per_step,
+            max_total=cfg.max_total_tokens)
+        sess.feed(w)
+        solo.append(sess.end().tokens)
+    say("N", f"large-streaming, {state.pipeline.compute_dtype}, native: "
+        f"server state built in {t1 - t0 - took:.1f} s, lane engine "
+        f"({eng.n_lanes} lanes) warmed in {took:.1f} s; blank bias "
+        f"+{bias:.4f} (bisected so that every stream's text has words): "
+        f"direct engine decodes {[len(t) for t in toks]} tokens, "
+        f"{[len(w.split()) for w in want]} words; solo sessions "
+        f"(batch 1) give the same tokens on "
+        f"{sum(a == b for a, b in zip(solo, toks))} / 16 streams "
+        f"({time.perf_counter() - t1:.1f} s)")
+    outs, counts, before, metrics = asyncio.run(_serve_streams(
+        state, free_port(), pcms, gap=0.02))
+    lat = check_streams("N", outs, secs, want)
+    ticks = metrics["lane_engine"]["ticks"] - before["lane_engine"]["ticks"]
+    say("N", f"kernel launches during the streams: {counts}; lane engine "
+        f"ticks during the streams {ticks}; /metrics lane_engine "
+        f"{metrics['lane_engine']}; partial latency p50 "
+        f"{percentile(lat, 50):.0f} ms, p95 {percentile(lat, 95):.0f} ms")
+    # the lane engine's ticks launched the loop kernel once each, and
+    # nothing else ran a kernel
+    if (counts["greedy_loop"] != ticks or ticks < 1
+            or any(n for k, n in counts.items() if k != "greedy_loop")):
+        raise AssertionError(f"[N] launches {counts} for {ticks} ticks")
+    results["greedy_loop"]["ws_native_launches"] = counts["greedy_loop"]
+
+    # 5. the chunk step's cost on the served engine (its ticker stopped)
+    eng = state.lane_engine
+    for lane in range(64):
+        if eng.featurizers[lane] is not None:
+            eng.detach(lane)
+    lanes = [eng.attach() for _ in range(64)]
+    chunk_audio = digits_audio(64, 0.7, seed=41)  # 71 mel frames each
+    tick_ms = {}
+    for k in (1, 16, 64):
+        walls = []
+        for _ in range(5):
+            for lane in lanes[:k]:
+                eng.feed(lane, chunk_audio[lane])
+            ta = time.perf_counter()
+            eng.tick()
+            walls.append((time.perf_counter() - ta) * 1e3)
+            for lane in lanes:  # drop what is left over
+                eng.backlogs[lane] = eng.backlogs[lane][:0]
+        tick_ms[k] = float(np.median(walls))
+    for lane in lanes:
+        eng.feed(lane, chunk_audio[lane])
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    eng.tick()
+    ev[1].record()
+    torch.cuda.synchronize()
+    span = ev[0].elapsed_time(ev[1])
+    for lane in lanes:
+        eng.backlogs[lane] = eng.backlogs[lane][:0]
+        eng.feed(lane, chunk_audio[lane])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.tick()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    streams = 64 * 640.0 / tick_ms[64]
+    say("N", f"tick wall ms (median of 5, bf16, 64-lane engine): 1 ready "
+        f"{tick_ms[1]:.2f}, 16 ready {tick_ms[16]:.2f}, 64 ready "
+        f"{tick_ms[64]:.2f}; one 64-lane step: {len(kern)} kernels, busy "
+        f"{busy:.2f} ms of a {span:.2f} ms span (idle share "
+        f"{1 - busy / span:.3f}); real-time streams per card "
+        f"64 x 640 ms / {tick_ms[64]:.2f} ms = {streams:.0f}")
+    results["ws_native"] = {
+        "partial_ms_p50": percentile(lat, 50),
+        "partial_ms_p95": percentile(lat, 95),
+        "tick_ms": {str(k): v for k, v in tick_ms.items()},
+        "step_kernels": len(kern), "step_busy_ms": busy,
+        "step_span_ms": span, "idle_share": 1 - busy / span,
+        "streams_per_card": streams, "blank_bias": bias,
+        "final_words": [len(w.split()) for w in want],
+        "f32_chunk_err": err32,
+        "bf16_chunk_err": err16, "bf16_chunk_token_share": share16}
+    state.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -1114,6 +1802,10 @@ def main(argv=None) -> int:
         phase_k(results)
     if "L" in phases:
         phase_l(results)
+    if "M" in phases:
+        phase_m(results)
+    if "N" in phases:
+        phase_n(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -1126,7 +1818,9 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels,
                       "requests_ms": results["requests_ms"],
                       "beam_requests_ms": results["beam_requests_ms"],
-                      "int8_requests_ms": results["int8_requests_ms"]}))
+                      "int8_requests_ms": results["int8_requests_ms"],
+                      "ws_chunked": results["ws_chunked"],
+                      "ws_native": results["ws_native"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

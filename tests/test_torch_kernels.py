@@ -535,3 +535,79 @@ def test_int8_and_step_pipeline_golden_on_gpu(dev, overrides, launched):
     assert tr.text == "two five nine" and tr.tokens == [3, 6, 10]
     counts = kernels.launch_counts()
     assert all(counts[name] > 0 for name in ("log_mel", *launched)), counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("preset", ["tiny", "large"])
+def test_decode_loop_64_lanes_with_idle_lanes(dev, preset, dtype):
+    """The lane engine's shape: 64 lanes of an 8-frame chunk, most of them
+    idle (enc_len 0) and carrying state from an earlier chunk. f32 tokens,
+    frames and counts identical to the plain version (bf16 >= 90% of
+    tokens); every idle lane's h, c, pred_out and last token come back bit
+    for bit, in both types."""
+    args, kw = decode_case(preset, dtype, dev, b=64, t=8, seed=64)
+    first = greedy_loop(*args, **kw)  # a carry with emitted tokens
+    lens = torch.zeros(64, dtype=torch.int32, device=dev)
+    lens[::5] = torch.arange(1, 9, device=dev, dtype=torch.int32).repeat(
+        2)[:13]
+    carry = (args[0], lens, first.state[0], first.state[1], first.pred_out,
+             first.last_token, args[6], args[7])
+    got = greedy_loop(*carry, **kw)
+    ref = greedy_loop_reference(*carry, **kw)
+    idle = lens == 0
+    assert int(idle.sum()) == 51 and int(got.counts.sum()) > 0
+    assert not got.counts[idle].any()
+    for new, old in ((got.state[0], first.state[0]),
+                     (got.state[1], first.state[1])):
+        assert torch.equal(new[:, idle], old[:, idle])
+    assert torch.equal(got.pred_out[idle], first.pred_out[idle])
+    assert torch.equal(got.last_token[idle], first.last_token[idle])
+    if dtype == torch.bfloat16:
+        assert share_same_tokens(got, ref) >= 0.9
+        return
+    for field in ("counts", "tokens", "frame_idx", "last_token"):
+        assert torch.equal(getattr(got, field), getattr(ref, field)), field
+    for g, r in ((got.state[0], ref.state[0]), (got.state[1], ref.state[1]),
+                 (got.pred_out, ref.pred_out)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-6)
+
+
+def test_lane_engine_tick_on_cuda_matches_cpu(dev):
+    """The lane engine on the card (encode_chunk eager, the carried decode
+    through csrc/decode_loop.cu) gives the CPU engine's tokens, f32, three
+    lanes fed in interleaved slices; the loop kernel runs once per tick."""
+    import copy
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.runtime.lane_engine import \
+        StreamingLaneEngine
+    from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+    model = Transducer.from_preset("tiny-streaming").init_weights(
+        torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        model.joint.out.b[model.config.blank_id] += 1.0
+    vocab = Vocabulary.from_map({i: f"▁w{i}" for i in range(15)})
+    cfg = Config(compute_dtype="float32", audio_sec_buckets=[1.0],
+                 batch_buckets=[1])
+    rng = np.random.default_rng(5)
+    waves = [(rng.standard_normal(n) * 0.3).astype(np.float32)
+             for n in (16000, 11200, 6400)]
+    tokens, ticks = [], []
+    for device in (torch.device("cpu"), dev):
+        pipe = AsrPipeline(copy.deepcopy(model), vocab, cfg, device)
+        eng = StreamingLaneEngine(pipe, n_lanes=4, chunk_frames=16,
+                                  norm="none")
+        lanes = [eng.attach() for _ in waves]
+        before = greedy_loop.launches
+        for i in range(0, 16000, 3200):
+            for lane, w in zip(lanes, waves):
+                eng.feed(lane, w[i:i + 3200])
+            eng.tick()
+        for lane in lanes:
+            eng.feed(lane, np.zeros(0, np.float32), final=True)
+            eng.drain(lane)
+        tokens.append([list(eng.tokens[lane]) for lane in lanes])
+        ticks.append((eng.stats.ticks, greedy_loop.launches - before))
+    assert all(tokens[0]) and tokens[1] == tokens[0]
+    assert ticks[1][1] == ticks[1][0] and ticks[0][1] == 0

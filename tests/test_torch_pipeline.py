@@ -324,10 +324,13 @@ def test_pcm16_conversion_matches_reference():
 
 @pytest.mark.parametrize("overrides", [
     dict(model_family="aed"), dict(model_family="ctc"),
-    dict(streaming_mode="native")])
+    dict(decoding_mode="beam", streaming_mode="native",
+         model_preset="tiny-streaming")])
 def test_unported_options_are_refused(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_state(digits_config(**overrides), preset="tiny", warmup=False)
+        build_state(digits_config(**overrides),
+                    preset=overrides.get("model_preset", "tiny"),
+                    warmup=False)
 
 
 @pytest.mark.parametrize("overrides, reason", [
