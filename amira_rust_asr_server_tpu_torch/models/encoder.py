@@ -27,6 +27,7 @@ subsampler's and the output projection stay plain, as in the reference.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -49,6 +50,20 @@ def _same_pad(t: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(half: int, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies [half] f32 on ``device``, made once: a host
+    copy inside a CUDA-graph capture would be refused."""
+    return torch.as_tensor(1.0 / (10000.0 ** (np.arange(0, half) / half)),
+                           dtype=torch.float32, device=device)
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s type on its device, filled
+    there (``torch.tensor`` would copy from the host)."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
 def rope(x: torch.Tensor, pos_offset: Optional[torch.Tensor] = None
          ) -> torch.Tensor:
     """Rotary position embedding over the last dim of ``x [B, H, T, Dh]``,
@@ -58,8 +73,7 @@ def rope(x: torch.Tensor, pos_offset: Optional[torch.Tensor] = None
     dh = x.shape[-1]
     half = dh // 2
     t = x.shape[-2]
-    freqs = torch.as_tensor(1.0 / (10000.0 ** (np.arange(0, half) / half)),
-                            dtype=torch.float32, device=x.device)
+    freqs = _rope_freqs(half, x.device)
     positions = torch.arange(t, dtype=torch.float32, device=x.device)
     if pos_offset is None:
         angles = positions[:, None] * freqs[None, :]              # [T, half]
@@ -152,8 +166,7 @@ class MHSA(nn.Module):
         q, k = rope(q), rope(k)
 
         scores = q @ k.transpose(-1, -2)
-        scores = scores / torch.sqrt(
-            torch.tensor(dh, dtype=scores.dtype, device=scores.device))
+        scores = scores / torch.sqrt(scalar(dh, scores))
 
         mask = pad_mask[:, None, None, :]
         left, right = cfg.att_context
@@ -169,9 +182,7 @@ class MHSA(nn.Module):
                 band &= (ki - qi) <= right
             mask = mask & band[None, None]
 
-        scores = torch.where(
-            mask, scores,
-            torch.tensor(MASK_FILL, dtype=scores.dtype, device=x.device))
+        scores = torch.where(mask, scores, scalar(MASK_FILL, scores))
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
         out = (attn @ v).transpose(1, 2).reshape(b, t, d)
         return self.out(out)

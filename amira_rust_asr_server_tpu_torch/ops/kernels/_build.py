@@ -16,6 +16,7 @@ refused launch never runs and a later synchronize would not report it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,3 +145,32 @@ class LaunchCount:
 
     def __init__(self) -> None:
         self.launches = 0
+
+
+count_lock = threading.Lock()  # guards every ``launches`` count
+_recording = threading.local()
+
+
+def count_launch(counter) -> None:
+    """One launch by a wrapper: ``counter`` is the wrapper (or the
+    :class:`LaunchCount` of its branch). While this thread captures a CUDA
+    graph (:func:`recording_launches`) the launch is only recorded, and it
+    goes to the capture's record instead of the count."""
+    record = getattr(_recording, "launches", None)
+    if record is not None:
+        record[counter] = record.get(counter, 0) + 1
+        return
+    with count_lock:
+        counter.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within it, this thread's launches go to the yielded record,
+    ``{counter: launches}``, and no count moves."""
+    record: Dict[object, int] = {}
+    _recording.launches = record
+    try:
+        yield record
+    finally:
+        _recording.launches = None

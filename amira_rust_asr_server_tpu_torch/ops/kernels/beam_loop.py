@@ -34,7 +34,6 @@ hypothesis rows of all utterances are the rows of its tile products.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Tuple
 
 import torch
@@ -43,7 +42,6 @@ from ..beam import TokenTrie, beam_scan
 from . import _build
 from .decode_loop import DecodeWeights, check_tensor, kernel_fns, loop_grid
 
-_count_lock = threading.Lock()
 
 # (pool_scores [B,K] f32, pool_lens [B,K], exp_parent [T,S,B,K],
 #  exp_token [T,S,B,K], pool_ps [T,B,K], pool_pk [T,B,K], g_final [B,K])
@@ -138,8 +136,7 @@ def beam_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
         *quant_slices,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_beam_loop")
-    with _count_lock:
-        (beam_loop if w.quant is None else beam_loop_int8).launches += 1
+    _build.count_launch(beam_loop if w.quant is None else beam_loop_int8)
     return outs
 
 

@@ -28,7 +28,6 @@ the int8 tensor cores' k-step (:func:`pad_words`). The step kernel
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -36,7 +35,6 @@ import torch
 from ..greedy import GreedyResult, greedy_decode
 from . import _build
 
-_count_lock = threading.Lock()
 INT8_KEYS = ("wx0", "wh0", "wx1", "wh1")  # the four int8 LSTM halves
 
 
@@ -463,9 +461,8 @@ def greedy_loop(enc_pre: torch.Tensor, enc_lens: torch.Tensor,
         pred_out.data_ptr(), last_out.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_greedy_loop")
-    with _count_lock:
-        (greedy_loop if weights.quant is None
-         else greedy_loop_int8).launches += 1
+    _build.count_launch(greedy_loop if weights.quant is None
+                        else greedy_loop_int8)
     return GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
                         confidence=confs, state=(h_out, c_out),
                         pred_out=pred_out, last_token=last_out)

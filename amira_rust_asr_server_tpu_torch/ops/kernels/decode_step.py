@@ -24,15 +24,12 @@ weights run in stream order (the scratch is theirs in turn).
 
 from __future__ import annotations
 
-import threading
 from typing import Tuple
 
 import torch
 
 from . import _build
 from .decode_loop import JointWeights, check_tensor, grid_plan, joint_fn
-
-_count_lock = threading.Lock()
 
 
 def joint_argmax_reference(enc_win: torch.Tensor, pred_out: torch.Tensor,
@@ -88,8 +85,7 @@ def joint_argmax(enc_win: torch.Tensor, pred_out: torch.Tensor,
         k.data_ptr(), conf.data_ptr(), scratch.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_joint_argmax")
-    with _count_lock:
-        joint_argmax.launches += 1
+    _build.count_launch(joint_argmax)
     return k, conf
 
 

@@ -12,7 +12,6 @@ bf16 parts (:func:`bf16_split3`); :func:`kernel_bases` splits the bases once.
 from __future__ import annotations
 
 import functools
-import threading
 
 import numpy as np
 import torch
@@ -26,8 +25,6 @@ N_BINS = N_FFT // 2 + 1
 BINS_PAD = 264                         # csrc/mel.cu: 33 k-steps of 8 bins
 WIN_OFF = (N_FFT - WIN_LENGTH) // 2    # first nonzero window row
 WIN_ROWS = 416                         # the window's rows, 26 k-steps of 16
-
-_count_lock = threading.Lock()
 
 
 def bf16_split3(x: np.ndarray) -> np.ndarray:
@@ -98,8 +95,7 @@ def log_mel_raw(xp: torch.Tensor, n_mels: int = N_MELS) -> torch.Tensor:
                             *(x.data_ptr() for x in bases), n_mels,
                             out.data_ptr(), stream)
     _build.check(err, "amira_log_mel")
-    with _count_lock:
-        log_mel_raw.launches += 1
+    _build.count_launch(log_mel_raw)
     return out
 
 

@@ -16,7 +16,6 @@ K padded with zeros to a multiple of :data:`K_ALIGN`) and ``w_scale [N]``.
 
 from __future__ import annotations
 
-import threading
 
 import torch
 
@@ -24,7 +23,6 @@ from . import _build
 from .decode_loop import check_tensor, quant_scale
 
 K_ALIGN = 64  # wq's K padding (the kernel zero-fills its 128-byte steps)
-_count_lock = threading.Lock()
 
 
 def padded_k(k: int) -> int:
@@ -77,8 +75,7 @@ def quant_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
         wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "amira_quant_matmul")
-    with _count_lock:
-        quant_matmul.launches += 1
+    _build.count_launch(quant_matmul)
     return y
 
 

@@ -31,7 +31,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.encoder import MASK_FILL, ConformerEncoder, rope
+from ..models.encoder import MASK_FILL, ConformerEncoder, rope, scalar
 from ..models.presets import ModelConfig
 
 
@@ -124,16 +124,13 @@ def _mhsa(mhsa, cfg: ModelConfig, x_ln: torch.Tensor, k_cache: torch.Tensor,
 
     # scores in the activation dtype, as the batch encoder's attention
     scores = q @ keys.transpose(-1, -2)
-    scores = scores / torch.sqrt(
-        torch.tensor(dh, dtype=scores.dtype, device=scores.device))
+    scores = scores / torch.sqrt(scalar(dh, scores))
     dev = x_ln.device
     q_pos = pos[:, None, None] + torch.arange(t, device=dev)[None, :, None]
     k_pos = (pos[:, None, None] - left
              + torch.arange(left + t, device=dev)[None, None, :])
     mask = (k_pos >= 0) & (k_pos <= q_pos) & (q_pos - k_pos <= left)
-    scores = torch.where(mask[:, None], scores,
-                         torch.tensor(MASK_FILL, dtype=scores.dtype,
-                                      device=dev))
+    scores = torch.where(mask[:, None], scores, scalar(MASK_FILL, scores))
     attn = torch.softmax(scores, dim=-1).to(x_ln.dtype)
     out = (attn @ vals).transpose(1, 2).reshape(b, t, d)
     n = keys.shape[2]

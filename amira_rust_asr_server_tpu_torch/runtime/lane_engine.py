@@ -8,6 +8,15 @@ the carried greedy decode (:meth:`AsrPipeline.decode_carried`: the loop
 kernel, or the per-step route). Lanes with nothing ready ride along with
 ``enc_len = 0``, and every piece of their state stays bit-identical.
 
+The chunk step is one :class:`~runtime.programs.DeviceProgram`, since its
+shapes are fixed (L lanes x ``chunk_frames``): static features, active mask
+and encoded lengths in, the cache and the carry updated in place, tokens
+out. On CUDA it is captured at :meth:`StreamingLaneEngine.warm` (one eager
+all-inactive step, then the capture), or at the first tick if nothing
+warmed it, and every later tick replays it; on the step route the graph
+ends at ``joint_precompute_enc`` and the host loop decodes after the
+replay. Every device operation runs under the pipeline's ``device_lock``.
+
 Lifecycle: ``attach() -> lane``, ``feed(lane, samples)``,
 ``tick() -> {lane: new tokens}``, ``detach(lane)``. The server drives
 ``tick`` from its lane-ticker thread (``server/state.py``).
@@ -25,6 +34,7 @@ import torch
 from .. import constants as C
 from ..ops.streaming import encode_chunk, init_encoder_cache
 from .native_stream import StreamingFeaturizer, fresh_carry
+from .programs import DeviceProgram, host_staging, stage
 
 
 class LaneEngineStats:
@@ -109,17 +119,30 @@ class StreamingLaneEngine:
         self._dtype = pipeline.compute_dtype
         self._device = pipeline.device
 
-        # the lanes' device state
-        with torch.inference_mode():
+        # the lanes' device state, and the chunk step's static inputs
+        dev = self._device
+        with pipeline.device_lock, torch.inference_mode():
             self.enc_cache = init_encoder_cache(cfg, n_lanes, self._dtype,
-                                                self._device)
+                                                dev)
             (self.dec_h, self.dec_c, self.pred_out,
              self.last_token) = fresh_carry(self.model, n_lanes, self._dtype,
-                                            self._device)
+                                            dev)
             # one fresh lane's carry, for the lane reset
             self._fresh = (self.dec_h[:, :1].clone(),
                            self.dec_c[:, :1].clone(),
                            self.pred_out[:1].clone())
+            self.program = DeviceProgram(
+                f"lane engine step {n_lanes} lanes x {chunk_frames} frames",
+                dev, self._chunk_body, {
+                    "feats": torch.zeros((n_lanes, cfg.n_mels, chunk_frames),
+                                         dtype=torch.float32, device=dev),
+                    "active": torch.zeros((n_lanes,), dtype=torch.bool,
+                                          device=dev),
+                    "enc_lens": torch.zeros((n_lanes,), dtype=torch.int32,
+                                            device=dev)},
+                pool=pipeline.graph_pool())
+        self.program.host = {name: host_staging(x.shape, x.dtype, dev)
+                             for name, x in self.program.inputs.items()}
 
         # the lanes' host state
         self.featurizers: List[Optional[StreamingFeaturizer]] = \
@@ -137,18 +160,21 @@ class StreamingLaneEngine:
 
     # ------------------------------------------------------------------
     def warm(self) -> float:
-        """Run the chunk step once with every lane inactive, and one lane
-        reset, before any stream is admitted (the kernels' first launch and
-        the allocator's growth); the lanes' state is unchanged. Returns the
-        seconds taken."""
+        """Make the chunk step ready before any stream is admitted: one
+        eager step with every lane inactive, then (CUDA) its capture, and
+        one lane reset; the lanes' state is unchanged. Returns the seconds
+        taken."""
         t0 = time.perf_counter()
-        self._step(np.zeros((self.n_lanes, self.cfg.n_mels,
-                             self.chunk_frames), np.float32),
-                   np.zeros((self.n_lanes,), bool),
-                   np.zeros((self.n_lanes,), np.int32))
-        self._reset_lane_device_state(0)
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        prog = self.program
+        with self.pipeline.device_lock:
+            if not prog.warm:
+                for name, x in prog.inputs.items():  # every lane inactive
+                    prog.host[name].zero_()
+                    stage(x, prog.host[name])
+                prog.warm_up()
+            self._reset_lane_device_state(0)
+            if self._device.type == "cuda":
+                torch.cuda.synchronize(self._device)
         self.warmed_up = True
         return time.perf_counter() - t0
 
@@ -182,13 +208,15 @@ class StreamingLaneEngine:
 
     @torch.inference_mode()
     def _reset_lane_device_state(self, lane: int) -> None:
-        """Reset one lane's device state in place (no host round trip)."""
-        self.enc_cache.reset_lane(lane)
-        h, c, pred = self._fresh
-        self.dec_h[:, lane] = h[:, 0]
-        self.dec_c[:, lane] = c[:, 0]
-        self.pred_out[lane] = pred[0]
-        self.last_token[lane] = self.cfg.blank_id
+        """Reset one lane's device state in place (no host round trip):
+        the buffers the chunk step's graph reads and writes."""
+        with self.pipeline.device_lock:
+            self.enc_cache.reset_lane(lane)
+            h, c, pred = self._fresh
+            self.dec_h[:, lane] = h[:, 0]
+            self.dec_c[:, lane] = c[:, 0]
+            self.pred_out[lane] = pred[0]
+            self.last_token[lane] = self.cfg.blank_id
 
     # ------------------------------------------------------------------
     def feed(self, lane: int, samples: np.ndarray,
@@ -212,28 +240,52 @@ class StreamingLaneEngine:
         return [i for i in range(self.n_lanes) if self.lane_ready(i)]
 
     # ------------------------------------------------------------------
-    @torch.inference_mode()
-    def _step(self, feats: np.ndarray, active: np.ndarray,
-              enc_lens: np.ndarray):
-        """One chunk step over all lanes (device), the carry updated in
-        place of the old one: (counts, tokens) on the host."""
-        dev, dt = self._device, self._dtype
-        active_d = torch.from_numpy(active).to(dev)
+    def _chunk_body(self):
+        """The chunk step's device work on the static inputs: encode all
+        lanes, keep the active lanes' new cache, project, and (loop route)
+        decode, copying the new carry into the carry's own buffers."""
+        x = self.program.inputs
         enc, new_cache = encode_chunk(
-            self.model.encoder, torch.from_numpy(feats).to(dev, dt),
-            self.enc_cache)
-        self.enc_cache.keep_(active_d, new_cache)
+            self.model.encoder, x["feats"].to(self._dtype), self.enc_cache)
+        self.enc_cache.keep_(x["active"], new_cache)
         del new_cache
+        enc_pre = self.model.joint_precompute_enc(enc).contiguous()
+        if self.pipeline.greedy_route != "loop":
+            return (enc_pre,)
+        return self._decode(enc_pre)
+
+    def _decode(self, enc_pre):
+        """The carried decode of every lane, the carry updated in place;
+        (counts, tokens)."""
         # max_total budgets each chunk step, as the reference's counter is
         # local to each decode call: long sessions keep emitting
         res = self.pipeline.decode_carried(
-            self.model.joint_precompute_enc(enc).contiguous(),
-            torch.from_numpy(enc_lens).to(dev), self.dec_h, self.dec_c,
+            enc_pre, self.program.inputs["enc_lens"], self.dec_h, self.dec_c,
             self.pred_out, self.last_token, max_symbols=self.max_symbols,
             max_total=self.max_total)
-        self.dec_h, self.dec_c = res.state
-        self.pred_out, self.last_token = res.pred_out, res.last_token
-        return res.counts.cpu().numpy(), res.tokens.cpu().numpy()
+        for dst, src in zip((self.dec_h, self.dec_c, self.pred_out,
+                             self.last_token),
+                            (*res.state, res.pred_out, res.last_token)):
+            dst.copy_(src)
+        return res.counts, res.tokens
+
+    def _step(self, feats: np.ndarray, active: np.ndarray,
+              enc_lens: np.ndarray, *, eager: bool = False):
+        """One chunk step over all lanes (device), the carry and cache
+        updated in place: (counts, tokens) on the host. ``eager`` runs the
+        program's body instead of its replay (the oracle; tests,
+        ``chip_smoke.py``)."""
+        prog = self.program
+        with self.pipeline.device_lock:
+            for name, value in (("feats", feats), ("active", active),
+                                ("enc_lens", enc_lens)):
+                prog.host[name].numpy()[...] = value
+                stage(prog.inputs[name], prog.host[name])
+            outs = prog.run_eager() if eager else prog.run()
+            if self.pipeline.greedy_route != "loop":
+                with torch.inference_mode():
+                    outs = self._decode(*outs)
+            return prog.to_host(outs)
 
     def tick(self) -> Dict[int, List[int]]:
         """Advance every ready lane one chunk; new tokens per lane (empty

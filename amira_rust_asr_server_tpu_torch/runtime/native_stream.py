@@ -149,8 +149,9 @@ class NativeStreamSession:
         self.max_total = max_total
         self.featurizer = StreamingFeaturizer(cfg.n_mels, norm)
         self._dtype = pipeline.compute_dtype
-        self.enc_cache = init_encoder_cache(cfg, 1, self._dtype,
-                                            pipeline.device)
+        with pipeline.device_lock:
+            self.enc_cache = init_encoder_cache(cfg, 1, self._dtype,
+                                                pipeline.device)
         self.decode_carry: Optional[GreedyResult] = None
         self.tokens: List[int] = []
         self.mel_backlog = np.zeros((0, cfg.n_mels), np.float32)
@@ -174,39 +175,44 @@ class NativeStreamSession:
 
     def end(self) -> Transcription:
         text = self.feed(np.zeros(0, np.float32), final=True)
+        with self.pipeline.device_lock:
+            encoded = int(self.enc_cache.pos[0])
         return Transcription(
             text=text, tokens=list(self.tokens),
             audio_length_samples=self.featurizer.samples_fed,
             features_length=self.featurizer.frames_emitted,
-            encoded_length=int(self.enc_cache.pos[0]))
+            encoded_length=encoded)
 
     @torch.inference_mode()
     def _process_chunk(self, chunk: np.ndarray, real_frames: int) -> None:
-        pipe = self.pipeline
-        model = pipe.model
-        dev = pipe.device
-        feats = torch.from_numpy(
-            self.featurizer.normalize(chunk).T[None].copy()).to(
-                dev, self._dtype)                              # [1, M, Tc]
-        n_enc = -(-real_frames // model.config.subsampling_factor)
-        enc, self.enc_cache = encode_chunk(model.encoder, feats,
-                                           self.enc_cache)
-        carry = self.decode_carry
-        if carry is None:
-            h, c, pred_out, last = fresh_carry(model, 1, self._dtype, dev)
-        else:
-            (h, c), pred_out, last = (carry.state, carry.pred_out,
-                                      carry.last_token)
-        # max_total budgets each chunk step, as the reference's counter is
-        # local to each decode call: a long session never goes silent
-        res = pipe.decode_carried(
-            model.joint_precompute_enc(enc).contiguous(),
-            torch.tensor([n_enc], dtype=torch.int32, device=dev), h, c,
-            pred_out, last, max_symbols=self.max_symbols,
-            max_total=self.max_total)
-        self.decode_carry = res
-        n = int(res.counts[0])
-        self.tokens.extend(int(t) for t in res.tokens[0, :n].tolist())
+        """One chunk, eagerly: a solo session (every engine lane busy) has
+        its own cache and carry, so it runs no shared program."""
+        with self.pipeline.device_lock:
+            pipe = self.pipeline
+            model = pipe.model
+            dev = pipe.device
+            feats = torch.from_numpy(
+                self.featurizer.normalize(chunk).T[None].copy()).to(
+                    dev, self._dtype)                              # [1, M, Tc]
+            n_enc = -(-real_frames // model.config.subsampling_factor)
+            enc, self.enc_cache = encode_chunk(model.encoder, feats,
+                                               self.enc_cache)
+            carry = self.decode_carry
+            if carry is None:
+                h, c, pred_out, last = fresh_carry(model, 1, self._dtype, dev)
+            else:
+                (h, c), pred_out, last = (carry.state, carry.pred_out,
+                                          carry.last_token)
+            # max_total budgets each chunk step, as the reference's counter is
+            # local to each decode call: a long session never goes silent
+            res = pipe.decode_carried(
+                model.joint_precompute_enc(enc).contiguous(),
+                torch.tensor([n_enc], dtype=torch.int32, device=dev), h, c,
+                pred_out, last, max_symbols=self.max_symbols,
+                max_total=self.max_total)
+            self.decode_carry = res
+            n = int(res.counts[0])
+            self.tokens.extend(int(t) for t in res.tokens[0, :n].tolist())
 
     def transcript(self) -> str:
         return self.vocab.decode_tokens(self.tokens)

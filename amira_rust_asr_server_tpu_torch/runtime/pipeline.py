@@ -5,15 +5,30 @@
 
 Requests are padded into (batch, length) buckets from
 ``config.batch_buckets x config.audio_sec_buckets``, as in the reference.
-PyTorch runs eagerly, so a bucket's "compile" is its first run (kernel
-build, allocator growth); ``is_warm``/``warm_batch_cap`` keep their meaning
-for the batcher. The log-mel and the greedy decode always go through the
-kernels' wrappers (``ops/kernels``): on CUDA they launch the hand-written
-kernels, on the CPU they run their plain PyTorch versions. The greedy
-decode is the whole-loop kernel, or, with ``use_pallas_decode_loop=False``
-and ``use_pallas_decode_step`` or for a prediction net that is not 2 layers
-deep, the host loop ``ops.greedy.greedy_decode`` with the per-step
-joint-argmax kernel (see :meth:`AsrPipeline._greedy_route`).
+Each (mode, batch, length) bucket is one program, as the reference jits
+one per bucket: a :class:`~runtime.programs.DeviceProgram` with static
+device inputs (audio, lengths, the decode carry; beam: the bias vector and
+the decoding graph's tables, one program per graph capacity),
+captured on CUDA as one CUDA graph at its warm-up (the eager body's one run,
+then the capture) and replayed by every dispatch; a bucket is "compiled"
+(``is_warm``/``warm_batch_cap``, which the batcher reads) once captured. On
+the CPU the same programs run their body on the same static buffers. A
+dispatch fills the static inputs outside the graph (the audio from a
+pinned host buffer without blocking, carried stream states gathered on the
+device), replays, copies the tokens to the host in one wait and clones the
+carry out of graph memory. All device work of the pipeline's threads (the
+dispatch thread, the background warm-up, the lane ticker, stream sessions)
+runs behind one lock, :attr:`AsrPipeline.device_lock`.
+
+The log-mel and the greedy decode always go through the kernels' wrappers
+(``ops/kernels``): on CUDA they launch the hand-written kernels, on the CPU
+they run their plain PyTorch versions. The greedy decode is the whole-loop
+kernel, captured inside the bucket's graph, or, with
+``use_pallas_decode_loop=False`` and ``use_pallas_decode_step`` or for a
+prediction net that is not 2 layers deep, the host loop
+``ops.greedy.greedy_decode`` with the per-step joint-argmax kernel (see
+:meth:`AsrPipeline._greedy_route`), which runs after the replay: its loop
+asks the host whether any lane is still active after every step.
 ``quantization="int8"`` runs the encoder's block dense layers W8A8 (the
 int8 matmul kernel), and ``int8_decode_weights`` the int8 branch of both
 loop kernels. Unlike the reference, which applies the last two flags and
@@ -23,7 +38,8 @@ same wiring. Beam search
 (``decoding_mode="beam"``) shares the log-mel and encoder (the reference's
 beam path calls the plain log-mel; the two agree to 1.9e-6) and runs the
 beam kernel on CUDA, or the plain scan ``ops.beam.beam_decode`` where the
-reference runs its XLA scan (see :meth:`AsrPipeline.beam_decode_path`).
+reference runs its XLA scan (see :meth:`AsrPipeline.beam_decode_path`),
+inside the bucket's graph; the host backtrace follows the replay.
 
 Streaming state (prediction-net h/c, pred_out, last token) stays on the
 device between chunks in :class:`StreamState`. :meth:`AsrPipeline.
@@ -57,6 +73,7 @@ from ..ops.kernels.beam_loop import beam_loop
 from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
 from ..ops.kernels.decode_step import JointWeights, make_fused_step_fn
 from ..types import TokenInfo, Transcription
+from .programs import DeviceProgram, host_staging, stage
 
 log = get_logger("asr.pipeline")
 
@@ -151,11 +168,19 @@ class AsrPipeline:
                      self.device.type)
         self._sec_buckets = sorted(cfg.audio_sec_buckets)
         self._batch_buckets = sorted(cfg.batch_buckets)
-        # guards _compiled/_staging/_fresh_cache: the dispatch thread and
-        # the background warmup thread both touch them
+        # guards _compiled: the dispatch thread, the background warmup
+        # thread and the batcher's event loop read it
         self._lock = threading.Lock()
-        self._compiled: set = set()  # (mode, batch_bucket, len_bucket) run
-        self._staging: dict = {}
+        self._compiled: set = set()  # (mode, batch_bucket, len_bucket) warm
+        # every device operation of every thread that drives this
+        # pipeline's device runs under it (programs.py); reentrant, since
+        # a dispatch holds it while it reaches helpers that take it too
+        self.device_lock = threading.RLock()
+        self.programs: dict = {}  # bucket key -> DeviceProgram
+        # graph capacity -> the static decoding-graph tables the beam
+        # programs of that capacity read (:meth:`_stage_graph`)
+        self._graph_tables: dict = {}
+        self._graph_pool = None
         self._fresh_cache = None
         self.warmed_up = False
         self.on_compile = None  # observability hook: once per new bucket
@@ -276,44 +301,23 @@ class AsrPipeline:
             max_symbols=max_symbols, max_total=max_total,
             lookahead=self.config.greedy_lookahead)
 
-    @torch.inference_mode()
-    def _forward(self, audio, audio_lens, h0, c0, pred0, last_token,
-                 token_offset, *, max_symbols: int, max_total: int):
-        enc_pre, feat_lens, enc_lens = self._encode(audio, audio_lens)
-        res = self.decode_carried(enc_pre, enc_lens, h0, c0, pred0,
-                                  last_token, token_offset,
-                                  max_symbols=max_symbols,
-                                  max_total=max_total)
-        return res, feat_lens, enc_lens
-
-    def _run(self, audio, lens: np.ndarray, h0, c0, pred0,
-             last_token: np.ndarray):
-        """One bucket dispatch (inputs as arrays or tensors). Token outputs
-        come back to the host in one copy; the carried state stays on the
-        device."""
-        dev = self.device
-        b = audio.shape[0]
-        res, feat_lens, enc_lens = self._forward(
-            torch.as_tensor(audio, device=dev),
-            torch.from_numpy(lens).to(dev),
-            torch.as_tensor(h0, device=dev), torch.as_tensor(c0, device=dev),
-            torch.as_tensor(pred0, device=dev),
-            torch.from_numpy(last_token).to(dev),
-            torch.zeros((b,), dtype=torch.int32, device=dev),
-            max_symbols=self.config.max_symbols_per_step,
-            max_total=self.config.max_total_tokens)
-        host = [x.cpu().numpy() for x in (res.tokens, res.counts,
-                                          res.frame_idx, res.confidence,
-                                          feat_lens, enc_lens)]
-        res = dataclasses.replace(res, tokens=host[0], counts=host[1],
-                                  frame_idx=host[2], confidence=host[3])
-        return res, host[4], host[5]
-
     # ------------------------------------------------------------------
-    def _fresh_pred(self):
-        """Prediction-net output/state of a fresh (SOS) lane, computed once
-        in f32 from the served weights."""
-        with self._lock:
+    # bucket programs
+    # ------------------------------------------------------------------
+    def graph_pool(self):
+        """The memory pool every CUDA graph of this pipeline is captured
+        into (None on the CPU): one pool, since runs are serialized behind
+        :attr:`device_lock` and each run's outputs leave graph memory
+        before the lock is released."""
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _fresh_carry(self):
+        """The decode carry of a fresh (SOS) lane, ``(pred_out [1, P],
+        (h, c) [layers, 1, P])`` in f32 on the device, computed once from
+        the served weights."""
+        with self.device_lock:
             if self._fresh_cache is None:
                 mcfg = self.model.config
                 with torch.inference_mode():
@@ -321,10 +325,124 @@ class AsrPipeline:
                         torch.full((1,), mcfg.blank_id, dtype=torch.int32,
                                    device=self.device),
                         self.model.init_state(1, torch.float32, self.device))
-                self._fresh_cache = (out.float().cpu().numpy(),
-                                     (h.float().cpu().numpy(),
-                                      c.float().cpu().numpy()))
+                self._fresh_cache = (out.float(), (h.float(), c.float()))
             return self._fresh_cache
+
+    def _bucket_program(self, mode: str, b: int, n: int,
+                        graph: Optional[TokenTrie] = None) -> DeviceProgram:
+        """The program of a (mode, batch, length) bucket, made on first
+        use (not yet warm); beam programs are per decoding-graph capacity
+        too (:meth:`graph_capacity`), and a dispatch stages its graph into
+        their static tables. Called under :attr:`device_lock`."""
+        key = ((mode, b, n) if mode == "greedy"
+               else (mode, b, n, self.graph_capacity(graph)))
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = self.programs[key] = (
+                self._greedy_program(b, n) if mode == "greedy"
+                else self._beam_program(b, n, key[3]))
+        return prog
+
+    def _audio_inputs(self, b: int, n: int) -> dict:
+        dev = self.device
+        return {"audio": torch.zeros((b, n), dtype=torch.float32, device=dev),
+                "lens": torch.zeros((b,), dtype=torch.int32, device=dev)}
+
+    def _greedy_program(self, b: int, n: int) -> DeviceProgram:
+        """mel -> encoder -> joint_precompute_enc -> the loop kernel from
+        the static carry; on the step and plain routes the program ends at
+        joint_precompute_enc (see :meth:`_greedy_outputs`)."""
+        dev = self.device
+        fresh_out, (fresh_h, _) = self._fresh_carry()
+        layers, width = fresh_h.shape[0], fresh_h.shape[2]
+        x = self._audio_inputs(b, n)
+        x.update(
+            h0=torch.zeros((layers, b, width), dtype=torch.float32,
+                           device=dev),
+            c0=torch.zeros((layers, b, width), dtype=torch.float32,
+                           device=dev),
+            pred0=torch.zeros((b, fresh_out.shape[1]), dtype=torch.float32,
+                              device=dev),
+            last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
+            token_offset=torch.zeros((b,), dtype=torch.int32, device=dev))
+        decodes = self.greedy_route == "loop"
+
+        def body():
+            enc_pre, feat_lens, enc_lens = self._encode(x["audio"], x["lens"])
+            if not decodes:
+                return enc_pre, feat_lens, enc_lens
+            res = self._decode_from(x, enc_pre, enc_lens)
+            return (feat_lens, enc_lens, res.tokens, res.counts,
+                    res.frame_idx, res.confidence, *res.state, res.pred_out,
+                    res.last_token)
+
+        return self._new_program(f"greedy bucket {b} x {n} samples", body, x)
+
+    def _new_program(self, name: str, body, inputs: dict) -> DeviceProgram:
+        prog = DeviceProgram(name, self.device, body, inputs,
+                             pool=self.graph_pool())
+        prog.host = {"audio": host_staging(inputs["audio"].shape,
+                                           torch.float32, self.device),
+                     "lens": host_staging(inputs["lens"].shape, torch.int32,
+                                          self.device)}
+        return prog
+
+    def _decode_from(self, x: dict, enc_pre, enc_lens) -> GreedyResult:
+        return self.decode_carried(
+            enc_pre, enc_lens, x["h0"], x["c0"], x["pred0"], x["last_token"],
+            x["token_offset"], max_symbols=self.config.max_symbols_per_step,
+            max_total=self.config.max_total_tokens)
+
+    def _greedy_outputs(self, prog: DeviceProgram, outs
+                        ) -> Tuple[GreedyResult, torch.Tensor, torch.Tensor]:
+        """(the decode's result, feat_lens, enc_lens) from a greedy
+        program's outputs; on the step and plain routes the host loop
+        decodes here, after the replay, from the static carry."""
+        if self.greedy_route != "loop":
+            enc_pre, feat_lens, enc_lens = outs
+            return (self._decode_from(prog.inputs, enc_pre, enc_lens),
+                    feat_lens, enc_lens)
+        (feat_lens, enc_lens, tokens, counts, frames, confs, h, c, pred,
+         last) = outs
+        return (GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
+                             confidence=confs, state=(h, c), pred_out=pred,
+                             last_token=last), feat_lens, enc_lens)
+
+    def _stage_audio(self, prog: DeviceProgram,
+                     samples: Sequence[np.ndarray]) -> None:
+        """Pad ``samples`` into the program's host buffers (rows past
+        ``len(samples)`` are padding lanes of length 0) and copy them into
+        its static inputs."""
+        audio = prog.host["audio"].numpy()
+        lens = prog.host["lens"].numpy()
+        n = audio.shape[1]
+        for i, s in enumerate(samples):
+            m = min(s.shape[0], n)
+            audio[i, :m] = s[:m]
+            audio[i, m:] = 0.0
+            lens[i] = m
+        audio[len(samples):] = 0.0
+        lens[len(samples):] = 0
+        stage(prog.inputs["audio"], prog.host["audio"])
+        stage(prog.inputs["lens"], prog.host["lens"])
+
+    def _stage_carry(self, prog: DeviceProgram,
+                     stream_states: Sequence[Optional[StreamState]]) -> None:
+        """Fresh carries on every lane, then each stream's carried state
+        copied into its lane on the device (no host round trip)."""
+        x = prog.inputs
+        fresh_out, (fresh_h, fresh_c) = self._fresh_carry()
+        with torch.inference_mode():
+            x["h0"].copy_(fresh_h.expand_as(x["h0"]))
+            x["c0"].copy_(fresh_c.expand_as(x["c0"]))
+            x["pred0"].copy_(fresh_out.expand_as(x["pred0"]))
+            x["last_token"].fill_(self.model.config.blank_id)
+            for i, st in enumerate(stream_states):
+                if st is not None:
+                    x["h0"][:, i:i + 1].copy_(st.state[0])
+                    x["c0"][:, i:i + 1].copy_(st.state[1])
+                    x["pred0"][i:i + 1].copy_(st.pred_out)
+                    x["last_token"][i:i + 1].copy_(st.last_token)
 
     def _bucket_len(self, n_samples: int) -> int:
         for sec in self._sec_buckets:
@@ -387,59 +505,47 @@ class AsrPipeline:
         """Decode a batch of sample arrays padded to shape buckets.
 
         Returns (GreedyResult with host token arrays, feat_lens, enc_lens,
-        new stream states); rows past len(samples) are padding lanes.
+        new stream states); rows past len(samples) are padding lanes. The
+        result's carry and the new states are the pipeline's own copies,
+        never the bucket program's outputs, which its next run overwrites.
         """
-        mcfg = self.model.config
+        return self._decode_batch(samples, stream_states)
+
+    def _decode_batch(self, samples: Sequence[np.ndarray],
+                      stream_states=None, *, eager: bool = False):
+        """:meth:`decode_samples_batch`; ``eager`` runs the bucket
+        program's body eagerly instead of its replay (the oracle a replay
+        is held to: tests, ``chip_smoke.py``), and marks nothing warm."""
         b_real = len(samples)
         if b_real == 0:
             raise InvalidAudioFormatError("empty batch")
         n = self._bucket_len(max(s.shape[0] for s in samples))
         b = self._bucket_batch_warm(b_real, n, "greedy")
-
-        with self._lock:
-            audio = self._staging.get((b, n))
-            if audio is None:
-                audio = self._staging[(b, n)] = np.zeros((b, n), np.float32)
-            else:
-                audio.fill(0.0)
-            lens = np.zeros((b,), np.int32)
-            for i, s in enumerate(samples):
-                m = min(s.shape[0], n)
-                audio[i, :m] = s[:m]
-                lens[i] = m
-            # copied out under the lock: the buffer is refilled by the next
-            # dispatch of this bucket
-            audio = torch.from_numpy(audio).to(self.device, copy=True)
-
         if stream_states is None:
             stream_states = [None] * b_real
-        fresh_out, (fresh_h, fresh_c) = self._fresh_pred()
-        h0 = torch.as_tensor(np.tile(fresh_h, (1, b, 1)))
-        c0 = torch.as_tensor(np.tile(fresh_c, (1, b, 1)))
-        pred0 = torch.as_tensor(np.tile(fresh_out, (b, 1)))
-        last_token = np.full((b,), mcfg.blank_id, np.int32)
-        for i in range(b_real):
-            st = stream_states[i]
-            if st is not None:
-                h0[:, i] = st.state[0][:, 0].float().cpu()
-                c0[:, i] = st.state[1][:, 0].float().cpu()
-                pred0[i] = st.pred_out[0].float().cpu()
-                last_token[i] = int(st.last_token[0])
-
-        res, feat_lens, enc_lens = self._run(audio, lens, h0, c0, pred0,
-                                             last_token)
-        self._mark_compiled("greedy", b, n)
-
-        new_states: List[StreamState] = []
-        for i in range(b_real):
-            prior = stream_states[i]
-            new_states.append(StreamState(
-                state=(res.state[0][:, i:i + 1], res.state[1][:, i:i + 1]),
-                pred_out=res.pred_out[i:i + 1],
-                last_token=res.last_token[i:i + 1],
-                tokens_emitted=(prior.tokens_emitted if prior else 0)
-                + int(res.counts[i])))
-        return res, feat_lens, enc_lens, new_states
+        with self.device_lock:
+            prog = self._bucket_program("greedy", b, n)
+            self._stage_audio(prog, samples)
+            self._stage_carry(prog, stream_states)
+            res, feat_lens, enc_lens = self._greedy_outputs(
+                prog, prog.run_eager() if eager else prog.run())
+            host = prog.to_host((res.tokens, res.counts, res.frame_idx,
+                                 res.confidence, feat_lens, enc_lens))
+            with torch.inference_mode():
+                h, c, pred, last = (x.clone() for x in (
+                    *res.state, res.pred_out, res.last_token))
+        if not eager:
+            self._mark_compiled("greedy", b, n)
+        res = GreedyResult(tokens=host[0], counts=host[1], frame_idx=host[2],
+                           confidence=host[3], state=(h, c), pred_out=pred,
+                           last_token=last)
+        new_states = [StreamState(
+            state=(h[:, i:i + 1], c[:, i:i + 1]), pred_out=pred[i:i + 1],
+            last_token=last[i:i + 1],
+            tokens_emitted=(prior.tokens_emitted if prior else 0)
+            + int(res.counts[i]))
+            for i, prior in enumerate(stream_states)]
+        return res, host[4], host[5], new_states
 
     # ------------------------------------------------------------------
     # beam search
@@ -482,40 +588,97 @@ class AsrPipeline:
                          blank_id=mcfg.blank_id, graph=graph)
         return finish_trace(*outs, graph=graph)
 
-    @torch.inference_mode()
-    def _beam_forward(self, audio, audio_lens, bias, graph, *,
-                      beam_width: int, max_expansions: int):
-        """mel -> encode -> beam scan (kernel or plain scan); the trace
-        comes back to the host in one copy."""
+    def _beam_trace(self, enc_pre, enc_lens, bias, graph, *,
+                    beam_width: int, max_expansions: int) -> BeamTrace:
+        """The beam scan of the route :meth:`beam_decode_path` picks (the
+        kernel or the plain scan), finality applied."""
         mcfg = self.model.config
-        dev = self.device
-        enc_pre, feat_lens, enc_lens = self._encode(
-            torch.as_tensor(audio, device=dev),
-            torch.as_tensor(audio_lens, device=dev))
-        if bias is not None:
-            bias = torch.as_tensor(bias, dtype=torch.float32, device=dev)
-        if graph is not None:
-            graph = graph.to(dev)
         if self.beam_decode_path(graph) == "pallas_kernel":
-            trace = self._beam_trace_via_kernel(
+            return self._beam_trace_via_kernel(
                 enc_pre, enc_lens, bias, beam_width=beam_width,
                 max_expansions=max_expansions, graph=graph)
-        else:
-            trace = beam_decode(
-                self.model.predict_step, self.model.joint_step_pre, enc_pre,
-                enc_lens, self.model.init_state(enc_pre.shape[0],
-                                                enc_pre.dtype, dev),
-                mcfg.blank_id, beam_width=beam_width,
-                max_expansions=max_expansions, bias=bias,
-                vocab_size=mcfg.vocab_size, graph=graph)
-        return (trace.numpy(), feat_lens.cpu().numpy(),
-                enc_lens.cpu().numpy())
+        return beam_decode(
+            self.model.predict_step, self.model.joint_step_pre, enc_pre,
+            enc_lens, self.model.init_state(enc_pre.shape[0], enc_pre.dtype,
+                                            enc_pre.device),
+            mcfg.blank_id, beam_width=beam_width,
+            max_expansions=max_expansions, bias=bias,
+            vocab_size=mcfg.vocab_size, graph=graph)
+
+    @staticmethod
+    def graph_capacity(graph: Optional[TokenTrie]) -> int:
+        """The state count of the static graph tables a beam program with
+        ``graph`` reads: 0 without a graph, else the power of two (at least
+        16) that holds its states, so graphs of like size share programs.
+        The capacity keeps the route :meth:`beam_decode_path` picks, since
+        PALLAS_GRAPH_MAX_STATES is a power of two."""
+        if graph is None:
+            return 0
+        return max(16, 1 << (graph.n_states - 1).bit_length())
+
+    def _static_graph(self, cap: int) -> Optional[TokenTrie]:
+        """The static graph tables of capacity ``cap`` (None for 0), one
+        set shared by every beam program of that capacity: dispatches are
+        serialized behind :attr:`device_lock`, and each stages its graph
+        before its run."""
+        if cap == 0:
+            return None
+        tables = self._graph_tables.get(cap)
+        if tables is None:
+            v, dev = self.model.config.vocab_size, self.device
+            tables = self._graph_tables[cap] = TokenTrie(
+                next_state=torch.full((cap, v), -1, dtype=torch.int32,
+                                      device=dev),
+                is_final=torch.zeros((cap,), dtype=torch.bool, device=dev),
+                arc_weight=torch.zeros((cap, v), dtype=torch.float32,
+                                       device=dev),
+                final_weight=torch.zeros((cap,), dtype=torch.float32,
+                                         device=dev))
+        return tables
+
+    def _stage_graph(self, graph: Optional[TokenTrie]) -> None:
+        """Copy ``graph`` into the static tables of its capacity; the
+        states past its own are unreachable, and are reset to no arcs."""
+        tables = self._static_graph(self.graph_capacity(graph))
+        if tables is None:
+            return
+        n = graph.n_states
+        with torch.inference_mode():
+            for f in dataclasses.fields(TokenTrie):
+                dst, src = getattr(tables, f.name), getattr(graph, f.name)
+                dst[:n].copy_(src)
+                dst[n:].fill_(-1 if f.name == "next_state" else 0)
+
+    def _beam_program(self, b: int, n: int, cap: int) -> DeviceProgram:
+        """mel -> encoder -> joint_precompute_enc -> the beam scan, with a
+        static bias vector (zeros for none) and the static graph tables of
+        capacity ``cap`` (:meth:`_static_graph`)."""
+        x = self._audio_inputs(b, n)
+        x["bias"] = torch.zeros((self.model.config.vocab_size,),
+                                dtype=torch.float32, device=self.device)
+        graph = self._static_graph(cap)
+
+        def body():
+            enc_pre, feat_lens, enc_lens = self._encode(x["audio"], x["lens"])
+            trace = self._beam_trace(
+                enc_pre, enc_lens, x["bias"], graph,
+                beam_width=self.config.beam_width,
+                max_expansions=C.BEAM_MAX_EXPANSIONS)
+            return (*(getattr(trace, f.name)
+                      for f in dataclasses.fields(BeamTrace)),
+                    feat_lens, enc_lens)
+
+        return self._new_program(
+            f"beam bucket {b} x {n} samples"
+            + (f", graph of up to {cap} states" if cap else ""), body, x)
 
     def _beam_dispatch(self, samples: Sequence[np.ndarray], bias=None,
-                       graph: Optional[TokenTrie] = None):
-        """Count the route, pack ``samples`` into a bucket and run it:
-        (host trace over all lanes, feat_lens, enc_lens). The batch and
-        lattice paths share it, so a lattice runs the warmed bucket."""
+                       graph: Optional[TokenTrie] = None, *,
+                       eager: bool = False):
+        """Count the route, pack ``samples`` into a bucket and run its
+        program: (host trace over all lanes, feat_lens, enc_lens). The
+        batch and lattice paths share it, so a lattice runs the warmed
+        bucket; ``eager`` as in :meth:`_decode_batch`."""
         b_real = len(samples)
         if b_real == 0:
             raise InvalidAudioFormatError("empty batch")
@@ -530,17 +693,20 @@ class AsrPipeline:
                 log.exception("on_beam_path hook failed")
         n = self._bucket_len(max(s.shape[0] for s in samples))
         b = self._bucket_batch_warm(b_real, n, "beam")
-        audio = np.zeros((b, n), np.float32)
-        lens = np.zeros((b,), np.int32)
-        for i, s in enumerate(samples):
-            m = min(s.shape[0], n)
-            audio[i, :m] = s[:m]
-            lens[i] = m
-        out = self._beam_forward(audio, lens, bias, g,
-                                 beam_width=self.config.beam_width,
-                                 max_expansions=C.BEAM_MAX_EXPANSIONS)
-        self._mark_compiled("beam", b, n)
-        return out
+        with self.device_lock:
+            prog = self._bucket_program("beam", b, n, g)
+            self._stage_audio(prog, samples)
+            self._stage_graph(g)
+            with torch.inference_mode():
+                if bias is None:
+                    prog.inputs["bias"].zero_()
+                else:
+                    prog.inputs["bias"].copy_(
+                        torch.as_tensor(bias, dtype=torch.float32))
+            host = prog.to_host(prog.run_eager() if eager else prog.run())
+        if not eager:
+            self._mark_compiled("beam", b, n)
+        return BeamTrace(*host[:-2]), host[-2], host[-1]
 
     def decode_beam_batch(self, samples: Sequence[np.ndarray], *,
                           bias=None, graph: Optional[TokenTrie] = None,
@@ -612,9 +778,10 @@ class AsrPipeline:
     # ------------------------------------------------------------------
     def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
                secs: Optional[Sequence[float]] = None) -> int:
-        """Run bucket programs once on silence (kernel build, allocator):
-        batch 1 across every length bucket by default; the remaining batch
-        buckets warm on a background thread. Returns #buckets."""
+        """Warm bucket programs on silence (on CUDA: the kernels' build,
+        one eager run, the capture): batch 1 across every length bucket by
+        default; the remaining batch buckets warm on a background thread.
+        Returns #buckets."""
         n = 0
         for b in (batch_sizes or self._batch_buckets[:1]):
             for s in (secs if secs is not None else self._sec_buckets):
@@ -624,28 +791,25 @@ class AsrPipeline:
         return n
 
     def _warm_one(self, b: int, n_samples: int) -> None:
-        """Run one (batch, length) bucket on silence in the configured mode,
-        with its own arrays (never the shared staging pool). Beam warms the
-        natural bucket directly: decode_beam_batch's warm-bucket redirect
-        would send it to a warm larger bucket and never warm this one."""
-        mcfg = self.model.config
+        """Warm one (batch, length) bucket's program in the configured mode
+        on silence of ``n_samples`` in every lane and fresh carries. Beam
+        warms the natural bucket directly: decode_beam_batch's warm-bucket
+        redirect would send it to a warm larger bucket and never warm this
+        one."""
+        mode = self.config.decoding_mode
         bb = self._bucket_batch(b)
         nb = self._bucket_len(n_samples)
-        if self.config.decoding_mode == "beam":
-            self._beam_forward(np.zeros((bb, nb), np.float32),
-                               np.full((bb,), min(n_samples, nb), np.int32),
-                               None, self.beam_graph,
-                               beam_width=self.config.beam_width,
-                               max_expansions=C.BEAM_MAX_EXPANSIONS)
-            self._mark_compiled("beam", bb, nb)
-            return
-        fresh_out, (fresh_h, fresh_c) = self._fresh_pred()
-        self._run(np.zeros((bb, nb), np.float32),
-                  np.full((bb,), min(n_samples, nb), np.int32),
-                  np.tile(fresh_h, (1, bb, 1)), np.tile(fresh_c, (1, bb, 1)),
-                  np.tile(fresh_out, (bb, 1)),
-                  np.full((bb,), mcfg.blank_id, np.int32))
-        self._mark_compiled("greedy", bb, nb)
+        silence = np.zeros((min(n_samples, nb),), np.float32)
+        with self.device_lock:
+            prog = self._bucket_program(mode, bb, nb, self.beam_graph)
+            if not prog.warm:
+                self._stage_audio(prog, [silence] * bb)
+                if mode == "greedy":
+                    self._stage_carry(prog, [None] * bb)
+                else:
+                    self._stage_graph(self.beam_graph)
+                prog.warm_up()
+        self._mark_compiled(mode, bb, nb)
 
     def start_background_warmup(self) -> None:
         """Warm the remaining (batch x length) buckets on a daemon thread,

@@ -299,7 +299,9 @@ async def health_check(request: web.Request) -> web.Response:
         device = state.pipeline.device
 
         def probe():
-            return float(torch.ones((8, 128), device=device).sum().item())
+            with state.pipeline.device_lock:
+                return float(torch.ones((8, 128), device=device).sum()
+                             .item())
 
         loop = asyncio.get_running_loop()
         try:

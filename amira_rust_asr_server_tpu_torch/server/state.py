@@ -5,9 +5,11 @@ the port does not serve yet).
 Besides the batch surface it holds the streams' admission (the stream
 semaphore, the active-stream registry, the session threads) and, in native
 mode on a causal preset, the shared lane engine with its lock and its
-ticker thread. The batcher's dispatches and the lane ticker's chunk steps
-launch on the device's default stream (PyTorch gives every thread the
-same one), so their cooperative kernel grids never run at once.
+ticker thread. The batcher's dispatches, the background bucket warm-up,
+the lane ticker's chunk steps and the sessions' lane resets all run their
+device work under the pipeline's ``device_lock`` (``runtime/programs.py``):
+a CUDA-graph capture on one thread must see no device call from another,
+and their cooperative kernel grids never run at once.
 """
 
 from __future__ import annotations

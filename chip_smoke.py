@@ -18,9 +18,13 @@ their plain PyTorch versions:
   E  the committed tiny-digits weights through the pipeline, kernels on,
      bf16: must transcribe "two five nine"
   F  build_state(preset=large) with seeded random weights behind the HTTP
-     server on a free local port: 2 s, 8 s and 30 s requests must return
-     200/COMPLETE in the reference schema, and the log-mel and greedy
-     kernels' launch counters must rise during those requests
+     server on a free local port, every bucket warmed: all 5 x 5 greedy
+     bucket programs must be captured (each bucket's graph pool growth and
+     capture seconds and their totals are printed); 2 s, 8 s and 30 s
+     requests must return 200/COMPLETE in the reference schema, and the
+     log-mel and greedy kernels' launch counters must rise during those
+     requests, which replay the captured programs (phases H and L serve
+     the same way)
   G  beam kernel vs plain version at flagship widths (B=16, K=10, S=3,
      T'=376), with a shallow-fusion bias and with a weighted decoding graph
      of 500-1024 states: f32 identical best tokens and best scores within
@@ -66,7 +70,8 @@ their plain PyTorch versions:
      with the trained tiny-digits weights and five digit sentences, where
      every final must have words; then, on the large weights in f32, every
      window of the first stream decodes through the loop kernel and its
-     plain version from the same carry: tokens, frames and counts identical
+     plain version from the same carry (the bucket's eager body), and
+     through the bucket's replay: tokens, frames and counts identical
   N  native streaming on large-streaming: encode_chunk over 10 s in
      64-frame chunks against the full causal forward (f32 within atol
      2e-4, rtol 1e-3; bf16's largest difference and token agreement
@@ -77,15 +82,30 @@ their plain PyTorch versions:
      bf16, the blank bias raised to the largest value at which every
      stream's direct decode through the served engine has words: each
      COMPLETE final has words and equals its direct decode, and the
-     greedy kernel ran once per lane-engine tick and no other kernel ran;
-     the tick's wall ms at 1, 16 and 64 ready lanes, the kernels and idle
-     share of one chunk step, and the real-time streams one card sustains
+     greedy kernel ran once per lane-engine tick (counted through the
+     chunk step's replays) and no other kernel ran; the tick's wall ms at
+     1, 16 and 64 ready lanes, the host launch calls, kernels and idle share
+     of one chunk step, and the real-time streams one card sustains, each
+     through the replay and through the eager body, in turns
+  O  bucket programs: large at 1 x 2 s and 16 x 30 s in f32, bf16 and int8
+     (+ int8 decode weights): each bucket's capture seconds and graph pool
+     growth; its replay against its eager body on the same inputs (tokens,
+     frames and counts identical; f32 must be, bf16 and int8 print the
+     share of identical tokens and fail below 99%); host launch calls per
+     dispatch, kernels, busy and device ms, idle share and host wall, both
+     ways (tools/profile_torch_pipeline.py's measure); beam at 1 x 2 s,
+     bf16, replay against eager trace; the plain scan's beam route (a
+     decoding graph over 1024 states) at 1 x 2 s and 16 x 30 s, captured
+     with one graph and replayed with another of like size against the
+     eager body (identical trace, capture seconds, pool growth, host wall);
+     and a line saying which cooperative kernels the graphs captured
 
 Any failure raises and exits non-zero. The line before the last holds the
 kernels' measurements as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (no result
 lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
-the int8 and per-step phases, ``--phases ABMN`` the streaming phases.
+the int8 and per-step phases, ``--phases ABMN`` the streaming phases,
+``--phases ABO`` the bucket programs.
 """
 
 from __future__ import annotations
@@ -103,7 +123,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMN"
+ALL_PHASES = "ABCDEFGHIJKLMNO"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -673,21 +693,37 @@ def response_ok(mcfg, n: int, status: int, body: dict, keys: set) -> bool:
                     for d in md.get("token_details", [])))
 
 
-def serve_large(phase: str, cfg, reqs, keys_for, kernel_names):
+def serve_large(phase: str, cfg, reqs, keys_for, kernel_names,
+                graphs=None):
     """build_state(preset=large) with seeded random weights, every bucket
-    warmed, then ``reqs`` over HTTP; each response must pass
+    warmed (captured), then ``reqs`` over HTTP; each response must pass
     :func:`response_ok` with ``keys_for(extra)`` and each kernel of
-    ``kernel_names`` must have launched during the requests."""
+    ``kernel_names`` must have launched during the requests, which replay
+    the captured programs. ``graphs`` (a dict) gets the programs' totals
+    under the phase's name."""
     from amira_rust_asr_server_tpu_torch.server.app import build_state
     t0 = time.perf_counter()
     state = build_state(cfg, preset="large")
     warm = state.pipeline._warmup_thread
     if warm is not None:
         warm.join(timeout=600)
+    totals = graph_totals(state.pipeline)
     say(phase, f"large: {state.pipeline.model.param_count()} params on "
         f"{state.pipeline.device}, {state.pipeline.compute_dtype}, "
         f"{cfg.decoding_mode}; built and warmed every bucket in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s: {totals['programs']} bucket "
+        f"programs captured ({len(cfg.batch_buckets)} batch x "
+        f"{len(cfg.audio_sec_buckets)} length buckets), graph pool "
+        f"{totals['graph_mb']:.1f} MiB, captures {totals['capture_s']:.2f} "
+        f"s (longest {totals['capture_s_max']:.2f}), "
+        f"{totals['reserved_mb']:.0f} MiB reserved")
+    if totals["programs"] != len(cfg.batch_buckets) * len(
+            cfg.audio_sec_buckets):
+        raise AssertionError(f"[{phase}] not every bucket was captured")
+    say(phase, "per bucket (MiB of pool growth, capture s): " + ", ".join(
+        f"{k} {mb:.0f} {cs:.3f}" for k, (mb, cs) in totals["buckets"].items()))
+    if graphs is not None:
+        graphs[phase] = totals
     mcfg = state.pipeline.model.config
     out, counts, metrics = asyncio.run(_serve_and_post(state, free_port(),
                                                        reqs))
@@ -706,6 +742,22 @@ def serve_large(phase: str, cfg, reqs, keys_for, kernel_names):
     return out, counts, metrics
 
 
+def graph_totals(pipe) -> dict:
+    """The captured bucket programs of ``pipe``: per bucket the pool's
+    growth at its capture (MiB; one pool, shared) and the capture seconds,
+    their count and sums, and the device memory the process holds."""
+    import torch
+    progs = {f"{k[0]} {k[1]}x{k[2] / 16000:g}s": p
+             for k, p in pipe.programs.items() if p.graph is not None}
+    mb = {k: p.graph_bytes / 2**20 for k, p in progs.items()}
+    secs = {k: p.capture_seconds for k, p in progs.items()}
+    return {"buckets": {k: [mb[k], secs[k]] for k in progs},
+            "programs": len(progs), "graph_mb": sum(mb.values()),
+            "capture_s": sum(secs.values()),
+            "capture_s_max": max(secs.values(), default=0.0),
+            "reserved_mb": torch.cuda.memory_reserved() / 2**20}
+
+
 def phase_f(results):
     from amira_rust_asr_server_tpu_torch.config import Config
     cfg = Config(vocabulary_path="model-repo/vocab.txt",
@@ -714,7 +766,8 @@ def phase_f(results):
             "tokens", "token_details", "words"}
     out, counts, _ = serve_large(
         "F", cfg, [(2.0, {}), (8.0, {}), (30.0, {})],
-        lambda extra: keys, ("log_mel", "greedy_loop"))
+        lambda extra: keys, ("log_mel", "greedy_loop"),
+        graphs=results.setdefault("programs", {}))
     for name in ("log_mel", "greedy_loop"):
         results.setdefault(name, {})["launches"] = counts[name]
     results["requests_ms"] = {f"{s:.0f}s": w * 1e3
@@ -1111,6 +1164,169 @@ def phase_l(results):
             req_ms[f"{label}-{s:.0f}s"] = wall * 1e3
 
 
+# -- bucket programs (phase O) ------------------------------------------------
+def pipeline_profiler():
+    """``tools/profile_torch_pipeline.py``, whose measures phases N and O
+    share."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import profile_torch_pipeline
+    return profile_torch_pipeline
+
+
+def phase_o(results):
+    """Bucket programs: for the large preset at 1 x 2 s and 16 x 30 s, in
+    f32, bf16 and int8 (+ int8 decode weights), each bucket's capture
+    (seconds, graph pool growth), its replay against its eager body on the
+    same inputs (f32: identical tokens, frames and counts; bf16 and int8:
+    identical, or the share of identical tokens is printed) and the cost
+    of a dispatch both ways; beam at 1 x 2 s in bf16, replay against eager
+    trace, on the kernel's route and on the plain scan's
+    (:func:`beam_scan_route`)."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.server.app import load_model
+    dispatch_cost = pipeline_profiler().dispatch_cost
+    dev = torch.device("cuda")
+    out = results.setdefault("programs", {})
+    captured = {}
+    for name, kw in (("f32", dict(compute_dtype="float32")),
+                     ("bf16", {}),
+                     ("int8", dict(quantization="int8",
+                                   int8_decode_weights=True))):
+        cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                     inference_backend="tpu", audio_sec_buckets=[2.0, 30.0],
+                     batch_buckets=[1, 16], **kw)
+        pipe = AsrPipeline(load_model(cfg, "large"), load_vocab(cfg), cfg,
+                           dev)
+        for b, secs in ((1, 2.0), (16, 30.0)):
+            n = int(secs * 16000)
+            samples = list(digits_audio(b, secs, seed=60 + b))
+            t0 = time.perf_counter()
+            pipe._warm_one(b, n)
+            warm_s = time.perf_counter() - t0
+            prog = pipe.programs[("greedy", b, n)]
+            captured.update(prog.launches)
+            got = pipe.decode_samples_batch(samples)[0]
+            want = pipe._decode_batch(samples, eager=True)[0]
+            same = all(np.array_equal(getattr(got, f), getattr(want, f))
+                       for f in ("tokens", "counts", "frame_idx"))
+            share = token_agreement(got.tokens, got.counts, want.tokens,
+                                    want.counts)
+            replay = dispatch_cost(lambda: pipe.decode_samples_batch(samples),
+                                   prog.run)
+            eager = dispatch_cost(
+                lambda: pipe._decode_batch(samples, eager=True),
+                prog.run_eager)
+            key = f"{name} {b}x{secs:.0f}s"
+            out[key] = {"identical": same, "token_share": share,
+                        "warm_s": warm_s,
+                        "capture_s": prog.capture_seconds,
+                        "graph_mb": prog.graph_bytes / 2**20,
+                        "replay_launches": prog.launches,
+                        "replay": replay, "eager": eager}
+            say("O", f"{key}: warm {warm_s:.2f} s (eager run + capture "
+                f"{prog.capture_seconds:.3f} s), graph pool +"
+                f"{prog.graph_bytes / 2**20:.1f} MiB; replay vs eager body: "
+                f"tokens, frames, counts identical {same} (token share "
+                f"{share:.4f}, {int(got.counts.sum())} tokens)")
+            for how, c in (("eager", eager), ("replay", replay)):
+                say("O", f"{key} {how}: {c['host_launches']} host launch "
+                    f"calls, {c['kernels']} kernels busy {c['busy_ms']:.3f} "
+                    f"ms of a {c['traced_span_ms']:.3f} ms traced span "
+                    f"(idle share {c['idle_share']:.3f}); device time "
+                    f"{c['device_ms']:.3f} ms, host wall "
+                    f"{c['host_wall_ms']:.3f} ms")
+            if (name == "f32" and not same) or share < 0.99:
+                raise AssertionError(f"[O] {key}: the replay disagrees with "
+                                     "the eager body")
+        if name == "bf16":
+            beam = [digits_audio(1, 2.0, seed=62)[0]]
+            traced = pipe._beam_dispatch(beam)[0]
+            eager_tr = pipe._beam_dispatch(beam, eager=True)[0]
+            prog = next(p for k, p in pipe.programs.items() if k[0] == "beam")
+            captured.update(prog.launches)
+            same = all(np.array_equal(getattr(traced, f.name),
+                                      getattr(eager_tr, f.name))
+                       for f in dataclasses.fields(traced))
+            out["bf16 beam 1x2s"] = {"identical": same,
+                                     "capture_s": prog.capture_seconds,
+                                     "graph_mb": prog.graph_bytes / 2**20,
+                                     "replay_launches": prog.launches}
+            say("O", f"bf16 beam 1 x 2 s: capture {prog.capture_seconds:.3f}"
+                f" s, graph pool +{prog.graph_bytes / 2**20:.1f} MiB, "
+                f"launches per replay {prog.launches}; replay vs eager "
+                f"trace identical {same}")
+            if not same:
+                raise AssertionError("[O] beam replay disagrees with eager")
+            beam_scan_route(pipe, out)
+        out[f"{name} totals"] = graph_totals(pipe)
+        del pipe
+        torch.cuda.empty_cache()
+    coop = [k for k in ("greedy_loop", "greedy_loop_int8", "beam_loop")
+            if captured.get(k)]
+    say("O", f"cooperative launches captured into CUDA graphs: "
+        f"{', '.join(coop) or 'none'} (each replay runs them)")
+    if len(coop) != 3:
+        raise AssertionError(f"[O] cooperative kernels captured: {coop}")
+
+
+def beam_scan_route(pipe, out):
+    """The beam route that runs the plain scan on the card (a decoding
+    graph over PALLAS_GRAPH_MAX_STATES states), captured like every bucket:
+    at 1 x 2 s and 16 x 30 s the first dispatch (eager run + capture, with
+    one graph), then a replay with another graph of like size against the
+    eager body on that graph (identical trace), with the capture's seconds,
+    its pool growth and each way's host wall."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.ops.beam import TokenTrie
+    v = pipe.model.config.vocab_size
+    rng = np.random.default_rng(64)
+    first, second = (TokenTrie.from_token_seqs(
+        rng.integers(0, v - 1, (400, 4)).tolist(), v) for _ in range(2))
+    cap = pipe.graph_capacity(first)
+    if pipe.beam_decode_path(first) != "xla_scan" \
+            or pipe.graph_capacity(second) != cap:
+        raise AssertionError("[O] the big grammars do not share the scan "
+                             "route's capacity")
+    for b, secs in ((1, 2.0), (16, 30.0)):
+        samples = list(digits_audio(b, secs, seed=65 + b))
+        t0 = time.perf_counter()
+        pipe._beam_dispatch(samples, graph=first)
+        warm_s = time.perf_counter() - t0
+        prog = pipe.programs[("beam", b, int(secs * 16000), cap)]
+        walls = {}
+        for how in ("replay", "eager"):
+            t0 = time.perf_counter()
+            walls[how] = pipe._beam_dispatch(samples, graph=second,
+                                             eager=how == "eager")
+            walls[how + "_ms"] = (time.perf_counter() - t0) * 1e3
+        got, want = walls["replay"][0], walls["eager"][0]
+        same = all(np.array_equal(getattr(got, f.name), getattr(want, f.name))
+                   for f in dataclasses.fields(got))
+        key = f"bf16 beam scan {b}x{secs:.0f}s"
+        out[key] = {"identical": same, "graph_states": [first.n_states,
+                                                        second.n_states],
+                    "warm_s": warm_s, "capture_s": prog.capture_seconds,
+                    "graph_mb": prog.graph_bytes / 2**20,
+                    "replay_ms": walls["replay_ms"],
+                    "eager_ms": walls["eager_ms"]}
+        say("O", f"{key} (graphs of {first.n_states} and {second.n_states} "
+            f"states, tables of {cap}): warm {warm_s:.2f} s (eager run + "
+            f"capture {prog.capture_seconds:.3f} s), graph pool "
+            f"+{prog.graph_bytes / 2**20:.1f} MiB; dispatch host wall "
+            f"{walls['replay_ms']:.3f} ms replayed, {walls['eager_ms']:.3f} "
+            f"ms eager; replay (second graph) vs eager trace identical "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"[O] {key}: replay disagrees with eager")
+    torch.cuda.synchronize()
+
+
 # -- WebSocket streaming (phases M and N) -----------------------------------
 def pcm16(samples: np.ndarray) -> bytes:
     return (np.clip(samples, -1, 1) * 32767).astype("<i2").tobytes()
@@ -1220,8 +1436,9 @@ def check_streams(phase: str, outs, secs, want, every_stream=True) -> list:
 
 def blank_bias_setter(pipe):
     """``set(bias)`` adds ``bias`` to the seeded weights' blank logit in the
-    served joint and rebuilds the decode kernels' weights; returns the
-    bias as the joint's type holds it."""
+    served joint and rewrites the decode kernels' weights in place (the
+    captured programs read their memory); returns the bias as the joint's
+    type holds it."""
     import torch
 
     from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
@@ -1231,11 +1448,25 @@ def blank_bias_setter(pipe):
     base = float(b[blank].detach())
 
     def set_bias(bias: float) -> float:
-        with torch.no_grad():
-            b[blank] = base + bias
-        pipe.decode_weights = DecodeWeights.from_model(pipe.model,
-                                                       pipe.compute_dtype)
+        with pipe.device_lock:
+            with torch.no_grad():
+                b[blank] = base + bias
+            refresh()
         return float(b[blank].detach()) - base
+
+    @torch.inference_mode()
+    def refresh() -> None:
+        with pipe.device_lock:
+            new = DecodeWeights.from_model(pipe.model, pipe.compute_dtype)
+            old = pipe.decode_weights
+            for f in dataclasses.fields(DecodeWeights):
+                if f.name not in ("quant", "quant_words"):
+                    getattr(old, f.name).copy_(getattr(new, f.name))
+            # the per-block slices made so far (the joint's among them)
+            for key, slices in old.__dict__.get("_block_slices", {}).items():
+                fresh = new.block_slices(*key)
+                for name, t in slices.items():
+                    t.copy_(fresh[name])
 
     return set_bias
 
@@ -1456,6 +1687,10 @@ def phase_m(results):
         checked.append(int(res.counts.sum()))
         return res
 
+    # the batch-1 buckets are captured before the decode is wrapped: each
+    # window below runs the bucket's eager body (the wrapped decode, kernel
+    # against plain loop) and its replay, which must agree
+    pipe32.warmup()
     pipe32.decode_carried = compare
     t0 = time.perf_counter()
     buf = OverlappingAudioBuffer(
@@ -1465,12 +1700,21 @@ def phase_m(results):
     for i in range(0, waves[0].shape[0], 16000):
         buf.add_samples(waves[0][i:i + 16000])
         for source, _, _ in buf.overlapping_windows():
-            _, carry = pipe32.process_stream_samples(buf.get_slice(source),
-                                                     carry)
+            window = buf.get_slice(source)
+            eager, _, _, _ = pipe32._decode_batch([window], [carry],
+                                                  eager=True)
+            res, _, _, (carry,) = pipe32.decode_samples_batch([window],
+                                                             [carry])
+            for field in ("tokens", "counts", "frame_idx"):
+                if not np.array_equal(getattr(res, field),
+                                      getattr(eager, field)):
+                    raise AssertionError(f"[M] window {len(checked)}: the "
+                                         f"replay's {field} differ from "
+                                         "the eager body's")
     say("M", f"carried decode, f32, {len(checked)} successive windows of "
         f"the first 10 s stream (1 s feeds): tokens, frames and counts "
-        f"identical to the plain loop; {sum(checked)} tokens "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"identical to the plain loop, and the replays' to the eager "
+        f"bodies'; {sum(checked)} tokens ({time.perf_counter() - t0:.1f} s)")
     if not checked or min(checked) < 1:
         raise AssertionError("[M] a checked window emitted nothing")
     results["ws_chunked"]["f32_windows_identical"] = len(checked)
@@ -1713,60 +1957,113 @@ def phase_n(results):
         raise AssertionError(f"[N] launches {counts} for {ticks} ticks")
     results["greedy_loop"]["ws_native_launches"] = counts["greedy_loop"]
 
-    # 5. the chunk step's cost on the served engine (its ticker stopped)
+    # 5. the chunk step's cost on the served engine (its ticker stopped),
+    # the replay beside the eager body, in turns
     eng = state.lane_engine
     for lane in range(64):
         if eng.featurizers[lane] is not None:
             eng.detach(lane)
     lanes = [eng.attach() for _ in range(64)]
     chunk_audio = digits_audio(64, 0.7, seed=41)  # 71 mel frames each
-    tick_ms = {}
-    for k in (1, 16, 64):
-        walls = []
-        for _ in range(5):
-            for lane in lanes[:k]:
+    replayed = eng._step
+
+    def eager_step(*args):
+        return replayed(*args, eager=True)
+
+    def tick_cost(k: int, step) -> tuple:
+        """(median tick wall ms over 5 ticks with ``k`` ready lanes, the
+        device ms and the profile of one 64-lane tick) through ``step``."""
+        eng._step = step
+        try:
+            walls = []
+            for _ in range(5):
+                for lane in lanes[:k]:
+                    eng.feed(lane, chunk_audio[lane])
+                ta = time.perf_counter()
+                eng.tick()
+                walls.append((time.perf_counter() - ta) * 1e3)
+                for lane in lanes:  # drop what is left over
+                    eng.backlogs[lane] = eng.backlogs[lane][:0]
+            if k < 64:
+                return float(np.median(walls)), None
+            for lane in lanes:
                 eng.feed(lane, chunk_audio[lane])
-            ta = time.perf_counter()
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
             eng.tick()
-            walls.append((time.perf_counter() - ta) * 1e3)
-            for lane in lanes:  # drop what is left over
+            ev[1].record()
+            torch.cuda.synchronize()
+            span = ev[0].elapsed_time(ev[1])
+            for lane in lanes:
                 eng.backlogs[lane] = eng.backlogs[lane][:0]
-        tick_ms[k] = float(np.median(walls))
-    for lane in lanes:
-        eng.feed(lane, chunk_audio[lane])
-    torch.cuda.synchronize()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    eng.tick()
-    ev[1].record()
-    torch.cuda.synchronize()
-    span = ev[0].elapsed_time(ev[1])
-    for lane in lanes:
-        eng.backlogs[lane] = eng.backlogs[lane][:0]
-        eng.feed(lane, chunk_audio[lane])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.tick()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    streams = 64 * 640.0 / tick_ms[64]
-    say("N", f"tick wall ms (median of 5, bf16, 64-lane engine): 1 ready "
-        f"{tick_ms[1]:.2f}, 16 ready {tick_ms[16]:.2f}, 64 ready "
-        f"{tick_ms[64]:.2f}; one 64-lane step: {len(kern)} kernels, busy "
-        f"{busy:.2f} ms of a {span:.2f} ms span (idle share "
-        f"{1 - busy / span:.3f}); real-time streams per card "
-        f"64 x 640 ms / {tick_ms[64]:.2f} ms = {streams:.0f}")
+                eng.feed(lane, chunk_audio[lane])
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.tick()
+                torch.cuda.synchronize()
+            for lane in lanes:
+                eng.backlogs[lane] = eng.backlogs[lane][:0]
+            events = prof.events()
+            kern = [e for e in events if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset"))]
+            calls = [e for e in events if e.device_type == DeviceType.CPU
+                     and e.name.startswith(("cudaLaunch", "cuLaunch",
+                                            "cudaGraphLaunch",
+                                            "cuGraphLaunch"))]
+            busy, traced = pipeline_profiler().busy_and_span(kern)
+            return float(np.median(walls)), {
+                "kernels": len(kern), "host_launches": len(calls),
+                "busy_ms": busy, "traced_span_ms": traced, "span_ms": span,
+                "idle_share": 1 - busy / traced}
+        finally:
+            eng._step = replayed
+
+    native = {}
+    for how, step in (("replay", replayed), ("eager", eager_step),
+                      ("eager", eager_step), ("replay", replayed)):
+        for k in (1, 16, 64):
+            ms, prof64 = tick_cost(k, step)
+            native.setdefault(how, {}).setdefault("tick_ms", {}).setdefault(
+                str(k), []).append(ms)
+            if prof64 is not None:
+                native[how]["step"] = prof64
+    for how in ("eager", "replay"):
+        c = native[how]
+        c["tick_ms"] = {k: float(np.median(v))
+                        for k, v in c["tick_ms"].items()}
+        c["streams_per_card"] = 64 * 640.0 / c["tick_ms"]["64"]
+        st = c["step"]
+        say("N", f"{how}: tick wall ms (median of 10 in two turns, bf16, "
+            f"64-lane engine): 1 ready {c['tick_ms']['1']:.2f}, 16 ready "
+            f"{c['tick_ms']['16']:.2f}, 64 ready {c['tick_ms']['64']:.2f};"
+            f" one 64-lane step: {st['host_launches']} host launch calls, "
+            f"{st['kernels']} kernels, busy {st['busy_ms']:.2f} ms of a "
+            f"{st['traced_span_ms']:.2f} ms traced span (idle share "
+            f"{st['idle_share']:.3f}; {st['span_ms']:.2f} ms between CUDA "
+            f"events without the profiler); real-time streams per card "
+            f"64 x 640 ms / {c['tick_ms']['64']:.2f} ms = "
+            f"{c['streams_per_card']:.0f}")
+    rep = native["replay"]
     results["ws_native"] = {
         "partial_ms_p50": percentile(lat, 50),
         "partial_ms_p95": percentile(lat, 95),
-        "tick_ms": {str(k): v for k, v in tick_ms.items()},
-        "step_kernels": len(kern), "step_busy_ms": busy,
-        "step_span_ms": span, "idle_share": 1 - busy / span,
-        "streams_per_card": streams, "blank_bias": bias,
+        "tick_ms": rep["tick_ms"],
+        "step_kernels": rep["step"]["kernels"],
+        "step_busy_ms": rep["step"]["busy_ms"],
+        "step_span_ms": rep["step"]["span_ms"],
+        "idle_share": rep["step"]["idle_share"],
+        "streams_per_card": rep["streams_per_card"],
+        "eager": native["eager"],
+        "capture_s": eng.program.capture_seconds,
+        "graph_mb": eng.program.graph_bytes / 2**20,
+        "blank_bias": bias,
         "final_words": [len(w.split()) for w in want],
         "f32_chunk_err": err32,
         "bf16_chunk_err": err16, "bf16_chunk_token_share": share16}
+    say("N", f"the chunk step's capture: {eng.program.capture_seconds:.3f} "
+        f"s, graph pool +{eng.program.graph_bytes / 2**20:.1f} MiB, "
+        f"launches per replay {eng.program.launches}")
     state.close()
 
 
@@ -1806,6 +2103,8 @@ def main(argv=None) -> int:
         phase_m(results)
     if "N" in phases:
         phase_n(results)
+    if "O" in phases:
+        phase_o(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -1820,7 +2119,8 @@ def main(argv=None) -> int:
                       "beam_requests_ms": results["beam_requests_ms"],
                       "int8_requests_ms": results["int8_requests_ms"],
                       "ws_chunked": results["ws_chunked"],
-                      "ws_native": results["ws_native"]}))
+                      "ws_native": results["ws_native"],
+                      "programs": results["programs"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,13 +144,14 @@ def test_kernel_route_wiring_matches_scan(pipelines, graph):
     lens = np.array([s.shape[0] for s in samples], np.int32)
     for i, s in enumerate(samples):
         audio[i, :s.shape[0]] = s
-    scan, _, enc_lens = pipe._beam_forward(audio, lens, None, g,
-                                           beam_width=4, max_expansions=3)
     with torch.no_grad():
         enc_pre, _, el = pipe._encode(torch.from_numpy(audio),
                                       torch.from_numpy(lens))
+        scan = pipe._beam_trace(enc_pre, el, None, g, beam_width=4,
+                                max_expansions=3).numpy()
         kern = pipe._beam_trace_via_kernel(enc_pre, el, beam_width=4,
                                            max_expansions=3, graph=g)
+    enc_lens = el.numpy()
     for f in ("pool_lens", "exp_parent", "exp_token", "pool_parent_s",
               "pool_parent_k", "pool_final"):
         np.testing.assert_array_equal(getattr(kern.numpy(), f),

@@ -1,14 +1,22 @@
 """Where a batch request's time goes in the PyTorch/CUDA port.
 
 Builds the ``large`` pipeline (seeded random weights, bf16, kernels on) on
-the GPU and, for a few (batch, seconds) buckets, times each stage of one
-dispatch with CUDA events (log-mel kernel, encoder, joint projection,
-decode-loop kernel), the whole dispatch on the host clock, and the host-side
-request handling of the HTTP path (JSON parse of the byte array, PCM
-conversion). For the encoder it also counts the kernels of one call and
-their summed device time with ``torch.profiler``, and times how long the
-host takes to issue the call: the device's idle share inside the encoder is
-1 - busy / span. Prints one JSON object. Needs a CUDA device.
+the GPU and, for a few (batch, seconds) buckets:
+
+- ``programs``: the bucket's captured program (``runtime/programs.py``)
+  against its eager body, in the same call: host launch calls per
+  dispatch, kernels, their summed device time (busy), the body's device
+  time between CUDA events, the idle share (1 - busy / device time) and
+  the whole dispatch's host wall, both ways; whether the replay's tokens
+  equal the eager body's; the capture's seconds and graph pool growth;
+- ``stages_ms``: each stage of one eager dispatch with CUDA events (log-mel
+  kernel, encoder, joint projection, decode-loop kernel), and the whole of
+  it on the host clock;
+- ``encoder_trace``: the kernels of one eager encoder call, their summed
+  device time, and how long the host takes to issue the call;
+
+and the host-side request handling of the HTTP path (JSON parse of the
+byte array, PCM conversion). Prints one JSON object. Needs a CUDA device.
 
 ``--quantization int8`` runs the encoder's block dense layers W8A8 (the
 int8 matmul kernel) and ``--int8-decode-weights`` the int8 branch of the
@@ -42,6 +50,8 @@ from amira_rust_asr_server_tpu_torch.server.app import (  # noqa: E402
 from amira_rust_asr_server_tpu_torch.utils import platform  # noqa: E402
 
 BUCKETS = "1x2,1x8,1x30,16x30"
+# the CUDA runtime calls that launch device work (kernels, graphs)
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def stage_times(pipe, b: int, secs: float, reps: int) -> dict:
@@ -52,10 +62,10 @@ def stage_times(pipe, b: int, secs: float, reps: int) -> dict:
     audio = torch.from_numpy((0.1 * rng.standard_normal((b, n))).astype(
         np.float32)).to(dev)
     lens = torch.full((b,), n, dtype=torch.int32, device=dev)
-    out, (h, c) = pipe._fresh_pred()
-    h0 = torch.as_tensor(np.tile(h, (1, b, 1)), device=dev).to(dt)
-    c0 = torch.as_tensor(np.tile(c, (1, b, 1)), device=dev).to(dt)
-    p0 = torch.as_tensor(np.tile(out, (b, 1)), device=dev).to(dt)
+    out, (h, c) = pipe._fresh_carry()
+    h0 = h.expand(-1, b, -1).to(dt).contiguous()
+    c0 = c.expand(-1, b, -1).to(dt).contiguous()
+    p0 = out.expand(b, -1).to(dt).contiguous()
     last = torch.full((b,), mcfg.blank_id, dtype=torch.int32, device=dev)
     off = torch.zeros(b, dtype=torch.int32, device=dev)
     names = ("log_mel", "encoder", "joint_precompute", "decode_loop")
@@ -88,6 +98,87 @@ def stage_times(pipe, b: int, secs: float, reps: int) -> dict:
     out["host_wall_ms"] = host / reps * 1e3
     out["tokens_per_lane"] = res.counts.float().mean().item()
     return out
+
+
+def dispatch_cost(dispatch, body, reps: int = 5) -> dict:
+    """One dispatch's cost: ``dispatch()`` does a whole dispatch (staging,
+    the program, the host copy), ``body()`` the program alone on the
+    inputs the last dispatch staged. Host wall: median of ``reps``
+    dispatches (host clock; a dispatch ends in its host copy). Device
+    time: median of ``reps`` bodies between CUDA events. Under
+    ``torch.profiler``: the host's launch calls (the CUDA runtime's
+    ``*Launch*`` calls: kernels, cooperative kernels, graphs) of one
+    dispatch, and the kernels of one body, their summed time (busy) and
+    their span (first start to last end), in the same trace; idle share =
+    1 - busy / span (the profiler lengthens kernels a little, so busy is
+    not set against the unprofiled device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dispatch()
+    walls, spans = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        dispatch()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        body()
+        ev[1].record()
+        torch.cuda.synchronize()
+        spans.append(ev[0].elapsed_time(ev[1]))
+    traced = []
+    for fn in (dispatch, body):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        traced.append(prof.events())
+    launches = [e for e in traced[0] if e.device_type == DeviceType.CPU
+                and e.name.startswith(LAUNCH_CALLS)]
+    kern = [e for e in traced[1] if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    busy, span = busy_and_span(kern)
+    return {"host_launches": len(launches), "kernels": len(kern),
+            "busy_ms": busy, "traced_span_ms": span,
+            "idle_share": 1.0 - busy / span,
+            "device_ms": float(np.median(spans)),
+            "host_wall_ms": float(np.median(walls))}
+
+
+def busy_and_span(kernels) -> tuple:
+    """(summed ms, first start to last end ms) of traced device events."""
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    span = (max(e.time_range.end for e in kernels)
+            - min(e.time_range.start for e in kernels)) / 1e3
+    return busy, span
+
+
+def program_cost(pipe, b: int, secs: float, reps: int) -> dict:
+    """A greedy bucket's capture, and a dispatch through its replay beside
+    one through its eager body, on the same random audio."""
+    n = int(secs * 16000)
+    rng = np.random.default_rng(2)
+    samples = list((0.1 * rng.standard_normal((b, n))).astype(np.float32))
+    t0 = time.perf_counter()
+    pipe._warm_one(b, n)
+    warm_s = time.perf_counter() - t0
+    prog = pipe.programs[("greedy", pipe._bucket_batch(b),
+                          pipe._bucket_len(n))]
+    got = pipe.decode_samples_batch(samples)[0]
+    want = pipe._decode_batch(samples, eager=True)[0]
+    return {"identical": all(np.array_equal(getattr(got, f),
+                                            getattr(want, f))
+                             for f in ("tokens", "counts", "frame_idx")),
+            "warm_s": warm_s, "capture_s": prog.capture_seconds,
+            "graph_mb": prog.graph_bytes / 2**20,
+            "replay_launches": prog.launches,
+            "replay": dispatch_cost(
+                lambda: pipe.decode_samples_batch(samples), prog.run, reps),
+            "eager": dispatch_cost(
+                lambda: pipe._decode_batch(samples, eager=True),
+                prog.run_eager, reps)}
 
 
 def encoder_trace(pipe, b: int, secs: float, reps: int) -> dict:
@@ -177,6 +268,9 @@ def main(argv=None) -> None:
         result = {
             "device": smi, "quantization": args.quantization,
             "int8_decode_weights": args.int8_decode_weights,
+            "programs": {f"{b}x{secs:.0f}s": program_cost(pipe, b, secs,
+                                                          reps)
+                         for b, secs in buckets},
             "stages_ms": {f"{b}x{secs:.0f}s": stage_times(pipe, b, secs, reps)
                           for b, secs in buckets},
             "encoder_trace": {
