@@ -9,9 +9,13 @@
 // blank's bias undone; with a decoding graph, illegal arcs masked and arc
 // weights added) go through a flat top-K over K x V that breaks ties by the
 // smallest parent, then the smallest column; the 2-layer prediction LSTM
-// steps on the chosen tokens. The SOS step runs in the kernel. It writes the
-// pool's scores and lengths, the backtrace rows and the final graph states;
-// finality and final weights are applied by the caller.
+// steps on the chosen tokens. The search starts from SOS (the prediction
+// net's blank step, run in the kernel), or from a carried beam (a streaming
+// chunk: each hypothesis's score, length, graph state, last token, h and c
+// of both layers and pred_out, loaded in place of the SOS step). It writes
+// the pool's scores and lengths, the backtrace rows and the final graph
+// states, and with a carry out each pool hypothesis's h, c, pred_out and
+// last token; finality and final weights are applied by the caller.
 //
 // What bounds it on the card: the chain of dependent phases. Each
 // micro-step needs the joint of every hypothesis, then its log-softmax over
@@ -63,6 +67,18 @@
 // through at s = 0 and they write the rows the scan writes (parent k / V,
 // token k % V). Utterances run in groups of as many as the shared memory
 // holds (all of them at the served shapes).
+//
+// The carry (a streaming chunk's beam, ops/beam.py BeamCarry): carried in,
+// set 0 takes each hypothesis's h and c and the bookkeeping its score,
+// length, graph state and last token; pred_out @ Wp + bp and the first
+// joint input are made from the carried pred_out by the prediction
+// projection, the phase that makes them after every prediction step, so a
+// chunked search equals the whole utterance's bit for bit. Carried out,
+// each hypothesis's state is read where the scan's would be: an utterance
+// that went inactive keeps its states in the set that was current at its
+// last active frame (no later phase writes its rows), and the pass-through
+// of inactive frames reorders its hypotheses through a row map (SRC), as
+// the scan's pool merge reorders its states.
 //
 // Rounding points follow the TPU kernel: gates, cell update, joint and
 // log-softmax in f32; h, c (and so the prediction output) stored in the
@@ -156,6 +172,7 @@ struct Dims {
   int group;               // utterances per group (rows: group * beam)
   int resident;            // weight slices held in shared memory
   int mma;                 // tile products on the tensor cores (bf16)
+  int carry_in, carry_out; // a carried beam in, the pool's states out
 };
 
 template <typename T>
@@ -195,6 +212,22 @@ struct Args {
   const int* wq1s;
   const float* sx1s;
   const float* sh1s;
+  // the carry in (carry_in): [B, K] scores, lengths and graph states,
+  // pred_out [B K, P], h and c [2, B K, P], last tokens [B K]
+  const float* cin_scores;
+  const int* cin_lens;
+  const int* cin_g;
+  const T* cin_pred;
+  const T* cin_h;
+  const T* cin_c;
+  const int* cin_last;
+  // the carry out (carry_out): the pool's h, c [2, B K, P], pred_out
+  // [B K, P] and last tokens [B K] (its scores, lengths and graph states
+  // are pool_scores, pool_lens and g_final)
+  T* cout_h;
+  T* cout_c;
+  T* cout_pred;
+  int* cout_last;
 };
 
 // global scratch of one group of rows R: four state sets (h0, h1, c0, c1
@@ -225,7 +258,10 @@ __host__ __device__ inline Scratch scratch_layout(const Dims& d,
 // the bookkeeping fields of a row, in shared memory (R each)
 enum BookF { C_SC, P_SC, E_SC, T_SC, L_M, L_S,  // floats
              C_LEN, C_G, P_LEN, P_PS, P_PK, P_G, E_PAR, E_TOK, T_IDX,
-             BOOK_FIELDS };
+             BOOK_FIELDS,
+             // with a carry only: C's and the pool's last tokens, and the
+             // row of the current set that holds a row's states
+             C_LT = BOOK_FIELDS, P_LT, SRC, BOOK_CARRY_FIELDS };
 
 struct Smem {
   size_t w0, w1, wp, wo, bias, xs, part, gates, scale, book, cand, utt, rows,
@@ -277,11 +313,13 @@ __host__ __device__ inline Smem smem_layout(const Dims& d) {
   s.part = take(o, parts);
   s.gates = take(o, (size_t)RT * ncmax * 4);
   s.scale = take(o, 2 * RT * 4);
-  s.book = take(o, (size_t)BOOK_FIELDS * R * 4);
+  const bool carry = d.carry_in || d.carry_out;
+  s.book = take(o, (size_t)(carry ? BOOK_CARRY_FIELDS : BOOK_FIELDS) * R * 4);
   // the label candidates live in the staging area when they fit (no tile
   // product runs while they do)
   s.cand = (size_t)R * d.vb * 4 <= xs ? s.xs : take(o, (size_t)R * d.vb * 4);
-  s.utt = take(o, (size_t)2 * d.group * 4);  // lengths, active list
+  // lengths, active list (with a carry: each utterance's final set)
+  s.utt = take(o, (size_t)(carry ? 3 : 2) * d.group * 4);
   s.rows = take(o, (size_t)R * 4);            // tile row -> row
   s.srcp = take(o, (size_t)2 * R * sizeof(void*));  // streamed rows' sources
   s.end = o;
@@ -319,6 +357,7 @@ struct Ctx {
   float* cand;          // the block's label candidates [R][vb]
   int* ulen;            // the group's lengths
   int* uact;            // the active utterances of the frame
+  int* ufin;            // the set holding each utterance's final states
   int* rows;            // the row of each tile row (the active utterances')
   const void** srcp;    // a streamed product's row sources [R][2]
   int na;               // their count
@@ -387,6 +426,7 @@ __device__ Ctx<T, Q> make_ctx(const Dims& d, const Args<T>& a,
   c.cand = reinterpret_cast<float*>(smem + s.cand);
   c.ulen = reinterpret_cast<int*>(smem + s.utt);
   c.uact = c.ulen + d.group;
+  c.ufin = c.uact + d.group;
   c.rows = reinterpret_cast<int*>(smem + s.rows);
   c.srcp = reinterpret_cast<const void**>(smem + s.srcp);
   const int64_t k0 = Q ? q_words(E) + q_words(P) : E + P,
@@ -648,9 +688,11 @@ __device__ void lstm_phase(Ctx<T, Q>& c, int src, int dst) {
 }
 
 // pj = h1 @ Wp + bp for the block's columns of the new-C rows (set dst),
-// and the next joint's input hid = round_T(relu(enc[t] + pj)) there
+// and the next joint's input hid = round_T(relu(enc[t] + pj)) there; with
+// pred (a carried pred_out [B K, P]) the rows' h1 are read from it
 template <typename T, bool Q>
-__device__ void pred_proj_phase(Ctx<T, Q>& c, int dst, int t) {
+__device__ void pred_proj_phase(Ctx<T, Q>& c, int dst, int t,
+                                const T* pred = nullptr) {
   const Dims& d = c.d;
   const int P = d.d_pred, J = d.d_joint, jb = d.jb, c_lo = c.g * jb;
   if (c_lo >= J) return;
@@ -662,10 +704,15 @@ __device__ void pred_proj_phase(Ctx<T, Q>& c, int dst, int t) {
                ? to_f(c.a.enc_pre[((int64_t)b * d.t_max + t) * J + col])
                : 0.f;
   };
+  auto h1 = [&](int q) -> const T* {
+    return pred != nullptr
+               ? pred + ((size_t)c.b0 * d.beam + c.row(q)) * P
+               : c.st(dst, 0, 1, c.row(q));
+  };
   rows_product(
       c, c.na * d.beam, P, P, c.wp, jb, c.bps,
-      [&](int q, int k) { return ldcg4(c.st(dst, 0, 1, c.row(q)) + k); },
-      [&](int q, int) { return (const T*)c.st(dst, 0, 1, c.row(q)); },
+      [&](int q, int k) { return ldcg4(h1(q) + k); },
+      [&](int q, int) { return h1(q); },
       [&](int q0, int nr) {
         const int i = threadIdx.x, rr = i / jb, col = c_lo + i - rr * jb;
         return i < nr * jb && col < J ? enc_at(q0 + rr, col) : 0.f;
@@ -921,7 +968,8 @@ __device__ void book_update(Ctx<T, Q>& c, int u, bool active, int t, int s) {
   const int K = d.beam, V = d.vocab, S = d.s_max, B = d.batch;
   const int lane = threadIdx.x & 31, base = u * K, b = c.b0 + u;
   const bool owner = b % d.blocks == c.g;
-  int nl[4], nps[4], npk[4], ng[4], cl[4], cg[4];
+  const bool carry = d.carry_in || d.carry_out;
+  int nl[4], nps[4], npk[4], ng[4], cl[4], cg[4], nlt[4], nsrc[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     const int j = lane + 32 * m;
@@ -933,6 +981,13 @@ __device__ void book_update(Ctx<T, Q>& c, int u, bool active, int t, int s) {
     nps[m] = fp ? c.I(P_PS, ck) : s;
     npk[m] = fp ? c.I(P_PK, ck) : i - K;
     ng[m] = fp ? c.I(P_G, ck) : c.I(C_G, ck);
+    if (carry) {
+      nlt[m] = fp ? c.I(P_LT, ck) : c.I(C_LT, ck);
+      // the pool merge of an inactive utterance reorders its hypotheses
+      // without a gather: a pool entry (a mirror of C) or a pass-through
+      // keeps C row ck's states
+      nsrc[m] = c.I(SRC, ck);
+    }
     if (active) {
       const int par = base + c.I(E_PAR, base + j), tok = c.I(E_TOK, base + j);
       cl[m] = c.I(C_LEN, par) + 1;
@@ -965,10 +1020,15 @@ __device__ void book_update(Ctx<T, Q>& c, int u, bool active, int t, int s) {
     c.I(P_PS, r) = nps[m];
     c.I(P_PK, r) = npk[m];
     c.I(P_G, r) = ng[m];
+    if (carry) {
+      c.I(P_LT, r) = nlt[m];
+      if (!active) c.I(SRC, r) = nsrc[m];
+    }
     if (active) {
       c.F(C_SC, r) = c.F(E_SC, r);
       c.I(C_LEN, r) = cl[m];
       c.I(C_G, r) = cg[m];
+      if (carry) c.I(C_LT, r) = c.I(E_TOK, r);
     }
   }
 }
@@ -1103,45 +1163,80 @@ beam_loop_kernel(Dims d, Args<T> a) {
       c.na = R / K;
     }
     __syncthreads();
-    // SOS: set 0 <- the initial state on every hypothesis (the block's
-    // units); set 1 <- its prediction-net step on blank
-    for (int i = tid; i < R * pb; i += THREADS) {
-      const int r = i / pb, j = c.g * pb + i - r * pb;
-      if (j >= P) continue;
-      const int b = c.b0 + r / K;
-      const size_t l0 = (size_t)b * P + j, l1 = ((size_t)B + b) * P + j;
-      c.st(0, 0, 0, r)[j] = a.h0[l0];
-      c.st(0, 0, 1, r)[j] = a.h0[l1];
-      c.st(0, 1, 0, r)[j] = a.c0[l0];
-      c.st(0, 1, 1, r)[j] = a.c0[l1];
-    }
-    for (int r = tid; r < R; r += THREADS) {
-      const int k = r % K;
-      c.I(E_PAR, r) = k;
-      c.I(E_TOK, r) = d.blank_id;
-      c.F(C_SC, r) = k == 0 ? 0.f : NEG_INF;
-      c.I(C_LEN, r) = 0;
-      c.I(C_G, r) = 0;
-    }
+    const bool carry = d.carry_in || d.carry_out;
     for (int r = tid; r < R; r += THREADS) c.rows[r] = r;
     for (int u = tid; u < c.nb; u += THREADS) {
       c.ulen[u] = a.enc_lens[c.b0 + u];
       c.uact[u] = u;
     }
-    grid.sync();
-    lstm_phase<T, Q, 0>(c, 0, 1);
-    grid.sync();
-    lstm_phase<T, Q, 1>(c, 0, 1);
-    grid.sync();
-    pred_proj_phase(c, 1, 0);
-    grid.sync();
-    int cur = 1;
+    int cur;
+    if (d.carry_in) {
+      // the carried beam: set 0 <- each hypothesis's h and c (the block's
+      // units), the bookkeeping <- its score, length, graph state and last
+      // token; pj and the first joint input from its pred_out
+      const size_t BK = (size_t)B * K, r0 = (size_t)c.b0 * K;
+      for (int i = tid; i < R * pb; i += THREADS) {
+        const int r = i / pb, j = c.g * pb + i - r * pb;
+        if (j >= P) continue;
+        const size_t l0 = (r0 + r) * P + j, l1 = (BK + r0 + r) * P + j;
+        c.st(0, 0, 0, r)[j] = a.cin_h[l0];
+        c.st(0, 0, 1, r)[j] = a.cin_h[l1];
+        c.st(0, 1, 0, r)[j] = a.cin_c[l0];
+        c.st(0, 1, 1, r)[j] = a.cin_c[l1];
+      }
+      for (int r = tid; r < R; r += THREADS) {
+        c.F(C_SC, r) = a.cin_scores[r0 + r];
+        c.I(C_LEN, r) = a.cin_lens[r0 + r];
+        c.I(C_G, r) = a.cin_g[r0 + r];
+        c.I(C_LT, r) = a.cin_last[r0 + r];
+        c.I(SRC, r) = r;
+      }
+      __syncthreads();
+      pred_proj_phase(c, 0, 0, a.cin_pred);
+      grid.sync();
+      cur = 0;
+    } else {
+      // SOS: set 0 <- the initial state on every hypothesis (the block's
+      // units); set 1 <- its prediction-net step on blank
+      for (int i = tid; i < R * pb; i += THREADS) {
+        const int r = i / pb, j = c.g * pb + i - r * pb;
+        if (j >= P) continue;
+        const int b = c.b0 + r / K;
+        const size_t l0 = (size_t)b * P + j, l1 = ((size_t)B + b) * P + j;
+        c.st(0, 0, 0, r)[j] = a.h0[l0];
+        c.st(0, 0, 1, r)[j] = a.h0[l1];
+        c.st(0, 1, 0, r)[j] = a.c0[l0];
+        c.st(0, 1, 1, r)[j] = a.c0[l1];
+      }
+      for (int r = tid; r < R; r += THREADS) {
+        const int k = r % K;
+        c.I(E_PAR, r) = k;
+        c.I(E_TOK, r) = d.blank_id;
+        c.F(C_SC, r) = k == 0 ? 0.f : NEG_INF;
+        c.I(C_LEN, r) = 0;
+        c.I(C_G, r) = 0;
+        if (carry) {
+          c.I(C_LT, r) = d.blank_id;
+          c.I(SRC, r) = r;
+        }
+      }
+      grid.sync();
+      lstm_phase<T, Q, 0>(c, 0, 1);
+      grid.sync();
+      lstm_phase<T, Q, 1>(c, 0, 1);
+      grid.sync();
+      pred_proj_phase(c, 1, 0);
+      grid.sync();
+      cur = 1;
+    }
 
     for (int t = 0; t < d.t_max; ++t) {
       // the frame's active utterances (alike in every block); the pool
       // starts as a mirror of C
       int na = 0;
       for (int u = 0; u < c.nb; ++u) {
+        // an utterance's states stay where its last active frame left them
+        if (carry && tid == 0 && t == c.ulen[u]) c.ufin[u] = cur;
         if (t >= c.ulen[u]) continue;
         if (tid == 0) c.uact[na] = u;
         ++na;
@@ -1152,6 +1247,7 @@ beam_loop_kernel(Dims d, Args<T> a) {
         c.I(P_PS, r) = 0;
         c.I(P_PK, r) = r % K;
         c.I(P_G, r) = c.I(C_G, r);
+        if (carry) c.I(P_LT, r) = c.I(C_LT, r);
       }
       if (tid == 0) c.na = na;
       __syncthreads();
@@ -1207,6 +1303,7 @@ beam_loop_kernel(Dims d, Args<T> a) {
         c.F(C_SC, r) = c.F(P_SC, r);
         c.I(C_LEN, r) = c.I(P_LEN, r);
         c.I(C_G, r) = c.I(P_G, r);
+        if (carry) c.I(C_LT, r) = c.I(P_LT, r);
       }
       if (c.na > 0) {
         // the next frame's joint input for the block's columns of the
@@ -1234,6 +1331,28 @@ beam_loop_kernel(Dims d, Args<T> a) {
       a.pool_scores[o] = c.F(C_SC, r);
       a.pool_lens[o] = c.I(C_LEN, r);
       a.g_final[o] = c.I(C_G, r);
+      if (d.carry_out) a.cout_last[o] = c.I(C_LT, r);
+    }
+    if (d.carry_out) {
+      // the pool's states, the block's units (it wrote them itself): from
+      // the set of each utterance's last active frame, through the row map
+      if (tid == 0)
+        for (int u = 0; u < c.nb; ++u)
+          if (c.ulen[u] >= d.t_max) c.ufin[u] = cur;
+      __syncthreads();
+      const size_t BK = (size_t)B * K, r0 = (size_t)c.b0 * K;
+      for (int i = tid; i < R * pb; i += THREADS) {
+        const int r = i / pb, j = c.g * pb + i - r * pb;
+        if (j >= P) continue;
+        const int set = c.ufin[r / K], sr = c.I(SRC, r);
+        const size_t l0 = (r0 + r) * P + j, l1 = (BK + r0 + r) * P + j;
+        const T h1 = c.st(set, 0, 1, sr)[j];
+        a.cout_h[l0] = c.st(set, 0, 0, sr)[j];
+        a.cout_h[l1] = h1;
+        a.cout_c[l0] = c.st(set, 1, 0, sr)[j];
+        a.cout_c[l1] = c.st(set, 1, 1, sr)[j];
+        a.cout_pred[l0] = h1;  // the prediction net's output is its h1
+      }
     }
     __syncthreads();
   }
@@ -1328,8 +1447,11 @@ int check_dims(const Dims& d) {
 
 Dims make_dims(int batch, int t_max, int d_joint, int d_pred, int d_embed,
                int vocab, int beam, int s_max, int blank_id, int has_graph,
-               int blocks, int pb, int jb, int vb) {
+               int blocks, int pb, int jb, int vb, int carry_in,
+               int carry_out) {
   Dims d{};
+  d.carry_in = carry_in;
+  d.carry_out = carry_out;
   d.batch = batch;
   d.t_max = t_max;
   d.d_joint = d_joint;
@@ -1353,9 +1475,9 @@ Dims make_dims(int batch, int t_max, int d_joint, int d_pred, int d_embed,
 // (the group of utterances per pass is chosen as the launch chooses it).
 extern "C" long long amira_beam_loop_scratch_bytes(
     int is_bf16, int quant, int batch, int d_joint, int d_pred, int d_embed,
-    int vocab, int beam, int blocks, int pb, int jb, int vb) {
+    int vocab, int beam, int blocks, int pb, int jb, int vb, int carry) {
   Dims d = make_dims(batch, 1, d_joint, d_pred, d_embed, vocab, beam, 1, 0,
-                     0, blocks, pb, jb, vb);
+                     0, blocks, pb, jb, vb, carry, carry);
   if (batch <= 0 || check_dims(d) != 0) return 0;
   int e;
   if (quant)
@@ -1374,7 +1496,9 @@ extern "C" long long amira_beam_loop_scratch_bytes(
 // and vb joint columns each (ops/kernels/decode_loop.py slice_plan), the
 // weights packed per block (DecodeWeights.block_slices); pointer order is
 // the Args struct's. Biases and scales are f32, lens int32; g_next and
-// g_weight are read only when has_graph is 1.
+// g_weight are read only when has_graph is 1. With cin_scores non-null the
+// search starts from the carried beam cin_* (h0 and c0 are not read);
+// with cout_h non-null the pool's states are written to cout_*.
 extern "C" int amira_beam_loop(
     int is_bf16, int quant, int batch, int t_max, int d_joint, int d_pred,
     int d_embed, int vocab, int beam, int s_max, int blank_id, int has_graph,
@@ -1384,11 +1508,14 @@ extern "C" int amira_beam_loop(
     void* g_next, void* g_weight, void* pool_scores, void* pool_lens,
     void* exp_parent, void* exp_token, void* pool_ps, void* pool_pk,
     void* g_final, void* scratch, void* wq0s, void* sx0s, void* sh0s,
-    void* wq1s, void* sx1s, void* sh1s, void* stream) {
+    void* wq1s, void* sx1s, void* sh1s, void* cin_scores, void* cin_lens,
+    void* cin_g, void* cin_pred, void* cin_h, void* cin_c, void* cin_last,
+    void* cout_h, void* cout_c, void* cout_pred, void* cout_last,
+    void* stream) {
   if (batch <= 0) return 0;
   const Dims d = make_dims(batch, t_max, d_joint, d_pred, d_embed, vocab,
                            beam, s_max, blank_id, has_graph, blocks, pb, jb,
-                           vb);
+                           vb, cin_scores != nullptr, cout_h != nullptr);
   const int e = check_dims(d);
   if (e != 0) return e;
   void* const p[] = {enc_pre,   enc_lens,  h0,        c0,        bias,
@@ -1396,7 +1523,10 @@ extern "C" int amira_beam_loop(
                      wps,       bps,       wos,       bos,       g_next,
                      g_weight,  pool_scores, pool_lens, exp_parent, exp_token,
                      pool_ps,   pool_pk,   g_final,   scratch,   wq0s,
-                     sx0s,      sh0s,      wq1s,      sx1s,      sh1s};
+                     sx0s,      sh0s,      wq1s,      sx1s,      sh1s,
+                     cin_scores, cin_lens, cin_g,     cin_pred,  cin_h,
+                     cin_c,     cin_last,  cout_h,    cout_c,    cout_pred,
+                     cout_last};
   auto args = [&](auto zero) {
     using T = decltype(zero);
     return Args<T>{(const T*)p[0],      (const int*)p[1],    (const T*)p[2],
@@ -1408,7 +1538,11 @@ extern "C" int amira_beam_loop(
                    (int*)p[18],         (int*)p[19],         (int*)p[20],
                    (int*)p[21],         (int*)p[22],         (unsigned char*)p[23],
                    (const int*)p[24],   (const float*)p[25], (const float*)p[26],
-                   (const int*)p[27],   (const float*)p[28], (const float*)p[29]};
+                   (const int*)p[27],   (const float*)p[28], (const float*)p[29],
+                   (const float*)p[30], (const int*)p[31],   (const int*)p[32],
+                   (const T*)p[33],     (const T*)p[34],     (const T*)p[35],
+                   (const int*)p[36],   (T*)p[37],           (T*)p[38],
+                   (T*)p[39],           (int*)p[40]};
   };
   const __nv_bfloat16 bz{};
   if (quant)

@@ -233,20 +233,67 @@ def _lanes(x: torch.Tensor, idx: torch.Tensor,
     return torch.where(mask.reshape(shape), got, other.index_select(dim, idx))
 
 
+@dataclasses.dataclass
+class BeamCarry:
+    """The beam's state between two scans (streaming chunks): exactly the
+    scan's carry, so a scan seeded from the carry of the chunks before it
+    continues the search as if the chunks were one utterance (port of the
+    reference's ``BeamCarry``). Token histories stay on the host
+    (:func:`backtrace_carry` re-parents them after each chunk); the scores
+    are cumulative log-probabilities without final weights, and may be
+    shifted by a constant per utterance between chunks."""
+
+    scores: torch.Tensor      # [B, K] f32
+    lens: torch.Tensor        # [B, K] int32 emitted-token counts
+    pred_out: torch.Tensor    # [B*K, P] prediction-net output (hyp-major)
+    state: Tuple[torch.Tensor, ...]  # prediction-net (h, c), [L, B*K, P]
+    last_token: torch.Tensor  # [B*K] int32 (blank at SOS)
+    g_state: torch.Tensor     # [B, K] int32 decoding-graph state (0: root)
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [self.scores, self.lens, self.pred_out, *self.state,
+                self.last_token, self.g_state]
+
+
+def beam_carry_init(pred_fn, init_state, blank_id: int, batch: int,
+                    beam_width: int) -> BeamCarry:
+    """A fresh carry for ``batch`` utterances: hypothesis 0 is the live
+    empty hypothesis (score 0, the prediction net stepped on blank from
+    ``init_state``, leaves ``[L, B, ...]``), the others are NEG_INF
+    placeholders."""
+    k = beam_width
+    state = tuple(x.repeat_interleave(k, dim=1) for x in init_state)
+    dev = state[0].device
+    sos = torch.full((batch * k,), blank_id, dtype=torch.int32, device=dev)
+    pred_out, state = pred_fn(sos, state)
+    scores = torch.full((batch, k), NEG_INF, device=dev)
+    scores[:, 0] = 0.0
+    zeros = torch.zeros((batch, k), dtype=torch.int32, device=dev)
+    return BeamCarry(scores=scores, lens=zeros, pred_out=pred_out,
+                     state=tuple(state), last_token=sos,
+                     g_state=zeros.clone())
+
+
 def beam_scan(pred_fn, joint_fn, enc: torch.Tensor, enc_lens: torch.Tensor,
               init_state, blank_id: int, *,
               beam_width: int = DEFAULT_BEAM_WIDTH, max_expansions: int = 3,
               bias: Optional[torch.Tensor] = None,
               vocab_size: Optional[int] = None,
-              graph: Optional[TokenTrie] = None):
+              graph: Optional[TokenTrie] = None,
+              init_beam: Optional[BeamCarry] = None,
+              return_carry: bool = False):
     """The beam scan over ``enc [B, T, D]`` from ``init_state`` (leaves
-    ``[L, B, ...]``, broadcast to ``B*K`` hyp-major lanes).
+    ``[L, B, ...]``, broadcast to ``B*K`` hyp-major lanes), or, with
+    ``init_beam``, from a carried beam (``init_state`` is then ignored and
+    no SOS step runs).
 
     Returns the raw outputs the CUDA kernel returns: ``(pool_scores [B,K]
     f32, pool_lens [B,K], exp_parent [T,S,B,K], exp_token [T,S,B,K],
     pool_ps [T,B,K], pool_pk [T,B,K], g_final [B,K])`` (int32 but the
     scores; ``g_final`` is all 0 without a graph). Scores exclude final
-    weights; :func:`finish_trace` applies them.
+    weights; :func:`finish_trace` applies them. With ``return_carry`` the
+    result is ``(outputs, carry)``: the :class:`BeamCarry` that seeds the
+    next chunk, its scores the raw pool scores.
     """
     b, t_max, _ = enc.shape
     dev = enc.device
@@ -255,14 +302,14 @@ def beam_scan(pred_fn, joint_fn, enc: torch.Tensor, enc_lens: torch.Tensor,
     kpos = torch.arange(k, device=dev)
     lane0 = (torch.arange(b, device=dev) * k)[:, None]          # [B, 1]
 
-    state = tuple(x.repeat_interleave(k, dim=1) for x in init_state)
-    sos = torch.full((b * k,), blank_id, dtype=torch.int32, device=dev)
-    pred_out, state = pred_fn(sos, state)
-    state = tuple(state)
-    scores = torch.full((b, k), NEG_INF, device=dev)
-    scores[:, 0] = 0.0
-    lens = torch.zeros((b, k), dtype=torch.int64, device=dev)
-    g_state = torch.zeros((b, k), dtype=torch.int64, device=dev)
+    if init_beam is None:
+        init_beam = beam_carry_init(pred_fn, init_state, blank_id, b, k)
+    scores = init_beam.scores.to(device=dev, dtype=torch.float32)
+    lens = init_beam.lens.to(device=dev, dtype=torch.int64)
+    pred_out = init_beam.pred_out
+    state = tuple(init_beam.state)
+    last = init_beam.last_token.to(device=dev, dtype=torch.int64)
+    g_state = init_beam.g_state.to(device=dev, dtype=torch.int64)
     bias_vec = (torch.zeros((vocab_size,), device=dev) if bias is None
                 else bias.to(device=dev, dtype=torch.float32))
     if graph is not None:
@@ -277,9 +324,10 @@ def beam_scan(pred_fn, joint_fn, enc: torch.Tensor, enc_lens: torch.Tensor,
         p_lens = torch.zeros_like(lens)
         p_ps = torch.zeros_like(lens)
         p_pk = kpos[None, :].expand(b, k)
-        p_pred, p_state, p_g = pred_out, state, g_state
-        c_scores, c_lens, c_pred, c_state, c_g = (scores, lens, pred_out,
-                                                  state, g_state)
+        # the pool starts as a mirror of C
+        p_pred, p_state, p_last, p_g = pred_out, state, last, g_state
+        c_scores, c_lens, c_pred, c_state, c_last, c_g = (
+            scores, lens, pred_out, state, last, g_state)
         for s in range(s_max):
             logits = joint_fn(enc_lanes, c_pred)                 # [BK, V]
             v = logits.shape[-1]
@@ -314,6 +362,7 @@ def beam_scan(pred_fn, joint_fn, enc: torch.Tensor, enc_lens: torch.Tensor,
                         _lanes(p_pred, flat, fp, c_pred),
                         tuple(_lanes(a, flat, fp, c, dim=1)
                               for a, c in zip(p_state, c_state)),
+                        _lanes(p_last, flat, fp, c_last),
                         sel(p_g, c_g))
 
             # label expansions -> the next micro-step's C
@@ -339,23 +388,37 @@ def beam_scan(pred_fn, joint_fn, enc: torch.Tensor, enc_lens: torch.Tensor,
                 new_g = torch.clamp(g_next[g_parent, token], min=0)
             else:
                 new_g = c_g
-            (p_scores, p_lens, p_ps, p_pk, p_pred, p_state, p_g) = new_pool
-            c_scores, c_lens, c_pred, c_state, c_g = (
-                e_scores, new_lens, new_pred, tuple(new_state), new_g)
+            (p_scores, p_lens, p_ps, p_pk, p_pred, p_state, p_last,
+             p_g) = new_pool
+            c_scores, c_lens, c_pred, c_state, c_last, c_g = (
+                e_scores, new_lens, new_pred, tuple(new_state),
+                token.reshape(-1), new_g)
             exp_parent.append(parent)
             exp_token.append(token)
-        scores, lens, pred_out, state, g_state = (p_scores, p_lens, p_pred,
-                                                  p_state, p_g)
+        scores, lens, pred_out, state, last, g_state = (
+            p_scores, p_lens, p_pred, p_state, p_last, p_g)
         pool_ps_all.append(p_ps)
         pool_pk_all.append(p_pk)
 
     def steps(xs):
+        if not xs:  # an empty input: no rows
+            return torch.zeros((0, s_max, b, k), dtype=torch.int32,
+                               device=dev)
         return torch.stack(xs).reshape(t_max, s_max, b, k).to(torch.int32)
 
-    return (scores, lens.to(torch.int32), steps(exp_parent),
-            steps(exp_token), torch.stack(pool_ps_all).to(torch.int32),
-            torch.stack(pool_pk_all).to(torch.int32),
-            g_state.to(torch.int32))
+    def rows(xs):
+        if not xs:
+            return torch.zeros((0, b, k), dtype=torch.int32, device=dev)
+        return torch.stack(xs).to(torch.int32)
+
+    lens32, g32 = lens.to(torch.int32), g_state.to(torch.int32)
+    outs = (scores, lens32, steps(exp_parent), steps(exp_token),
+            rows(pool_ps_all), rows(pool_pk_all), g32)
+    if not return_carry:
+        return outs
+    return outs, BeamCarry(scores=scores, lens=lens32, pred_out=pred_out,
+                           state=tuple(state),
+                           last_token=last.to(torch.int32), g_state=g32)
 
 
 def finish_trace(pool_scores, pool_lens, exp_parent, exp_token, pool_ps,
@@ -387,13 +450,22 @@ def beam_decode(pred_fn, joint_fn, enc: torch.Tensor, enc_lens: torch.Tensor,
                 max_expansions: int = 3,
                 bias: Optional[torch.Tensor] = None,
                 vocab_size: Optional[int] = None,
-                graph: Optional[TokenTrie] = None) -> BeamTrace:
+                graph: Optional[TokenTrie] = None,
+                init_beam: Optional[BeamCarry] = None,
+                return_carry: bool = False):
     """The beam scan with finality applied (the reference's
-    ``beam_decode`` without a carried beam)."""
+    ``beam_decode``): a :class:`BeamTrace`, or with ``return_carry``
+    ``(trace, carry)``, the carry's scores without final weights (finality
+    is judged once, at the end of a stream). ``init_beam`` resumes from a
+    carried beam (see :func:`beam_scan`)."""
     raw = beam_scan(pred_fn, joint_fn, enc, enc_lens, init_state, blank_id,
                     beam_width=beam_width, max_expansions=max_expansions,
-                    bias=bias, vocab_size=vocab_size, graph=graph)
-    return finish_trace(*raw, graph=graph)
+                    bias=bias, vocab_size=vocab_size, graph=graph,
+                    init_beam=init_beam, return_carry=return_carry)
+    if not return_carry:
+        return finish_trace(*raw, graph=graph)
+    raw, carry = raw
+    return finish_trace(*raw, graph=graph), carry
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +517,39 @@ def backtrace(trace: BeamTrace, enc_lens, *, length_penalty: float = 0.0,
         best_scores[i] = score
     return BeamResult(tokens=tokens_out, counts=counts, scores=best_scores,
                       n_best=all_nbest if n_best > 1 else None)
+
+
+def backtrace_carry(trace: BeamTrace, enc_lens
+                    ) -> Tuple[np.ndarray, List[List[List[int]]]]:
+    """Host-side re-parenting after a streaming chunk: for every pool
+    hypothesis, its chunk-local emissions and the chunk-start hypothesis
+    it descends from. Returns ``(origins [B, K] int32, seqs[b][k])``: the
+    history after the chunk is ``hist[origins[b, k]] + seqs[b][k]``. No
+    finality demotion: mid-stream hypotheses may be mid-phrase."""
+    tr = trace.numpy()
+    enc_lens = _host(enc_lens)
+    b, k = tr.pool_scores.shape
+    origins = np.zeros((b, k), np.int32)
+    seqs: List[List[List[int]]] = []
+    for i in range(b):
+        lane: List[List[int]] = []
+        for hyp in range(k):
+            seq: List[int] = []
+            t, kk = int(enc_lens[i]) - 1, hyp
+            while t >= 0:
+                s = int(tr.pool_parent_s[t, i, kk])
+                kk2 = int(tr.pool_parent_k[t, i, kk])
+                while s > 0:
+                    seq.append(int(tr.exp_token[t, s - 1, i, kk2]))
+                    kk2 = int(tr.exp_parent[t, s - 1, i, kk2])
+                    s -= 1
+                kk = kk2
+                t -= 1
+            seq.reverse()
+            origins[i, hyp] = kk
+            lane.append(seq)
+        seqs.append(lane)
+    return origins, seqs
 
 
 def beam_decode_transducer(model, enc: torch.Tensor, enc_lens: torch.Tensor,

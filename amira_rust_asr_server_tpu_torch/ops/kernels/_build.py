@@ -49,8 +49,8 @@ SIGNATURES = {
     "amira_log_mel": [P, I64, I, I, P, P, I, P, P],
     "amira_greedy_loop_scratch_bytes": [I] * 5,
     "amira_greedy_loop": [I] * 16 + [P] * 32,
-    "amira_beam_loop_scratch_bytes": [I] * 12,
-    "amira_beam_loop": [I] * 16 + [P] * 31,
+    "amira_beam_loop_scratch_bytes": [I] * 13,
+    "amira_beam_loop": [I] * 16 + [P] * 42,
     "amira_quant_matmul": [I] * 5 + [P] * 6,
     "amira_joint_argmax_scratch_bytes": [I] * 4,
     "amira_joint_argmax": [I] * 9 + [P] * 10,

@@ -14,8 +14,9 @@ and encoded lengths in, the cache and the carry updated in place, tokens
 out. On CUDA it is captured at :meth:`StreamingLaneEngine.warm` (one eager
 all-inactive step, then the capture), or at the first tick if nothing
 warmed it, and every later tick replays it; on the step route the graph
-ends at ``joint_precompute_enc`` and the host loop decodes after the
-replay. Every device operation runs under the pipeline's ``device_lock``.
+ends with the greedy loop's first steps, and a captured program of the
+next steps (:class:`~runtime.pipeline.StepLoop`) replays until no lane is
+active. Every device operation runs under the pipeline's ``device_lock``.
 
 Lifecycle: ``attach() -> lane``, ``feed(lane, samples)``,
 ``tick() -> {lane: new tokens}``, ``detach(lane)``. The server drives
@@ -34,6 +35,7 @@ import torch
 from .. import constants as C
 from ..ops.streaming import encode_chunk, init_encoder_cache
 from .native_stream import StreamingFeaturizer, fresh_carry
+from .pipeline import StepLoop
 from .programs import DeviceProgram, host_staging, stage
 
 
@@ -131,9 +133,13 @@ class StreamingLaneEngine:
             self._fresh = (self.dec_h[:, :1].clone(),
                            self.dec_c[:, :1].clone(),
                            self.pred_out[:1].clone())
+            name = f"lane engine step {n_lanes} lanes x {chunk_frames} frames"
+            # the step route's loop on the device (None: the loop kernel)
+            self.steps = None if pipeline.greedy_route == "loop" else \
+                StepLoop(pipeline, name, max_symbols=max_symbols,
+                         max_total=max_total)
             self.program = DeviceProgram(
-                f"lane engine step {n_lanes} lanes x {chunk_frames} frames",
-                dev, self._chunk_body, {
+                name, dev, self._chunk_body, {
                     "feats": torch.zeros((n_lanes, cfg.n_mels, chunk_frames),
                                          dtype=torch.float32, device=dev),
                     "active": torch.zeros((n_lanes,), dtype=torch.bool,
@@ -172,6 +178,10 @@ class StreamingLaneEngine:
                     prog.host[name].zero_()
                     stage(x, prog.host[name])
                 prog.warm_up()
+                if self.steps is not None:
+                    # the steps' program, on the loop the step left (no
+                    # lane active: its steps change nothing)
+                    self.steps.program.warm_up()
             self._reset_lane_device_state(0)
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
@@ -240,29 +250,39 @@ class StreamingLaneEngine:
         return [i for i in range(self.n_lanes) if self.lane_ready(i)]
 
     # ------------------------------------------------------------------
-    def _chunk_body(self):
-        """The chunk step's device work on the static inputs: encode all
-        lanes, keep the active lanes' new cache, project, and (loop route)
-        decode, copying the new carry into the carry's own buffers."""
+    def _encode(self):
+        """Encode all lanes, keep the active lanes' new cache, project."""
         x = self.program.inputs
         enc, new_cache = encode_chunk(
             self.model.encoder, x["feats"].to(self._dtype), self.enc_cache)
         self.enc_cache.keep_(x["active"], new_cache)
         del new_cache
-        enc_pre = self.model.joint_precompute_enc(enc).contiguous()
-        if self.pipeline.greedy_route != "loop":
-            return (enc_pre,)
-        return self._decode(enc_pre)
+        return self.model.joint_precompute_enc(enc).contiguous()
+
+    def _chunk_body(self):
+        """The chunk step's device work on the static inputs: encode, then
+        (loop route) decode, copying the new carry into the carry's own
+        buffers, or (step route) the greedy loop's first steps."""
+        enc_pre = self._encode()
+        if self.steps is None:
+            return self._decode(enc_pre)
+        # max_total budgets each chunk step, as the reference's counter is
+        # local to each decode call: long sessions keep emitting
+        return (self.steps.start(self.pipeline.carried_loop(
+            enc_pre, self.program.inputs["enc_lens"], self.dec_h,
+            self.dec_c, self.pred_out, self.last_token,
+            max_total=self.max_total)),)
 
     def _decode(self, enc_pre):
         """The carried decode of every lane, the carry updated in place;
         (counts, tokens)."""
-        # max_total budgets each chunk step, as the reference's counter is
-        # local to each decode call: long sessions keep emitting
-        res = self.pipeline.decode_carried(
+        return self._take(self.pipeline.decode_carried(
             enc_pre, self.program.inputs["enc_lens"], self.dec_h, self.dec_c,
             self.pred_out, self.last_token, max_symbols=self.max_symbols,
-            max_total=self.max_total)
+            max_total=self.max_total))
+
+    def _take(self, res):
+        """The new carry into the carry's own buffers; (counts, tokens)."""
         for dst, src in zip((self.dec_h, self.dec_c, self.pred_out,
                              self.last_token),
                             (*res.state, res.pred_out, res.last_token)):
@@ -273,7 +293,8 @@ class StreamingLaneEngine:
               enc_lens: np.ndarray, *, eager: bool = False):
         """One chunk step over all lanes (device), the carry and cache
         updated in place: (counts, tokens) on the host. ``eager`` runs the
-        program's body instead of its replay (the oracle; tests,
+        program's body instead of its replay, and on the step route the
+        encoder, then the host loop (the oracle; tests,
         ``chip_smoke.py``)."""
         prog = self.program
         with self.pipeline.device_lock:
@@ -281,10 +302,14 @@ class StreamingLaneEngine:
                                 ("enc_lens", enc_lens)):
                 prog.host[name].numpy()[...] = value
                 stage(prog.inputs[name], prog.host[name])
-            outs = prog.run_eager() if eager else prog.run()
-            if self.pipeline.greedy_route != "loop":
+            if eager and self.steps is not None:
                 with torch.inference_mode():
-                    outs = self._decode(*outs)
+                    outs = self._decode(self._encode())
+            else:
+                outs = prog.run_eager() if eager else prog.run()
+                if self.steps is not None:
+                    with torch.inference_mode():
+                        outs = self._take(self.steps.finish(outs[0]))
             return prog.to_host(outs)
 
     def tick(self) -> Dict[int, List[int]]:

@@ -25,10 +25,11 @@ The log-mel and the greedy decode always go through the kernels' wrappers
 they run their plain PyTorch versions. The greedy decode is the whole-loop
 kernel, captured inside the bucket's graph, or, with
 ``use_pallas_decode_loop=False`` and ``use_pallas_decode_step`` or for a
-prediction net that is not 2 layers deep, the host loop
-``ops.greedy.greedy_decode`` with the per-step joint-argmax kernel (see
-:meth:`AsrPipeline._greedy_route`), which runs after the replay: its loop
-asks the host whether any lane is still active after every step.
+prediction net that is not 2 layers deep, the per-step route (see
+:meth:`AsrPipeline._greedy_route`): ``ops.greedy``'s steps with the
+joint-argmax kernel, the first :data:`STEPS_PER_RUN` inside the bucket's
+graph and the rest as replays of a captured program of as many steps
+(:class:`StepLoop`), the host reading one device flag per replay.
 ``quantization="int8"`` runs the encoder's block dense layers W8A8 (the
 int8 matmul kernel), and ``int8_decode_weights`` the int8 branch of both
 loop kernels. Unlike the reference, which applies the last two flags and
@@ -45,7 +46,10 @@ Streaming state (prediction-net h/c, pred_out, last token) stays on the
 device between chunks in :class:`StreamState`. :meth:`AsrPipeline.
 decode_carried` is the one carried greedy decode: the batch dispatch, the
 chunked streams' window re-decodes and the native streams (the lane engine,
-the solo session) all decode through it.
+the solo session) all decode through it; the captured programs run its
+steps on the per-step route. Streaming beam (``runtime/beam_stream.py``)
+runs one captured chunk program per shape, shared by its sessions
+(:meth:`AsrPipeline.beam_chunk`).
 """
 
 from __future__ import annotations
@@ -65,13 +69,17 @@ from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
 from ..device import disable_tf32, resolve_device
 from ..models import Transducer
-from ..ops.beam import (BeamResult, BeamTrace, TokenTrie, backtrace,
-                        beam_decode, finish_trace)
-from ..ops.greedy import GreedyResult, greedy_decode
+from ..ops.beam import (BeamCarry, BeamResult, BeamTrace, TokenTrie,
+                        backtrace, beam_carry_init, beam_decode, beam_scan,
+                        finish_trace)
+from ..ops.greedy import (GreedyLoop, GreedyResult, greedy_active,
+                          greedy_decode, greedy_init, greedy_result,
+                          greedy_step)
 from ..ops.kernels import mel as mel_kernel
 from ..ops.kernels.beam_loop import beam_loop
 from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
 from ..ops.kernels.decode_step import JointWeights, make_fused_step_fn
+from ..ops.streaming import EncoderCache, encode_chunk, init_encoder_cache
 from ..types import TokenInfo, Transcription
 from .programs import DeviceProgram, host_staging, stage
 
@@ -81,18 +89,12 @@ log = get_logger("asr.pipeline")
 def check_supported(cfg: Config, device: torch.device,
                     causal: bool = False) -> None:
     """Reject, loudly, what this slice of the port does not serve yet;
-    ``causal``: the model preset is causal (native streaming runs on it,
-    a non-causal preset streams chunked in either mode)."""
+    ``causal``: the model preset is causal (native streaming, greedy or
+    beam, runs on it; a non-causal preset streams chunked)."""
     todo = []
     if cfg.model_family != "transducer":
         todo.append(f"model_family={cfg.model_family!r} (ROADMAP.md queue 1 "
                     "item 11)")
-    if cfg.decoding_mode == "beam" and cfg.streaming_mode == "native" \
-            and causal:
-        # the reference streams beam with carried hypotheses here
-        todo.append("decoding_mode='beam' with streaming_mode='native' on a "
-                    "causal preset: streaming beam (ROADMAP.md queue 1 "
-                    "item 4, [#10])")
     if device.type == "cuda":
         # the kernels' wrappers choose the plain version by device alone, so
         # on the card the flags that would turn a kernel off are refused
@@ -110,6 +112,61 @@ def check_supported(cfg: Config, device: torch.device,
     if todo:
         raise NotImplementedError(
             "not ported to PyTorch/CUDA yet: " + "; ".join(todo))
+
+
+# the per-step route's steps per captured run (N): a run of N steps after
+# the lanes are done costs up to N - 1 wasted steps, one of fewer asks the
+# host more often
+STEPS_PER_RUN = 16
+
+
+class StepLoop:
+    """The per-step route's greedy loop on the device, for one program of
+    fixed shapes: its owner's captured program runs ``greedy_init`` and the
+    first N = :data:`STEPS_PER_RUN` steps into this object's static loop
+    state (:meth:`start`), then a captured program of the next N steps on
+    the same state replays until a device flag says no lane is active
+    (:meth:`finish`): one pinned 1-byte host read per run, counted in
+    :attr:`reads`, where the host loop reads once per step. A step after
+    every lane is done changes nothing, so the runs' last steps past the
+    end are exact."""
+
+    def __init__(self, pipeline: "AsrPipeline", name: str, *,
+                 max_symbols: int, max_total: int):
+        self.pipeline = pipeline
+        self.max_symbols = max_symbols
+        self.max_total = max_total
+        self.n_steps = STEPS_PER_RUN
+        self.loop: Optional[GreedyLoop] = None  # static, made at first run
+        self.reads = 0
+        self.program = DeviceProgram(
+            f"{name}: {self.n_steps} greedy steps", pipeline.device,
+            lambda: (self._advance(self.loop),), pool=pipeline.graph_pool())
+
+    def _advance(self, loop: GreedyLoop) -> torch.Tensor:
+        step = self.pipeline.greedy_step_fn(self.max_symbols, self.max_total)
+        for _ in range(self.n_steps):
+            loop = step(loop)
+        if self.loop is None:  # the owner's first, eager, run
+            self.loop = loop.clone()
+        else:
+            self.loop.copy_(loop)
+        return greedy_active(self.loop, self.max_total).any().reshape(1)
+
+    def start(self, loop: GreedyLoop) -> torch.Tensor:
+        """Inside the owner's body: the first steps from ``loop`` into the
+        static state; returns the device flag "a lane is active"."""
+        return self._advance(loop)
+
+    def finish(self, flag: torch.Tensor) -> GreedyResult:
+        """After the owner's run: the steps' program until ``flag`` reads
+        false; the result in the static state (the next run overwrites
+        it)."""
+        while True:
+            self.reads += 1
+            if not self.program.to_host((flag,))[0][0]:
+                return greedy_result(self.loop)
+            (flag,) = self.program.run()
 
 
 @dataclasses.dataclass
@@ -177,6 +234,10 @@ class AsrPipeline:
         # a dispatch holds it while it reaches helpers that take it too
         self.device_lock = threading.RLock()
         self.programs: dict = {}  # bucket key -> DeviceProgram
+        # (chunk frames, beam width, expansions, graph capacity) -> the
+        # streaming beam's chunk program (:meth:`beam_chunk`)
+        self.beam_chunk_programs: dict = {}
+        self._fresh_beams: dict = {}  # beam width -> a fresh BeamCarry
         # graph capacity -> the static decoding-graph tables the beam
         # programs of that capacity read (:meth:`_stage_graph`)
         self._graph_tables: dict = {}
@@ -234,11 +295,11 @@ class AsrPipeline:
     def _greedy_route(self) -> str:
         """The greedy decode's program, chosen once from the flags and the
         prediction net's depth: "loop" (the whole-loop kernel,
-        csrc/decode_loop.cu, 2-layer nets), "step" (the host loop
-        ops.greedy.greedy_decode with the joint + argmax kernel,
-        csrc/decode_step.cu: use_pallas_decode_loop=False, or a net of
-        another depth) or "plain" (greedy_decode with the model's own
-        functions, as the reference runs off its TPU; the CPU only)."""
+        csrc/decode_loop.cu, 2-layer nets), "step" (ops.greedy's steps
+        with the joint + argmax kernel, csrc/decode_step.cu, run by the
+        programs' :class:`StepLoop`: use_pallas_decode_loop=False, or a
+        net of another depth) or "plain" (the same steps with the model's
+        own joint, as the reference runs off its TPU; the CPU only)."""
         cfg = self.config
         layers = self.model.config.pred_layers
         if layers == 2 and (cfg.use_pallas_decode_loop
@@ -277,7 +338,10 @@ class AsrPipeline:
         ``last_token [L]``, and ``token_offset [L]`` (default 0: each call
         has its own ``max_total`` budget). Returns the tokens and the new
         carry. The batch dispatch and both native streaming paths (the
-        lane engine's tick, the solo session) decode here."""
+        lane engine's tick, the solo session) decode here; off the loop
+        route this is the host loop, which the captured programs run as
+        device steps (:class:`StepLoop`) and which stays the oracle and
+        the solo session's decode."""
         dt = self.compute_dtype
         if token_offset is None:
             token_offset = torch.zeros((enc_pre.shape[0],), dtype=torch.int32,
@@ -300,6 +364,32 @@ class AsrPipeline:
             self.decode_weights, blank_id=self.model.config.blank_id,
             max_symbols=max_symbols, max_total=max_total,
             lookahead=self.config.greedy_lookahead)
+
+    def greedy_step_fn(self, max_symbols: int, max_total: int):
+        """``loop -> loop``: one step of the host loop :meth:`decode_carried`
+        runs on the step and plain routes, for :class:`StepLoop`."""
+        fused = (make_fused_step_fn(self.step_weights)
+                 if self.greedy_route == "step" else None)
+        lookahead = self.config.greedy_lookahead
+
+        def step(loop: GreedyLoop) -> GreedyLoop:
+            return greedy_step(loop, self.model.predict_step,
+                               self.model.joint_step_pre,
+                               self.model.config.blank_id,
+                               max_symbols=max_symbols, max_total=max_total,
+                               lookahead=lookahead, fused_step_fn=fused)
+        return step
+
+    def carried_loop(self, enc_pre, enc_lens, h0, c0, pred0, last_token,
+                     token_offset=None, *, max_total: int) -> GreedyLoop:
+        """The step and plain routes' loop state before its first step,
+        from the carry as :meth:`decode_carried` takes it."""
+        dt = self.compute_dtype
+        return greedy_init(self.model.predict_step, enc_pre, enc_lens,
+                           (h0.to(dt), c0.to(dt)), self.model.config.blank_id,
+                           max_total=max_total, init_pred_out=pred0.to(dt),
+                           init_last_token=last_token,
+                           token_offset=token_offset)
 
     # ------------------------------------------------------------------
     # bucket programs
@@ -350,8 +440,9 @@ class AsrPipeline:
 
     def _greedy_program(self, b: int, n: int) -> DeviceProgram:
         """mel -> encoder -> joint_precompute_enc -> the loop kernel from
-        the static carry; on the step and plain routes the program ends at
-        joint_precompute_enc (see :meth:`_greedy_outputs`)."""
+        the static carry; on the step and plain routes the program ends
+        with the loop's first steps, and its :class:`StepLoop` runs the
+        rest (see :meth:`_greedy_run`)."""
         dev = self.device
         fresh_out, (fresh_h, _) = self._fresh_carry()
         layers, width = fresh_h.shape[0], fresh_h.shape[2]
@@ -365,18 +456,26 @@ class AsrPipeline:
                               device=dev),
             last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
             token_offset=torch.zeros((b,), dtype=torch.int32, device=dev))
-        decodes = self.greedy_route == "loop"
+        name = f"greedy bucket {b} x {n} samples"
+        steps = None if self.greedy_route == "loop" else StepLoop(
+            self, name, max_symbols=self.config.max_symbols_per_step,
+            max_total=self.config.max_total_tokens)
 
         def body():
             enc_pre, feat_lens, enc_lens = self._encode(x["audio"], x["lens"])
-            if not decodes:
-                return enc_pre, feat_lens, enc_lens
+            if steps is not None:
+                return feat_lens, enc_lens, steps.start(self.carried_loop(
+                    enc_pre, enc_lens, x["h0"], x["c0"], x["pred0"],
+                    x["last_token"], x["token_offset"],
+                    max_total=self.config.max_total_tokens))
             res = self._decode_from(x, enc_pre, enc_lens)
             return (feat_lens, enc_lens, res.tokens, res.counts,
                     res.frame_idx, res.confidence, *res.state, res.pred_out,
                     res.last_token)
 
-        return self._new_program(f"greedy bucket {b} x {n} samples", body, x)
+        prog = self._new_program(name, body, x)
+        prog.steps = steps
+        return prog
 
     def _new_program(self, name: str, body, inputs: dict) -> DeviceProgram:
         prog = DeviceProgram(name, self.device, body, inputs,
@@ -393,17 +492,27 @@ class AsrPipeline:
             x["token_offset"], max_symbols=self.config.max_symbols_per_step,
             max_total=self.config.max_total_tokens)
 
-    def _greedy_outputs(self, prog: DeviceProgram, outs
-                        ) -> Tuple[GreedyResult, torch.Tensor, torch.Tensor]:
-        """(the decode's result, feat_lens, enc_lens) from a greedy
-        program's outputs; on the step and plain routes the host loop
-        decodes here, after the replay, from the static carry."""
+    def _greedy_run(self, prog: DeviceProgram, eager: bool
+                    ) -> Tuple[GreedyResult, torch.Tensor, torch.Tensor]:
+        """Run a greedy program: (the decode's result, feat_lens,
+        enc_lens). On the step and plain routes its :class:`StepLoop`
+        finishes the loop after the run; ``eager`` runs the body instead
+        of the replay, and on those routes the encoder, then the host loop
+        (:meth:`decode_carried`), which asks the host after every step:
+        the oracle both are held to."""
         if self.greedy_route != "loop":
-            enc_pre, feat_lens, enc_lens = outs
-            return (self._decode_from(prog.inputs, enc_pre, enc_lens),
-                    feat_lens, enc_lens)
+            if eager:
+                x = prog.inputs
+                with torch.inference_mode():
+                    enc_pre, feat_lens, enc_lens = self._encode(x["audio"],
+                                                                x["lens"])
+                return (self._decode_from(x, enc_pre, enc_lens), feat_lens,
+                        enc_lens)
+            feat_lens, enc_lens, flag = prog.run()
+            with torch.inference_mode():
+                return prog.steps.finish(flag), feat_lens, enc_lens
         (feat_lens, enc_lens, tokens, counts, frames, confs, h, c, pred,
-         last) = outs
+         last) = prog.run_eager() if eager else prog.run()
         return (GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
                              confidence=confs, state=(h, c), pred_out=pred,
                              last_token=last), feat_lens, enc_lens)
@@ -527,8 +636,7 @@ class AsrPipeline:
             prog = self._bucket_program("greedy", b, n)
             self._stage_audio(prog, samples)
             self._stage_carry(prog, stream_states)
-            res, feat_lens, enc_lens = self._greedy_outputs(
-                prog, prog.run_eager() if eager else prog.run())
+            res, feat_lens, enc_lens = self._greedy_run(prog, eager)
             host = prog.to_host((res.tokens, res.counts, res.frame_idx,
                                  res.confidence, feat_lens, enc_lens))
             with torch.inference_mode():
@@ -746,6 +854,180 @@ class AsrPipeline:
         return tr
 
     # ------------------------------------------------------------------
+    # streaming beam: one chunk program per shape, shared by the sessions
+    # ------------------------------------------------------------------
+    def _beam_scan_carried(self, enc_pre, enc_lens, bias, graph,
+                           carry: BeamCarry, *, beam_width: int,
+                           max_expansions: int):
+        """The beam of the route :meth:`beam_decode_path` picks (the kernel
+        or the plain scan), seeded from ``carry``: (raw outputs, the carry
+        out)."""
+        mcfg = self.model.config
+        if self.beam_decode_path(graph) == "pallas_kernel":
+            return beam_loop(enc_pre, enc_lens, None, None, bias,
+                             self.decode_weights, beam_width=beam_width,
+                             max_expansions=max_expansions,
+                             blank_id=mcfg.blank_id, graph=graph,
+                             carry=carry, return_carry=True)
+        return beam_scan(self.model.predict_step, self.model.joint_step_pre,
+                         enc_pre, enc_lens, None, mcfg.blank_id,
+                         beam_width=beam_width, max_expansions=max_expansions,
+                         bias=bias, vocab_size=mcfg.vocab_size, graph=graph,
+                         init_beam=carry, return_carry=True)
+
+    def fresh_beam(self, beam_width: int) -> Tuple[EncoderCache, BeamCarry]:
+        """A new stream's encoder cache and beam carry (its own tensors):
+        the carry is the one hypothesis live at SOS, made once per beam
+        width by the route's own arithmetic (the kernel over zero frames,
+        whose SOS step the whole-utterance kernel runs too; on the plain
+        scan's route its SOS step)."""
+        mcfg = self.model.config
+        dt, dev = self.compute_dtype, self.device
+        with self.device_lock, torch.inference_mode():
+            fresh = self._fresh_beams.get(beam_width)
+            if fresh is None:
+                if self.beam_decode_path(None) == "pallas_kernel":
+                    h, c = self.model.init_state(1, dt, dev)
+                    _, fresh = beam_loop(
+                        torch.zeros((1, 1, mcfg.d_joint), dtype=dt,
+                                    device=dev),
+                        torch.zeros((1,), dtype=torch.int32, device=dev),
+                        h, c, torch.zeros((mcfg.vocab_size,), device=dev),
+                        self.decode_weights, beam_width=beam_width,
+                        max_expansions=1, blank_id=mcfg.blank_id,
+                        return_carry=True)
+                else:
+                    fresh = beam_carry_init(
+                        self.model.predict_step,
+                        self.model.init_state(1, dt, dev), mcfg.blank_id, 1,
+                        beam_width)
+                self._fresh_beams[beam_width] = fresh
+            carry = BeamCarry(*(x.clone() for x in (
+                fresh.scores, fresh.lens, fresh.pred_out)),
+                state=tuple(x.clone() for x in fresh.state),
+                last_token=fresh.last_token.clone(),
+                g_state=fresh.g_state.clone())
+            return init_encoder_cache(mcfg, 1, dt, dev), carry
+
+    def _beam_chunk_program(self, chunk_frames: int, beam_width: int,
+                            max_expansions: int, cap: int) -> DeviceProgram:
+        """The streaming beam's chunk step for one stream: the cached
+        causal encoder over ``chunk_frames`` mel frames, the joint's
+        encoder projection, the beam seeded from the carry, then the score
+        shift (each hypothesis's score less the best, so long streams keep
+        f32 headroom); the cache and the carry are static and updated in
+        place. Made on first use; called under :attr:`device_lock`."""
+        key = (chunk_frames, beam_width, max_expansions, cap)
+        prog = self.beam_chunk_programs.get(key)
+        if prog is not None:
+            return prog
+        mcfg, dev = self.model.config, self.device
+        x = {"feats": torch.zeros((1, mcfg.n_mels, chunk_frames),
+                                  dtype=torch.float32, device=dev),
+             "enc_lens": torch.zeros((1,), dtype=torch.int32, device=dev),
+             "bias": torch.zeros((mcfg.vocab_size,), dtype=torch.float32,
+                                 device=dev)}
+        cache, carry = self.fresh_beam(beam_width)
+        graph = self._static_graph(cap)
+
+        def body():
+            enc, new_cache = encode_chunk(
+                self.model.encoder, x["feats"].to(self.compute_dtype), cache)
+            for dst, src in zip(cache.tensors(), new_cache.tensors()):
+                dst.copy_(src)
+            del new_cache
+            enc_pre = self.model.joint_precompute_enc(enc).contiguous()
+            raw, new = self._beam_scan_carried(
+                enc_pre, x["enc_lens"], x["bias"], graph, carry,
+                beam_width=beam_width, max_expansions=max_expansions)
+            shift = new.scores.amax(dim=1, keepdim=True)
+            carry.scores.copy_(new.scores - shift)
+            for dst, src in zip(carry.tensors()[1:], new.tensors()[1:]):
+                dst.copy_(src)
+            return (*raw, shift[:, 0])
+
+        prog = DeviceProgram(
+            f"beam chunk step {chunk_frames} frames, beam {beam_width}"
+            + (f", graph of up to {cap} states" if cap else ""), dev, body,
+            x, pool=self.graph_pool())
+        prog.host = {name: host_staging(t.shape, t.dtype, dev)
+                     for name, t in x.items() if name != "bias"}
+        prog.cache, prog.carry = cache, carry
+        self.beam_chunk_programs[key] = prog
+        return prog
+
+    def beam_chunk(self, cache: EncoderCache, carry: BeamCarry,
+                   feats: np.ndarray, n_enc: int, *, beam_width: int,
+                   max_expansions: int = C.BEAM_MAX_EXPANSIONS, bias=None,
+                   graph: Optional[TokenTrie] = None, eager: bool = False
+                   ) -> Tuple[np.ndarray, ...]:
+        """One streaming-beam chunk of one stream: its normalized mel
+        ``feats [Tc, M]`` of which ``n_enc`` encoder frames are real, from
+        and into its own ``cache`` and ``carry`` (copied into the chunk
+        program's static state, then back out, under :attr:`device_lock`).
+        Returns, on the host, the raw outputs (pool scores before the
+        shift, lengths, the backtrace rows, graph states) and the shift.
+        ``eager`` runs the program's body instead of its replay (the
+        oracle; tests, ``chip_smoke.py``)."""
+        with self.device_lock:
+            prog = self._beam_chunk_program(
+                feats.shape[0], beam_width, max_expansions,
+                self.graph_capacity(graph))
+            prog.host["feats"].numpy()[0] = feats.T
+            prog.host["enc_lens"].numpy()[0] = n_enc
+            for name in ("feats", "enc_lens"):
+                stage(prog.inputs[name], prog.host[name])
+            self._stage_graph(graph)
+            with torch.inference_mode():
+                if bias is None:
+                    prog.inputs["bias"].zero_()
+                else:
+                    prog.inputs["bias"].copy_(
+                        torch.as_tensor(bias, dtype=torch.float32))
+                for dst, src in zip(prog.cache.tensors() + prog.carry.tensors(),
+                                    cache.tensors() + carry.tensors()):
+                    dst.copy_(src)
+            outs = prog.run_eager() if eager else prog.run()
+            with torch.inference_mode():
+                for dst, src in zip(cache.tensors() + carry.tensors(),
+                                    prog.cache.tensors() + prog.carry.tensors()):
+                    dst.copy_(src)
+            return prog.to_host(outs)
+
+    def beam_chunk_warm(self, chunk_frames: int, beam_width: int,
+                        max_expansions: int,
+                        graph: Optional[TokenTrie]) -> bool:
+        """The chunk program of these shapes has run (is captured)."""
+        prog = self.beam_chunk_programs.get(
+            (chunk_frames, beam_width, max_expansions,
+             self.graph_capacity(graph)))
+        return prog is not None and prog.warm
+
+    def warm_beam_chunk(self, chunk_frames: int, beam_width: int,
+                        max_expansions: int = C.BEAM_MAX_EXPANSIONS,
+                        graph: Optional[TokenTrie] = None) -> float:
+        """Make the streaming beam's chunk program ready before a stream
+        needs it (on CUDA: its eager run, then the capture), on silence of
+        a fresh stream; returns the seconds taken."""
+        import time
+        t0 = time.perf_counter()
+        with self.device_lock:
+            prog = self._beam_chunk_program(chunk_frames, beam_width,
+                                            max_expansions,
+                                            self.graph_capacity(graph))
+            if not prog.warm:
+                cache, carry = self.fresh_beam(beam_width)
+                self.beam_chunk(cache, carry,
+                                np.zeros((chunk_frames,
+                                          self.model.config.n_mels),
+                                         np.float32), 0,
+                                beam_width=beam_width,
+                                max_expansions=max_expansions, graph=graph)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
     def process_batch_samples(self, samples: np.ndarray) -> Transcription:
         """Full decode of one utterance; greedy or beam per the config."""
         if self.config.decoding_mode == "beam":
@@ -808,7 +1090,12 @@ class AsrPipeline:
                     self._stage_carry(prog, [None] * bb)
                 else:
                     self._stage_graph(self.beam_graph)
-                prog.warm_up()
+                if getattr(prog, "steps", None) is not None:
+                    # the step route: the bucket, then its steps' program
+                    self._greedy_run(prog, eager=False)
+                    prog.steps.program.warm_up()
+                else:
+                    prog.warm_up()
         self._mark_compiled(mode, bb, nb)
 
     def start_background_warmup(self) -> None:

@@ -2,8 +2,10 @@
 
     GET  /v2/decode/stream/{model}   WebSocket streaming: chunked (window
                                      re-decode through the batcher), or
-                                     native on a causal preset (the lane
-                                     engine); see server/stream.py
+                                     native on a causal preset (greedy: the
+                                     lane engine; beam: a streaming beam
+                                     session per stream); see
+                                     server/stream.py
     POST /v2/decode/batch/{model}    batch transcription (greedy or beam;
                                      beam adds n_best, decode_path and, on
                                      request, a lattice)
@@ -14,11 +16,12 @@
 
 Request validation, status codes and the camelCase response schema are the
 reference's. Not served yet: the model-repository routes (ROADMAP.md queue
-1 item 6, [#12]) and streaming beam (item 4, [#10], refused at startup).
+1 item 6, [#12]).
 
 Entry point: ``python -m amira_rust_asr_server_tpu_torch.server --preset
 large`` (``AMIRA_STREAMING_MODE=native`` with ``--preset large-streaming``
-for native streaming).
+for native streaming, and ``AMIRA_DECODING_MODE=beam`` beside them for
+streaming beam).
 """
 
 from __future__ import annotations
@@ -434,6 +437,14 @@ def build_state(config: Optional[Config] = None,
             took = state.lane_engine.warm()
             log.info("warmed the lane engine (%d lanes) in %.1fs",
                      state.lane_engine.n_lanes, took)
+        if (cfg.decoding_mode == "beam" and cfg.streaming_mode == "native"
+                and pipeline.model.config.causal):
+            # the streaming beam's chunk program, likewise
+            took = pipeline.warm_beam_chunk(cfg.native_chunk_frames,
+                                            cfg.beam_width,
+                                            graph=pipeline.beam_graph)
+            log.info("warmed the streaming beam's chunk program in %.1fs",
+                     took)
     return state
 
 

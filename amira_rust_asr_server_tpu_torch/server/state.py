@@ -90,12 +90,13 @@ class AppState:
             self.breaker.on_state_change = self._on_breaker_state
             self.prometheus.queue_depth_fn = self.batcher.queue_depth
 
-        # native mode: one lane engine batches all streams into one chunk
-        # step per tick
+        # native mode: one lane engine batches all greedy streams into one
+        # chunk step per tick (beam streams run their own sessions)
         self.lane_engine: Optional[StreamingLaneEngine] = None
         self.lane_lock: Optional[threading.Lock] = None
         if (self.config.streaming_mode == "native"
-                and pipeline.model.config.causal):
+                and pipeline.model.config.causal
+                and self.config.decoding_mode != "beam"):
             cfg = self.config
             self.lane_engine = StreamingLaneEngine(
                 pipeline, n_lanes=cfg.max_lanes,

@@ -20,8 +20,10 @@ preset) runs :class:`~runtime.incremental.IncrementalAsr`, whose window
 re-decodes ride the batcher's "stream" class; ``streaming_mode="native"``
 on a causal preset attaches the stream to the shared lane engine, or to a
 solo :class:`~runtime.native_stream.NativeStreamSession` when every lane is
-busy. Streaming beam (native + causal + beam) is refused at startup
-(``runtime/pipeline.check_supported``).
+busy; with ``decoding_mode="beam"`` it runs a
+:class:`~runtime.beam_stream.StreamingBeamSession` per stream (K
+hypotheses carried across chunks, each chunk the pipeline's shared beam
+chunk program).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from .. import constants as C
 from ..audio import pcm16_bytes_to_f32
 from ..errors import CapacityExceededError, CircuitOpenError
 from ..reliability import get_logger
+from ..runtime.beam_stream import StreamingBeamSession
 from ..runtime.incremental import IncrementalAsr
 from ..runtime.native_stream import NativeStreamSession
 from ..types import AsrResponse, StreamStatus
@@ -139,6 +142,45 @@ class _LaneAdapter:
             self.lane = None
 
 
+class _BeamStreamAdapter:
+    """One WebSocket session on its own StreamingBeamSession (beam mode on
+    a causal preset, native streaming). Partials report the current best
+    hypothesis, which may retract when the beam's leader changes (every
+    partial carries the whole transcript, so the wire protocol represents
+    a retraction). The session's device work runs under the pipeline's
+    ``device_lock`` (:meth:`AsrPipeline.beam_chunk`)."""
+
+    def __init__(self, state: AppState):
+        cfg = state.config
+        self.state = state
+        self._samples = 0
+        self.session = StreamingBeamSession(
+            state.pipeline, chunk_frames=cfg.native_chunk_frames,
+            norm=cfg.native_norm, beam_width=cfg.beam_width,
+            graph=state.pipeline.beam_graph)
+
+    @property
+    def warmed(self) -> bool:
+        """The chunk program this stream runs is captured."""
+        return self.state.pipeline.beam_chunk_warm(
+            self.session.chunk_frames, self.session.beam_width,
+            self.session.max_expansions, self.session.graph)
+
+    def process_chunk(self, audio_bytes: bytes) -> str:
+        samples = pcm16_bytes_to_f32(audio_bytes)
+        self._samples += samples.shape[0]
+        return self.session.feed(samples)
+
+    def transcript(self) -> str:
+        return self.session.partial()
+
+    def finalize(self) -> str:
+        return self.session.end().text
+
+    def audio_length(self) -> float:
+        return self._samples / C.SAMPLE_RATE
+
+
 class StreamProcessor:
     def __init__(self, ws: web.WebSocketResponse, state: AppState,
                  stream_id: Optional[str] = None):
@@ -146,7 +188,11 @@ class StreamProcessor:
         self.state = state
         self.stream_id = stream_id or uuid.uuid4().hex
         cfg = state.config
-        if state.lane_engine is not None:
+        if (cfg.decoding_mode == "beam" and cfg.streaming_mode == "native"
+                and state.pipeline.model.config.causal):
+            # streaming beam: K hypotheses carried across chunks
+            self.incremental = _BeamStreamAdapter(state)
+        elif state.lane_engine is not None:
             # native mode on a causal preset: the shared lane engine
             self.incremental = _LaneAdapter(state)
         else:
@@ -282,7 +328,9 @@ class StreamProcessor:
             # the budget follows the warmth of the program this stream
             # runs: the lane engine's chunk step, or the pipeline's buckets
             # (a solo native session runs cold)
-            if getattr(self.incremental, "session", None) is not None:
+            if isinstance(self.incremental, _BeamStreamAdapter):
+                warmed = self.incremental.warmed
+            elif getattr(self.incremental, "session", None) is not None:
                 warmed = False
             elif getattr(self.incremental, "engine", None) is not None:
                 warmed = self.incremental.engine.warmed_up

@@ -55,6 +55,8 @@ class Transcription:
     # which decode program ran a beam decode: "pallas_kernel" (the CUDA
     # kernel) or "xla_scan" (the plain scan; graphs past the kernel's cap)
     decode_path: Optional[str] = None
+    # beam decodes: the winning hypothesis's total log-probability
+    score: Optional[float] = None
 
 
 @dataclasses.dataclass

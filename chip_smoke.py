@@ -99,13 +99,35 @@ their plain PyTorch versions:
      with one graph and replayed with another of like size against the
      eager body (identical trace, capture seconds, pool growth, host wall);
      and a line saying which cooperative kernels the graphs captured
+  P  streaming beam on large-streaming: the beam kernel seeded chunk by
+     chunk from its own carry (phase G's inputs, 8-frame chunks; f32, bf16,
+     with the bias and with the graph, and the int8 branch once) equals its
+     whole-utterance search bit for bit (pool scores, lengths, graph
+     states, the live hypotheses' spliced histories), and its best tokens
+     equal its plain version's, carried the same way, in f32 (bf16 and int8
+     at least the share the whole utterances agree on, and 90%); one
+     stream's chunk timed beside its bound; then four 10 s and one 30 s
+     beam stream behind the server (bf16, K = 10, a decoding graph whose
+     positive arc weights make the random weights emit): every final
+     equals a direct session decode, at least one has words, and the beam
+     kernel launched once per chunk inside the captured chunk program and
+     nothing else ran; partial latency p50 / p95; the chunk step's host
+     wall replayed and eager, kernels, launch calls and idle share, and the
+     real-time beam streams one card sustains
+  Q  the per-step route's loop on the device: large at 2 s and 30 s, bf16,
+     use_pallas_decode_loop=False, and a 1-layer prediction net at 2 s:
+     each request's tokens equal the eager host loop's; its dispatch wall
+     beside the parent's design (the encoder's program replayed, then the
+     host loop) in turns, the host reads per request (at most ceil(steps /
+     N) + 1) and the step kernel's launches counted through the replays
 
 Any failure raises and exits non-zero. The line before the last holds the
 kernels' measurements as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (no result
 lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
 the int8 and per-step phases, ``--phases ABMN`` the streaming phases,
-``--phases ABO`` the bucket programs.
+``--phases ABO`` the bucket programs, ``--phases ABPQ`` streaming beam and
+the per-step route's device loop.
 """
 
 from __future__ import annotations
@@ -123,7 +145,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMNO"
+ALL_PHASES = "ABCDEFGHIJKLMNOPQ"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -2067,6 +2089,358 @@ def phase_n(results):
     state.close()
 
 
+# -- streaming beam (phase P) and the per-step route's loop (phase Q) -------
+def beam_chunks(fn, enc_pre, lens, rest, kw, t_chunk: int = 8):
+    """The beam of ``enc_pre [B, T', J]`` through ``fn`` (the kernel or its
+    plain version) chunk by chunk of ``t_chunk`` frames, each seeded from
+    the carry the last left: (the last chunk's outputs, the carry, each
+    hypothesis's spliced history [B][K])."""
+    from amira_rust_asr_server_tpu_torch.ops.beam import (backtrace_carry,
+                                                          finish_trace)
+    b, t, _ = enc_pre.shape
+    k = kw["beam_width"]
+    carry, hists = None, [[[] for _ in range(k)] for _ in range(b)]
+    for t0 in range(0, t, t_chunk):
+        enc = enc_pre[:, t0:t0 + t_chunk].contiguous()
+        n = (lens - t0).clamp(0, enc.shape[1]).to(lens.dtype)
+        outs, carry = fn(enc, n, *rest, **kw, carry=carry, return_carry=True)
+        origins, seqs = backtrace_carry(finish_trace(*outs), n)
+        hists = [[hists[i][origins[i, j]] + seqs[i][j] for j in range(k)]
+                 for i in range(b)]
+    return outs, carry, hists
+
+
+def live(outs, hists):
+    """The histories of the live hypotheses (score above NEG_INF / 2)."""
+    from amira_rust_asr_server_tpu_torch.ops.beam import NEG_INF
+    return [[h for h, sc in zip(lane, row) if sc > NEG_INF / 2]
+            for lane, row in zip(hists, outs[0].cpu().numpy())]
+
+
+def best_of(outs, hists, graph, max_total=None):
+    """Each utterance's best hypothesis, finality judged as at the end of a
+    stream, cut at ``max_total`` tokens if given (as the batch path's
+    backtrace cuts it): (tokens [B, N], counts [B]) for
+    :func:`token_agreement`."""
+    from amira_rust_asr_server_tpu_torch.ops.beam import finish_trace
+    tr = finish_trace(*outs, graph=graph)
+    scores = np.where(tr.pool_final.cpu().numpy(),
+                      tr.pool_scores.cpu().numpy(),
+                      tr.pool_scores.cpu().numpy() - 1e12)
+    best = [lane[int(np.argmax(row))][:max_total]
+            for lane, row in zip(hists, scores)]
+    counts = np.array([len(x) for x in best])
+    tokens = np.zeros((len(best), max(1, counts.max())), np.int64)
+    for i, x in enumerate(best):
+        tokens[i, :len(x)] = x
+    return tokens, counts
+
+
+def phase_p_kernel(results):
+    """The beam kernel with a carry, on phase G's inputs (B = 16, T' = 376,
+    K = 10, S = 3, the bias and the weighted graph) in 8-frame chunks: the
+    chunked search against the whole utterance's (bit for bit), and
+    against the plain version seeded from its own carries; the int8 branch
+    once; the kernel's time for one stream's chunk beside its bound."""
+    import torch
+
+    # the batch path's backtrace keeps this many tokens (phase G compares them)
+    from amira_rust_asr_server_tpu_torch.constants import MAX_TOTAL_TOKENS
+    from amira_rust_asr_server_tpu_torch.ops.beam import (backtrace_carry,
+                                                          finish_trace)
+    from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
+        beam_loop, beam_loop_reference)
+    dev = torch.device("cuda")
+    res = results.setdefault("beam_loop", {})
+    cases = [(torch.float32, "bias", False), (torch.float32, "graph", False),
+             (torch.bfloat16, "bias", False), (torch.bfloat16, "graph", False),
+             (torch.bfloat16, "bias", True)]
+    for dtype, variant, int8 in cases:
+        enc_pre, lens, *_, w, cfg = flagship_decode_inputs(dtype)
+        if int8:
+            w = w.with_int8_lstm()
+        b, p = enc_pre.shape[0], cfg.d_pred
+        zeros = torch.zeros((2, b, p), dtype=dtype, device=dev)
+        bias, graph = beam_bias_and_graph(cfg)
+        bias, graph = torch.from_numpy(bias).to(dev), graph.to(dev)
+        g = graph if variant == "graph" else None
+        kw = dict(beam_width=10, max_expansions=3, blank_id=cfg.blank_id,
+                  graph=g)
+        rest = (zeros, zeros, bias, w)
+        whole, _ = beam_loop(enc_pre, lens, *rest, **kw, return_carry=True)
+        _, wseqs = backtrace_carry(finish_trace(*whole), lens)
+        outs, carry, hists = beam_chunks(beam_loop, enc_pre, lens, rest, kw)
+        same = all(torch.equal(outs[i], whole[i]) for i in (0, 1, 6))
+        same_h = live(outs, hists) == live(whole, wseqs)
+        plain_whole = beam_loop_reference(enc_pre, lens, *rest, **kw)
+        _, pseqs = backtrace_carry(finish_trace(*plain_whole), lens)
+        pouts, _, phists = beam_chunks(beam_loop_reference, enc_pre, lens,
+                                       rest, kw)
+        share = token_agreement(*best_of(outs, hists, g),
+                                *best_of(pouts, phists, g))
+        share_whole = token_agreement(*best_of(whole, wseqs, g),
+                                      *best_of(plain_whole, pseqs, g))
+        # phase G's comparison: the best hypotheses' first max_total tokens
+        cut = MAX_TOTAL_TOKENS
+        same_cut = token_agreement(*best_of(outs, hists, g, cut),
+                                   *best_of(pouts, phists, g, cut)) == 1.0
+        name = (str(dtype).replace("torch.", "") + " " + variant
+                + (" int8" if int8 else ""))
+        say("P", f"{name}: 47 chunks of 8 frames from the carry vs the whole "
+            f"utterance: pool scores, lengths, graph states identical {same},"
+            f" live hypotheses' spliced histories identical {same_h}; best "
+            f"tokens of the kernel vs its plain version, both carried: "
+            f"identical share {share:.4f} (whole utterance, as phase G: "
+            f"{share_whole:.4f}), their first {MAX_TOTAL_TOKENS} tokens "
+            f"identical {same_cut}; counts "
+            f"{best_of(outs, hists, g)[1].tolist()}")
+        if not (same and same_h):
+            raise AssertionError(f"[P] {name}: chunked differs from whole")
+        if (dtype == torch.float32 and not int8 and not same_cut) or \
+                share < max(share_whole, 0.9):
+            raise AssertionError(f"[P] {name}: the carried kernel disagrees "
+                                 "with its carried plain version")
+        res.setdefault("carried_token_share", {})[name] = share
+    # one stream's chunk: B = 1, 8 frames, from a carry, bf16
+    enc_pre, lens, *_, w, cfg = flagship_decode_inputs(torch.bfloat16)
+    bias, _ = beam_bias_and_graph(cfg)
+    bias = torch.from_numpy(bias).to(dev)
+    zeros = torch.zeros((2, 1, cfg.d_pred), dtype=torch.bfloat16, device=dev)
+    kw = dict(beam_width=10, max_expansions=3, blank_id=cfg.blank_id)
+    one = enc_pre[:1, :8].contiguous()
+    eight = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    _, carry = beam_loop(enc_pre[:1, :64].contiguous(), eight * 8, zeros,
+                         zeros, bias, w, **kw, return_carry=True)
+    args = (one, eight, None, None, bias, w)
+    outs = beam_loop(*args, **kw, carry=carry, return_carry=True)[0]
+    ms_k = cuda_ms(lambda: beam_loop(*args, **kw, carry=carry,
+                                     return_carry=True), 20)
+    ms_p = cuda_ms(lambda: beam_loop_reference(*args, **kw, carry=carry,
+                                               return_carry=True), 3)
+    bd = beam_bound(w, one, eight, outs, "bf16")
+    say("P", f"one stream's chunk (B = 1, 8 frames, K = 10, S = 3, bf16, "
+        f"from a carry): kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}; serial "
+        f"{bd['serial_bound_ms']:.3f} ms), no single library call")
+    res.update(carried_chunk_ms=ms_k, carried_chunk_plain_ms=ms_p,
+               carried_chunk_bound_ms=bd["bound_ms"],
+               carried_chunk_serial_bound_ms=bd["serial_bound_ms"])
+
+
+def phase_p(results):
+    """Streaming beam on large-streaming: the kernel with a carry
+    (:func:`phase_p_kernel`), then four 10 s and one 30 s beam stream
+    behind the server, and the chunk step's cost."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.audio import pcm16_bytes_to_f32
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops.beam import TokenTrie
+    from amira_rust_asr_server_tpu_torch.runtime.beam_stream import \
+        StreamingBeamSession
+    from amira_rust_asr_server_tpu_torch.server.app import build_state
+    phase_p_kernel(results)
+    # served streams, bf16; the bucket warmup (which streams do not use)
+    # stays off, so only the chunk program launches kernels meanwhile
+    cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                 inference_backend="tpu", streaming_mode="native",
+                 decoding_mode="beam", native_norm="none",
+                 max_concurrent_streams=5)
+    t0 = time.perf_counter()
+    state = build_state(cfg, preset="large-streaming", warmup=False)
+    pipe = state.pipeline
+    mcfg = pipe.model.config
+    # random weights make the beam emit nothing (every emission adds a
+    # log-probability below 0): a decoding graph of 60 one-token phrases
+    # whose arcs carry log weights 4 + N(0, 1) makes those emissions pay
+    rng = np.random.default_rng(70)
+    words = rng.choice(mcfg.blank_id, 60, replace=False)
+    pipe.beam_graph = TokenTrie.from_token_seqs(
+        [[int(t)] for t in words], mcfg.vocab_size,
+        weights=(4.0 + rng.standard_normal(60)).tolist()).to(pipe.device)
+    k, tc = cfg.beam_width, cfg.native_chunk_frames
+    took = pipe.warm_beam_chunk(tc, k, graph=pipe.beam_graph)
+    prog = next(iter(pipe.beam_chunk_programs.values()))
+    say("P", f"large-streaming, {pipe.compute_dtype}, beam {k}, "
+        f"{tc}-frame chunks, route {pipe.beam_decode_path(pipe.beam_graph)}"
+        f"; state built in {time.perf_counter() - t0 - took:.1f} s, chunk "
+        f"program warmed in {took:.2f} s (capture "
+        f"{prog.capture_seconds:.3f} s, graph pool "
+        f"+{prog.graph_bytes / 2**20:.1f} MiB, launches per replay "
+        f"{prog.launches}); graph of {pipe.beam_graph.n_states} states")
+    secs = [10.0] * 4 + [30.0]
+    pcms = [pcm16(a) for a in digits_audio(4, 10.0, seed=80)] + [
+        pcm16(digits_audio(1, 30.0, seed=81)[0])]
+    direct, chunks = [], 0
+    for p_ in pcms:
+        sess = StreamingBeamSession(pipe, chunk_frames=tc, norm="none",
+                                    beam_width=k, graph=pipe.beam_graph)
+        sess.feed(pcm16_bytes_to_f32(p_))
+        direct.append(sess.end().text)
+        chunks += sess.chunks
+    outs, counts, _, _ = asyncio.run(_serve_streams(state, free_port(), pcms,
+                                                    gap=0.02))
+    lat = check_streams("P", outs, secs, direct, every_stream=False)
+    say("P", f"kernel launches during the streams: {counts} for {chunks} "
+        f"chunks; partial latency p50 {percentile(lat, 50):.0f} ms, p95 "
+        f"{percentile(lat, 95):.0f} ms")
+    if counts["beam_loop"] != chunks or any(
+            n for name, n in counts.items() if name != "beam_loop"):
+        raise AssertionError(f"[P] launches {counts} for {chunks} chunks")
+    # the chunk step's cost: one stream, the replay beside the eager body
+    cache, carry = pipe.fresh_beam(k)
+    feats = np.random.default_rng(82).standard_normal(
+        (tc, mcfg.n_mels)).astype(np.float32)
+    dispatch_cost = pipeline_profiler().dispatch_cost
+    cost = {}
+    for how in ("replay", "eager", "eager", "replay"):
+        eager = how == "eager"
+        c = dispatch_cost(
+            lambda: pipe.beam_chunk(cache, carry, feats, tc // 8,
+                                    beam_width=k, graph=pipe.beam_graph,
+                                    eager=eager),
+            prog.run_eager if eager else prog.run, reps=5)
+        if how in cost:
+            cost[how]["host_wall_ms"] = float(np.median(
+                [cost[how]["host_wall_ms"], c["host_wall_ms"]]))
+        else:
+            cost[how] = c
+    for how in ("eager", "replay"):
+        c = cost[how]
+        say("P", f"chunk step {how}: host wall {c['host_wall_ms']:.3f} ms "
+            f"(median of two medians of 5), {c['host_launches']} host launch "
+            f"calls, {c['kernels']} kernels busy {c['busy_ms']:.3f} ms of a "
+            f"{c['traced_span_ms']:.3f} ms traced span (idle share "
+            f"{c['idle_share']:.3f}), device {c['device_ms']:.3f} ms")
+    per_card = tc * 10.0 / cost["replay"]["host_wall_ms"]
+    say("P", f"real-time beam streams per card: {tc * 10} ms of audio / "
+        f"{cost['replay']['host_wall_ms']:.3f} ms = {per_card:.0f}")
+    results["beam_loop"]["ws_beam_launches"] = counts["beam_loop"]
+    results["ws_beam"] = {
+        "partial_ms_p50": percentile(lat, 50),
+        "partial_ms_p95": percentile(lat, 95),
+        "chunk_step": cost, "streams_per_card": per_card,
+        "chunks": chunks, "capture_s": prog.capture_seconds,
+        "graph_mb": prog.graph_bytes / 2**20,
+        "final_words": [len(t.split()) for t in direct]}
+    state.close()
+    del state, pipe
+    torch.cuda.empty_cache()
+
+
+def phase_q(results):
+    """The per-step route's loop on the device: large (bf16) with
+    use_pallas_decode_loop=False at 2 s and 30 s, and a 1-layer prediction
+    net at 2 s; each request's tokens against the eager host loop's, and
+    its dispatch wall against the parent's design (the encoder's program
+    replayed, then the host loop, one read per step) in the same call."""
+    import dataclasses as dc
+
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.models import Transducer
+    from amira_rust_asr_server_tpu_torch.models.presets import LARGE
+    from amira_rust_asr_server_tpu_torch.ops import greedy as greedy_mod
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.runtime.programs import \
+        DeviceProgram
+    from amira_rust_asr_server_tpu_torch.server.app import load_model
+    dev = torch.device("cuda")
+    out = results["step_route"] = {}
+    for label, layers, secs in (("large", 2, (2.0, 30.0)),
+                                ("large 1-layer", 1, (2.0,))):
+        cfg = Config(vocabulary_path="model-repo/vocab.txt",
+                     inference_backend="tpu", audio_sec_buckets=list(secs),
+                     batch_buckets=[1], use_pallas_decode_loop=False)
+        if layers == 2:
+            model = load_model(cfg, "large")
+        else:
+            model = Transducer(dc.replace(LARGE, pred_layers=1)).init_weights(
+                torch.Generator().manual_seed(0))
+        pipe = AsrPipeline(model, load_vocab(cfg), cfg, dev)
+        if pipe.greedy_route != "step":
+            raise AssertionError(f"[Q] {label}: route {pipe.greedy_route}")
+        for sec in secs:
+            n = int(sec * 16000)
+            samples = [(np.random.default_rng(90).standard_normal(n) * 0.1)
+                       .astype(np.float32)]
+            pipe._warm_one(1, n)
+            bucket = pipe.programs[("greedy", 1, n)]
+            # the parent's design: the encoder's program, then the host loop
+            x = bucket.inputs
+            encoder = DeviceProgram("encoder only", dev,
+                                    lambda: pipe._encode(x["audio"],
+                                                         x["lens"]),
+                                    pool=pipe.graph_pool())
+
+            def host_loop():
+                with pipe.device_lock:
+                    pipe._stage_audio(bucket, samples)
+                    pipe._stage_carry(bucket, [None])
+                    enc_pre, fl, el = encoder.run()
+                    res = pipe._decode_from(x, enc_pre, el)
+                    return bucket.to_host((res.tokens, res.counts))
+
+            host_loop()  # warm (capture) the encoder's program
+            steps = [0]
+            step = greedy_mod.greedy_step
+
+            def counted(*a, **kw):
+                steps[0] += 1
+                return step(*a, **kw)
+
+            greedy_mod.greedy_step = counted
+            try:
+                want = pipe._decode_batch(samples, eager=True)[0]
+            finally:
+                greedy_mod.greedy_step = step
+            walls = {"host loop": [], "device loop": []}
+            for how in ("host loop", "device loop", "device loop",
+                        "host loop") * 2:
+                before = bucket.steps.reads
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                if how == "host loop":
+                    toks, counts = host_loop()
+                else:
+                    got = pipe.decode_samples_batch(samples)[0]
+                    toks, counts = got.tokens, got.counts
+                walls[how].append((time.perf_counter() - t0) * 1e3)
+                if how == "device loop":
+                    reads = bucket.steps.reads - before
+                    launched = kernels.launch_counts()["joint_argmax"]
+                same = (np.array_equal(toks, want.tokens)
+                        and np.array_equal(counts, want.counts))
+                if not same:
+                    raise AssertionError(f"[Q] {label} {sec:.0f} s {how}: "
+                                         "tokens differ from the host loop")
+            key = f"{label} {sec:.0f}s"
+            nsteps = bucket.steps.n_steps
+            row = out[key] = {
+                "host_loop_ms": float(np.median(walls["host loop"])),
+                "device_loop_ms": float(np.median(walls["device loop"])),
+                "steps": steps[0], "steps_per_run": nsteps,
+                "host_reads": reads, "joint_argmax_launches": launched,
+                "tokens": int(want.counts[0])}
+            say("Q", f"{key}: tokens identical to the eager host loop's "
+                f"({row['tokens']} tokens, {steps[0]} steps); dispatch wall "
+                f"median of 4: host loop (encoder replayed, one host read "
+                f"per step) {row['host_loop_ms']:.1f} ms, device loop (N = "
+                f"{nsteps} steps per replay) {row['device_loop_ms']:.1f} ms; "
+                f"host reads per request {reads} (<= ceil(steps / N) + 1 = "
+                f"{-(-steps[0] // nsteps) + 1}); joint_argmax launches "
+                f"{launched} counted through the replays")
+            if reads > -(-steps[0] // nsteps) + 1 or launched < steps[0]:
+                raise AssertionError(f"[Q] {key}: {reads} host reads, "
+                                     f"{launched} launches")
+        del pipe
+        torch.cuda.empty_cache()
+    results.setdefault("joint_argmax", {})["step_route_launches"] = sum(
+        r["joint_argmax_launches"] for r in out.values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -2105,6 +2479,10 @@ def main(argv=None) -> int:
         phase_n(results)
     if "O" in phases:
         phase_o(results)
+    if "P" in phases:
+        phase_p(results)
+    if "Q" in phases:
+        phase_q(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -2120,6 +2498,8 @@ def main(argv=None) -> int:
                       "int8_requests_ms": results["int8_requests_ms"],
                       "ws_chunked": results["ws_chunked"],
                       "ws_native": results["ws_native"],
+                      "ws_beam": results["ws_beam"],
+                      "step_route": results["step_route"],
                       "programs": results["programs"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -358,6 +358,81 @@ def test_lane_engine_in_place_carry(streaming):
     assert all(want) and got == want == solo
 
 
+# -- the per-step route's loop as device programs ---------------------------
+STEP_ROUTE = dict(use_pallas_decode_loop=False, use_pallas_decode_step=True)
+
+
+def counting_steps(monkeypatch):
+    """Count the steps the host loop (``greedy_decode``) takes."""
+    from amira_rust_asr_server_tpu_torch.ops import greedy
+    calls = [0]
+    step = greedy.greedy_step
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return step(*a, **kw)
+
+    monkeypatch.setattr(greedy, "greedy_step", counted)
+    return calls
+
+
+def test_step_route_bucket_equals_eager_and_jax(jax_pipe, monkeypatch):
+    """The step route: a bucket's program runs the loop's first steps and
+    its StepLoop's program the rest, asking the host once per run; tokens,
+    frames and counts equal the eager host loop's (which asks after every
+    step) and the JAX pipeline's, and the host reads at most
+    ceil(steps / STEPS_PER_RUN) + 1 times."""
+    from amira_rust_asr_server_tpu_torch.runtime import pipeline
+    n = 2  # the trained weights take few steps
+    monkeypatch.setattr(pipeline, "STEPS_PER_RUN", n)
+    batch = utterances(8, [["one", "two", "three"], ["nine"]])
+    pipe = port_pipe(**STEP_ROUTE)
+    assert pipe.greedy_route == "step"
+    got = pipe.decode_samples_batch(batch)[0]
+    steps = counting_steps(monkeypatch)
+    want = pipe._decode_batch(batch, eager=True)[0]
+    prog = pipe.programs[("greedy", 4, 32000)]
+    reads = prog.steps.reads
+    again = pipe.decode_samples_batch(batch)[0]
+    assert prog.steps.reads - reads == reads <= -(-steps[0] // n) + 1
+    assert steps[0] > n and prog.steps.program.warm  # the steps' program
+    ref = jax_pipe.decode_samples_batch(batch)[0]
+    assert lanes(got, range(2)) == lanes(want, range(2)) == \
+        lanes(again, range(2)) == lanes(ref, range(2))
+    assert got.counts[:2].sum() > 0
+
+
+def test_lane_engine_step_route_equals_eager(streaming):
+    """The lane engine on the step route: its chunk step runs the loop's
+    first steps and its StepLoop the rest; the tokens and the carry equal
+    the eager engine's (the host loop), and the JAX-held loop route's."""
+    _, _, loop_pipe = streaming
+    pipe = AsrPipeline(loop_pipe.model, loop_pipe.vocab, Config(
+        compute_dtype="float32", inference_backend="cpu",
+        audio_sec_buckets=[1.0], batch_buckets=[1], **STEP_ROUTE))
+    assert pipe.greedy_route == "step"
+    engines = [StreamingLaneEngine(p, n_lanes=3, chunk_frames=16,
+                                   norm="none")
+               for p in (pipe, pipe, loop_pipe)]
+    stepped, eager, loop = engines
+    eager._step = lambda *a: StreamingLaneEngine._step(eager, *a, eager=True)
+    waves = [wave(40 + i, 8000) for i in range(3)]
+    for eng in engines:
+        eng.warm()
+        for lane, w in zip([eng.attach() for _ in waves], waves):
+            eng.feed(lane, w, final=True)
+        while eng.pending():
+            eng.tick()
+    assert stepped.steps.reads > 0 and eager.steps.reads == 0
+    assert stepped.tokens == eager.tokens == loop.tokens
+    assert any(stepped.tokens)
+    for a, b in zip((stepped.dec_h, stepped.dec_c, stepped.pred_out,
+                     stepped.last_token),
+                    (eager.dec_h, eager.dec_c, eager.pred_out,
+                     eager.last_token)):
+        assert torch.equal(a, b)
+
+
 # -- on the card -------------------------------------------------------------
 @pytest.fixture
 def dev():
@@ -491,3 +566,72 @@ def test_beam_replay_with_a_swapped_graph_equals_eager(dev, route):
         np.testing.assert_array_equal(getattr(got[0], f.name),
                                       getattr(want[0], f.name), f.name)
     np.testing.assert_array_equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_route_replay_equals_eager(dev, dtype, monkeypatch):
+    """The step route on the card: the bucket's graph runs the loop's first
+    steps and the StepLoop's graph the rest, replayed until the device
+    flag reads false; tokens, frames, counts and the carry equal the eager
+    host loop's, and each replay of the steps' graph counts its
+    joint-argmax launches."""
+    from amira_rust_asr_server_tpu_torch.runtime import pipeline
+    monkeypatch.setattr(pipeline, "STEPS_PER_RUN", 4)
+    batch = utterances(24, [["one", "two", "three"], ["nine"], ["five"]])
+    pipe = port_pipe("cuda", compute_dtype=dtype, **STEP_ROUTE)
+    pipe.decode_samples_batch(batch)  # warm and capture both programs
+    prog = pipe.programs[("greedy", 4, 32000)]
+    assert prog.graph is not None and prog.steps.program.graph is not None
+    assert prog.steps.program.launches == {"joint_argmax": 4}
+    kernels.reset_launch_counts()
+    reads = prog.steps.reads
+    got, fl, el, got_st = pipe.decode_samples_batch(batch)
+    runs = prog.steps.reads - reads - 1
+    assert runs >= 1 and kernels.launch_counts()["joint_argmax"] == \
+        4 * (runs + 1)
+    want, wfl, wel, want_st = pipe._decode_batch(batch, eager=True)
+    for field in ("tokens", "counts", "frame_idx"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field))
+    np.testing.assert_array_equal(el, wel)
+    for g, w in zip(got_st, want_st):
+        for a, b in zip((*g.state, g.pred_out, g.last_token),
+                        (*w.state, w.pred_out, w.last_token)):
+            assert torch.equal(a, b)
+
+
+def test_beam_chunk_replay_equals_eager_with_two_sessions(dev):
+    """Two streaming-beam sessions fed in turns share the chunk program,
+    their caches and carries copied in and out: the replayed sessions end
+    with the eager sessions' tokens, histories and scores (f32 and exact),
+    and the beam kernel launches once per chunk inside the replays."""
+    from amira_rust_asr_server_tpu_torch.runtime.beam_stream import \
+        StreamingBeamSession
+    model = Transducer(TINY_STREAMING).init_weights(
+        torch.Generator().manual_seed(0))
+    pipe = AsrPipeline(model, Vocabulary.from_map(WORDS), Config(
+        compute_dtype="float32", inference_backend="tpu",
+        audio_sec_buckets=[1.0], batch_buckets=[1], decoding_mode="beam"),
+        dev)
+    bias = np.zeros((model.config.vocab_size,), np.float32)
+    bias[[2, 5, 9]] = [8.0, 7.5, 7.8]
+    pipe.warm_beam_chunk(16, 4)
+    waves = [wave(50, 9600), wave(51, 8000)]
+    ends = []
+    for eager in (False, True):
+        kernels.reset_launch_counts()
+        sessions = [StreamingBeamSession(pipe, chunk_frames=16, norm="none",
+                                         beam_width=4, bias=bias,
+                                         eager=eager) for _ in waves]
+        for i in range(0, 9600, 1600):
+            for sess, w in zip(sessions, waves):
+                sess.feed(w[i:i + 1600])
+        ends.append([(s.end(), s.hists) for s in sessions])
+        if not eager:
+            assert kernels.launch_counts()["beam_loop"] == sum(
+                s.chunks for s in sessions)
+    (prog,) = pipe.beam_chunk_programs.values()
+    assert prog.graph is not None
+    for (a, ha), (b, hb) in zip(*ends):
+        assert a.tokens == b.tokens and ha == hb and a.score == b.score
+    assert all(a.tokens for a, _ in ends[0])

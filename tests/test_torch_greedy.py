@@ -31,7 +31,8 @@ from amira_rust_asr_server_tpu.ops.pallas.decode_loop import \
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.ops.greedy import (
-    greedy_decode, greedy_decode_transducer)
+    greedy_active, greedy_decode, greedy_decode_transducer, greedy_init,
+    greedy_result, greedy_step)
 from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
     DecodeWeights, greedy_loop)
 
@@ -486,3 +487,108 @@ def test_int8_block_slices_pad_halves(d_embed):
                          + sl[f"b{layer}s"][g])
         got_gates = unpack_columns(torch.stack(gates), p, 4)
         assert torch.equal(got_gates, want)
+
+
+# -- the loop as steps (greedy_init / greedy_step) ----------------------------
+@pytest.fixture(scope="module")
+def by_depth():
+    """{layers: (JAX model, params, port model)} for tiny nets with 1, 2
+    and 3 prediction layers (blank bias +1.5), JAX-initialized."""
+    out = {}
+    for layers in (1, 2, 3):
+        cfg = dataclasses.replace(JaxTransducer.from_preset("tiny").config,
+                                  pred_layers=layers)
+        jm = JaxTransducer(cfg)
+        params = jm.init(jax.random.PRNGKey(layers))
+        params["joint"]["out"]["b"] = (
+            params["joint"]["out"]["b"].at[cfg.blank_id].add(1.5))
+        model = Transducer(cfg)
+        model.load_state_dict(from_jax_params(jax.device_get(params), cfg))
+        out[layers] = (jm, params, model.eval())
+    return out
+
+
+STEP_KW = dict(max_symbols=3, max_total=40, lookahead=4)
+
+
+def step_case(model, seed=3):
+    cfg = model.config
+    rng = np.random.default_rng(seed)
+    enc = rng.standard_normal((3, 17, cfg.d_enc)).astype(np.float32)
+    lens = np.asarray([17, 9, 2], np.int32)
+    with torch.no_grad():
+        enc_pre = model.joint_precompute_enc(torch.from_numpy(enc))
+    return enc, lens, enc_pre, model.init_state(3)
+
+
+def blocks(model, enc_pre, lens, state, n):
+    """The loop in blocks of ``n`` steps, the host asking once per block
+    (as the step route's captured programs do): (result, host reads,
+    steps run)."""
+    cfg = model.config
+    with torch.no_grad():
+        loop = greedy_init(model.predict_step, enc_pre,
+                           torch.from_numpy(lens), state, cfg.blank_id,
+                           max_total=STEP_KW["max_total"])
+        reads = steps = 0
+        while True:
+            reads += 1
+            if not bool(greedy_active(loop, STEP_KW["max_total"]).any()):
+                return greedy_result(loop), reads, steps
+            for _ in range(n):
+                loop = greedy_step(loop, model.predict_step,
+                                   model.joint_step_pre, cfg.blank_id,
+                                   **STEP_KW)
+                steps += 1
+
+
+def test_steps_past_termination_are_no_ops(by_depth):
+    """Once every lane is done a step neither emits, skips nor is forced:
+    every tensor of the loop's state stays bit for bit."""
+    _, _, model = by_depth[2]
+    _, lens, enc_pre, state = step_case(model)
+    done, _, steps = blocks(model, enc_pre, lens, state, 1)
+    assert steps > 0 and done.counts.sum() > 0
+    with torch.no_grad():
+        loop = greedy_init(model.predict_step, enc_pre,
+                           torch.from_numpy(lens), state,
+                           model.config.blank_id,
+                           max_total=STEP_KW["max_total"])
+        for _ in range(steps):
+            loop = greedy_step(loop, model.predict_step,
+                               model.joint_step_pre, model.config.blank_id,
+                               **STEP_KW)
+        assert not greedy_active(loop, STEP_KW["max_total"]).any()
+        before = [x.clone() for x in loop.tensors()]
+        for _ in range(5):
+            loop = greedy_step(loop, model.predict_step,
+                               model.joint_step_pre, model.config.blank_id,
+                               **STEP_KW)
+    for a, b in zip(loop.tensors(), before):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 3, 8, 64])
+@pytest.mark.parametrize("layers", [1, 2, 3])
+def test_blocks_of_steps_equal_greedy_decode(by_depth, layers, n):
+    """The loop run in blocks of ``n`` steps gives greedy_decode's result
+    bit for bit and JAX's per-step greedy decode's (f32), on 1-, 2- and
+    3-layer prediction nets; the host reads once per block and once at
+    the start, at most ceil(steps / n) + 1 times."""
+    jm, params, model = by_depth[layers]
+    enc, lens, enc_pre, state = step_case(model)
+    got, reads, _ = blocks(model, enc_pre, lens, state, n)
+    _, _, steps = blocks(model, enc_pre, lens, state, 1)
+    with torch.no_grad():
+        want = greedy_decode(model.predict_step, model.joint_step_pre,
+                             enc_pre, torch.from_numpy(lens), state,
+                             model.config.blank_id, **STEP_KW)
+    for a, b in zip((got.tokens, got.counts, got.frame_idx, got.confidence,
+                     *got.state, got.pred_out, got.last_token),
+                    (want.tokens, want.counts, want.frame_idx,
+                     want.confidence, *want.state, want.pred_out,
+                     want.last_token)):
+        assert torch.equal(a, b)
+    assert reads <= -(-steps // n) + 1 and got.counts.sum() > 0
+    assert_same(torch_result(got), jax_greedy(
+        jm, params, jnp.asarray(enc), jnp.asarray(lens), **STEP_KW))

@@ -34,7 +34,9 @@ import torch
 
 from amira_rust_asr_server_tpu_torch.models import Transducer, get_preset
 from amira_rust_asr_server_tpu_torch.ops import features
-from amira_rust_asr_server_tpu_torch.ops.beam import (TokenTrie, backtrace,
+from amira_rust_asr_server_tpu_torch.ops.beam import (NEG_INF, TokenTrie,
+                                                      backtrace,
+                                                      backtrace_carry,
                                                       finish_trace)
 from amira_rust_asr_server_tpu_torch.ops.kernels import mel
 from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
@@ -470,6 +472,96 @@ def test_beam_loop_chunks_and_empty_lane(dev, beam_width):
     for i in range(1, 7):
         assert torch.equal(got[i], ref[i]), i
     torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-4)
+
+
+def beam_chunked(fn, args, kw, lens, t_chunk):
+    """The beam of ``args`` run by ``fn`` (the kernel or its plain version)
+    chunk by chunk of ``t_chunk`` frames, each seeded from the carry the
+    chunk before left: (the last chunk's outputs, the carry, each
+    hypothesis's spliced history)."""
+    enc_pre, lens_t = args[0], args[1]
+    b, t, _ = enc_pre.shape
+    k = kw["beam_width"]
+    carry, hists = None, [[[] for _ in range(k)] for _ in range(b)]
+    for t0 in range(0, t, t_chunk):
+        enc = enc_pre[:, t0:t0 + t_chunk].contiguous()
+        n = (lens_t - t0).clamp(0, enc.shape[1]).to(torch.int32)
+        outs, carry = fn(enc, n, *args[2:], **kw, carry=carry,
+                         return_carry=True)
+        origins, seqs = backtrace_carry(finish_trace(*outs), n)
+        hists = [[hists[i][origins[i, j]] + seqs[i][j] for j in range(k)]
+                 for i in range(b)]
+    return outs, carry, hists
+
+
+def live_hists(outs, hists):
+    """The histories of the live hypotheses (score above NEG_INF / 2)."""
+    scores = outs[0].cpu().numpy()
+    return [[h for h, s in zip(lane, row) if s > NEG_INF / 2]
+            for lane, row in zip(hists, scores)]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("graph", [False, True])
+def test_beam_loop_chunked_equals_whole(dev, graph, dtype, quant):
+    """The kernel seeded chunk by chunk from its own carry (5 frames per
+    chunk, ragged lengths, a lane of length 0) gives the whole utterance's
+    pool scores, lengths and graph states bit for bit, and every live
+    hypothesis the whole utterance's history; the carry out of the whole
+    run is the last chunk's."""
+    args, kw, lens = beam_case("large", dtype, dev, graph)
+    args = (args[0], torch.tensor([41, 0, 17, 6], dtype=torch.int32,
+                                  device=dev)) + args[2:]
+    if quant:
+        args = (*args[:5], args[5].with_int8_lstm())
+    whole, wcarry = beam_loop(*args, **kw, return_carry=True)
+    origins, seqs = backtrace_carry(finish_trace(*whole), args[1])
+    outs, carry, hists = beam_chunked(beam_loop, args, kw, lens, 5)
+    for i in (0, 1, 6):
+        assert torch.equal(outs[i], whole[i]), i
+    assert live_hists(outs, hists) == live_hists(whole, seqs)
+    assert sum(map(len, live_hists(outs, hists)[0])) > 0
+    live = (whole[0] > NEG_INF / 2).reshape(-1)
+    for a, b_ in ((carry.pred_out, wcarry.pred_out),
+                  (carry.state[0], wcarry.state[0]),
+                  (carry.state[1], wcarry.state[1]),
+                  (carry.last_token, wcarry.last_token)):
+        assert torch.equal(a[..., live, :] if a.dim() > 1 else a[live],
+                           b_[..., live, :] if b_.dim() > 1 else b_[live])
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("preset", ["tiny", "large"])
+def test_beam_loop_carry_matches_plain(dev, preset, graph):
+    """f32, chunk by chunk from a carry (7 frames per chunk): the kernel and
+    its plain version give the same best tokens, pool lengths and graph
+    states, scores within 1e-4 relative, and the same carry out (last
+    tokens identical, h, c and pred_out within 1e-4 relative)."""
+    args, kw, lens = beam_case(preset, torch.float32, dev, graph)
+    got, gcarry, ghists = beam_chunked(beam_loop, args, kw, lens, 7)
+    ref, rcarry, rhists = beam_chunked(beam_loop_reference, args, kw, lens, 7)
+    for i in (1, 6):
+        assert torch.equal(got[i], ref[i]), i
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=1e-3)
+    best_got = [lane[int(np.argmax(s))] for lane, s in
+                zip(ghists, got[0].cpu().numpy())]
+    best_ref = [lane[int(np.argmax(s))] for lane, s in
+                zip(rhists, ref[0].cpu().numpy())]
+    assert best_got == best_ref and any(best_got)
+    assert torch.equal(gcarry.last_token, rcarry.last_token)
+    for a, b_ in ((gcarry.pred_out, rcarry.pred_out),
+                  (gcarry.state[0], rcarry.state[0]),
+                  (gcarry.state[1], rcarry.state[1])):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-5)
+
+
+def test_beam_loop_rejects_a_bad_carry(dev):
+    args, kw, lens = beam_case("tiny", torch.float32, dev, False)
+    _, carry = beam_loop(*args, **kw, return_carry=True)
+    bad = dataclasses.replace(carry, lens=carry.lens.long())
+    with pytest.raises(ValueError, match="carry.lens"):
+        beam_loop(*args, **kw, carry=bad)
 
 
 @pytest.mark.parametrize("graph", [False, True])

@@ -323,9 +323,7 @@ def test_pcm16_conversion_matches_reference():
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(model_family="aed"), dict(model_family="ctc"),
-    dict(decoding_mode="beam", streaming_mode="native",
-         model_preset="tiny-streaming")])
+    dict(model_family="aed"), dict(model_family="ctc")])
 def test_unported_options_are_refused(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_state(digits_config(**overrides),

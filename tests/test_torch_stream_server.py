@@ -46,6 +46,7 @@ from amira_rust_asr_server_tpu_torch.convert import from_jax_params
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.models.presets import TINY_STREAMING
 from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+from amira_rust_asr_server_tpu_torch.runtime.pipeline import check_supported
 from amira_rust_asr_server_tpu_torch.server import (AppState, build_state,
                                                     create_app)
 from amira_rust_asr_server_tpu_torch.server.stream import _LaneAdapter
@@ -453,5 +454,13 @@ def test_ws_native_streams_past_the_last_lane_run_solo_sessions():
 
 
 def test_native_beam_on_a_causal_preset_is_refused():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        native_pair(decoding_mode="beam")
+    """Streaming beam is served since it was ported, so the state builds
+    with no refusal (the name is older than the port of streaming beam):
+    its streams run beam sessions, and no lane engine is made.
+    tests/test_torch_beam_stream.py drives such a stream."""
+    _, _, state = native_pair(decoding_mode="beam")
+    try:
+        check_supported(state.config, state.pipeline.device, causal=True)
+        assert state.lane_engine is None
+    finally:
+        state.close()
