@@ -1,26 +1,42 @@
 """Carry the reference's weights across: JAX param pytree -> state dict.
 
-``from_jax_params`` takes the transducer's param tree as nested dicts and
-lists of numpy arrays (``jax.device_get(params)``, or an orbax restore) and
-returns a state dict for :class:`models.Transducer`. The layouts change only
-in the encoder, whose modules are torch's:
+``from_jax_params`` takes a param tree of any of the three model families
+as nested dicts and lists of numpy arrays (``jax.device_get(params)``, or an
+orbax restore) and returns a state dict for the family's model: the
+transducer (``encoder``, ``predictor``, ``joint``: :class:`models.
+Transducer`), CTC (``encoder``, ``head``: :class:`models.ctc.CTCModel`) or
+AED (``encoder``, ``decoder``: :class:`models.aed.AEDModel`). The family is
+read from the tree's top-level keys, or given. The layouts change only in
+the encoder, whose modules are torch's:
 
 - flax Dense ``kernel [in, out]``      -> ``Linear.weight [out, in]``
 - flax Conv ``kernel [k, in/g, out]``  -> ``weight [out, in/g, k]``
 - flax LayerNorm ``scale``             -> ``weight``
 
-LayerScale gains and the predictor/joint dicts carry over as they are (the
-decode-loop kernel reads the LSTM ``w [in, 4P]`` layout directly).
+LayerScale gains and the predictor/joint, head and decoder dicts carry over
+as they are (the decode-loop kernel reads the LSTM ``w [in, 4P]`` layout
+directly). :func:`to_model` builds the family's model and loads the state
+dict strictly: every key and shape.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from pathlib import Path
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .models import Transducer
+from .models.aed import AEDModel
+from .models.ctc import CTCModel
 from .models.presets import ModelConfig
+
+# each family's model and top-level param keys
+MODELS = {"transducer": Transducer, "ctc": CTCModel, "aed": AEDModel}
+FAMILY_KEYS = {"transducer": {"encoder", "predictor", "joint"},
+               "ctc": {"encoder", "head"},
+               "aed": {"encoder", "decoder"}}
 
 
 def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
@@ -47,9 +63,31 @@ def _encoder_leaf(key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     return key, arr
 
 
-def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig
+def family_of(tree: Dict[str, Any], family: Optional[str] = None) -> str:
+    """The model family of a param tree, by its top-level keys; with
+    ``family`` given, checks that the tree is one."""
+    keys = set(tree)
+    found = [f for f, want in FAMILY_KEYS.items() if keys == want]
+    if family is not None:
+        if family not in FAMILY_KEYS:
+            raise ValueError(f"unknown model family {family!r}")
+        if keys != FAMILY_KEYS[family]:
+            raise ValueError(f"a {family} param tree has the keys "
+                             f"{sorted(FAMILY_KEYS[family])}, got "
+                             f"{sorted(keys)}")
+        return family
+    if not found:
+        raise ValueError(f"param tree keys {sorted(keys)} match no model "
+                         f"family ({FAMILY_KEYS})")
+    return found[0]
+
+
+def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
+                    family: Optional[str] = None
                     ) -> Dict[str, torch.Tensor]:
-    """JAX transducer param tree (numpy leaves) -> the port's state dict."""
+    """JAX param tree (numpy leaves) of a transducer, CTC or AED model (by
+    its keys, or ``family``) -> the port's state dict."""
+    family_of(tree, family)
     if cfg.moe_experts > 0:
         raise NotImplementedError(
             "MoE encoders are not ported yet (ROADMAP.md queue 1, item 14)")
@@ -71,3 +109,28 @@ def save_npz(path, state_dict: Dict[str, torch.Tensor]) -> None:
 def load_npz(path) -> Dict[str, torch.Tensor]:
     with np.load(path) as data:
         return {k: torch.from_numpy(data[k].copy()) for k in data.files}
+
+
+def to_model(tree: Dict[str, Any], cfg: ModelConfig,
+             family: Optional[str] = None, **model_kw) -> torch.nn.Module:
+    """The family's model with the converted tree loaded strictly (every
+    key and shape); an AED model takes its decoder depth from the tree and
+    ``dec_heads`` from ``model_kw``."""
+    family = family_of(tree, family)
+    if family == "aed":
+        model_kw.setdefault("dec_layers", len(tree["decoder"]["layers"]))
+        model_kw.setdefault("d_dec", np.shape(tree["decoder"]["embed"])[1])
+    model = MODELS[family](cfg, **model_kw)
+    model.load_state_dict(from_jax_params(tree, cfg, family))
+    return model
+
+
+def load_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:
+    """Load a converted ``.npz`` state dict into ``model``, strictly; any
+    other checkpoint (an orbax tree) is refused by name."""
+    if Path(path).suffix != ".npz":
+        raise NotImplementedError(
+            f"checkpoint {str(path)!r}: the port reads converted .npz state "
+            "dicts; convert an orbax tree with tools/export_torch_params.py")
+    model.load_state_dict(load_npz(path))
+    return model

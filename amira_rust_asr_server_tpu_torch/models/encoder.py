@@ -27,6 +27,7 @@ subsampler's and the output projection stay plain, as in the reference.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Optional, Tuple
@@ -37,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.quant import pack_weight_int8, quant_dense
-from .presets import ModelConfig
+from .presets import ModelConfig, get_preset
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
 MASK_FILL = -1e9
@@ -320,3 +321,49 @@ class ConformerEncoder(nn.Module):
             x = getattr(self, f"block{i}")(x, pad_mask)
         x = self.out_proj(x)
         return torch.where(pad_mask[:, :, None], x, zero), enc_lens
+
+
+@torch.no_grad()
+def init_encoder_weights(encoder: ConformerEncoder,
+                         generator: torch.Generator) -> None:
+    """Seeded random init of an encoder (on the CPU, so a seed gives the
+    same weights on every device): fan-in-scaled normals for dense and
+    conv weights, zero biases; LayerNorm scales and LayerScale gains keep
+    their construction values (1 and the preset's gain)."""
+    for mod in encoder.modules():
+        if isinstance(mod, (nn.Linear, ChannelLastConv)):
+            w = mod.weight
+            fan_in = w[0].numel()
+            w.copy_(torch.randn(w.shape, generator=generator) / fan_in ** 0.5)
+            mod.bias.zero_()
+
+
+class EncoderModel(nn.Module):
+    """What the model families share: a conformer encoder under
+    ``encoder``, the int8 serving switch and the parameter count."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.config = config
+        self.encoder = ConformerEncoder(config)
+
+    @classmethod
+    def from_preset(cls, name: str, **kw) -> "EncoderModel":
+        return cls(get_preset(name), **kw)
+
+    def freeze_int8(self) -> "EncoderModel":
+        """Serve the encoder's block dense layers int8 (W8A8), from the
+        current weights: the reference's ``quantization="int8"`` flag flip
+        (``quant_int8``), with the int8 weights made here once."""
+        self.config = dataclasses.replace(self.config, quant_int8=True)
+        self.encoder.cfg = self.config
+        self.encoder.freeze_int8()
+        return self
+
+    def encode(self, features: torch.Tensor, feat_lens: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, n_mels, T] -> ([B, T', d_enc], [B] int32)."""
+        return self.encoder(features, feat_lens)
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.parameters())

@@ -92,15 +92,15 @@ def check_supported(cfg: Config, device: torch.device,
     ``causal``: the model preset is causal (native streaming, greedy or
     beam, runs on it; a non-causal preset streams chunked)."""
     todo = []
-    if cfg.model_family != "transducer":
-        todo.append(f"model_family={cfg.model_family!r} (ROADMAP.md queue 1 "
-                    "item 11)")
     if device.type == "cuda":
         # the kernels' wrappers choose the plain version by device alone, so
         # on the card the flags that would turn a kernel off are refused
+        # (the decode flags only where they choose a kernel: the CTC and
+        # AED families decode in plain torch, as the reference does)
         if not cfg.use_pallas_mel:
             todo.append("use_pallas_mel=False: the CUDA path always runs "
                         "csrc/mel.cu")
+    if device.type == "cuda" and cfg.model_family == "transducer":
         if not (cfg.use_pallas_decode_loop or cfg.use_pallas_decode_step):
             todo.append("use_pallas_decode_loop=False with use_pallas_"
                         "decode_step=False: the CUDA greedy path runs "
@@ -203,23 +203,8 @@ class AsrPipeline:
             # int8 weights from the cast ones, as the reference quantizes
             # its cast params inside its program
             self.model.freeze_int8()
-        # the loop kernels' weights (2-layer prediction nets); other depths
-        # decode beam through the plain scan and greedy per step
-        self.decode_weights = None
-        if self.model.config.pred_layers == 2:
-            self.decode_weights = DecodeWeights.from_model(
-                self.model, self.compute_dtype)
-            if cfg.int8_decode_weights and (cfg.use_pallas_decode_loop
-                                            or cfg.use_pallas_beam_loop):
-                # the reference's pred_quant: read by the loop kernels'
-                # routes only (the step route and the plain beam scan use
-                # the model's own weights)
-                self.decode_weights = self.decode_weights.with_int8_lstm()
-        # the step route's kernel reads the joint alone
-        self.step_weights = (JointWeights.from_model(self.model,
-                                                     self.compute_dtype)
-                             if self.greedy_route == "step" else None)
-        if cfg.decoding_mode == "greedy":
+        self.decode_weights, self.step_weights = self._decode_tables()
+        if cfg.decoding_mode == "greedy" and isinstance(model, Transducer):
             log.info("greedy decode route: %s (%d-layer prediction net, %s)",
                      self.greedy_route, self.model.config.pred_layers,
                      self.device.type)
@@ -291,6 +276,28 @@ class AsrPipeline:
         graph = TokenTrie.from_phrases(self.vocab, phrases, vocab_size,
                                        weights=weights if any_w else None)
         return graph.to(self.device)
+
+    def _decode_tables(self):
+        """(the loop kernels' weights, the step kernel's joint weights),
+        each None where its route does not run: the loop kernels take
+        2-layer prediction nets (other depths decode beam through the plain
+        scan and greedy per step), the step kernel runs on the step
+        route."""
+        cfg = self.config
+        decode_weights = None
+        if self.model.config.pred_layers == 2:
+            decode_weights = DecodeWeights.from_model(self.model,
+                                                      self.compute_dtype)
+            if cfg.int8_decode_weights and (cfg.use_pallas_decode_loop
+                                            or cfg.use_pallas_beam_loop):
+                # the reference's pred_quant: read by the loop kernels'
+                # routes only (the step route and the plain beam scan use
+                # the model's own weights)
+                decode_weights = decode_weights.with_int8_lstm()
+        step_weights = (JointWeights.from_model(self.model,
+                                                self.compute_dtype)
+                        if self.greedy_route == "step" else None)
+        return decode_weights, step_weights
 
     def _greedy_route(self) -> str:
         """The greedy decode's program, chosen once from the flags and the
@@ -787,9 +794,6 @@ class AsrPipeline:
         program: (host trace over all lanes, feat_lens, enc_lens). The
         batch and lattice paths share it, so a lattice runs the warmed
         bucket; ``eager`` as in :meth:`_decode_batch`."""
-        b_real = len(samples)
-        if b_real == 0:
-            raise InvalidAudioFormatError("empty batch")
         g = graph if graph is not None else self.beam_graph
         path = self.beam_decode_path(g)
         self.decode_path_counts[path] += 1
@@ -799,12 +803,23 @@ class AsrPipeline:
                 self.on_beam_path(path)
             except Exception:  # noqa: BLE001 — metrics must not break serving
                 log.exception("on_beam_path hook failed")
+        host = self._run_beam_bucket(samples, bias, g, eager)
+        return BeamTrace(*host[:-2]), host[-2], host[-1]
+
+    def _run_beam_bucket(self, samples: Sequence[np.ndarray], bias,
+                         graph: Optional[TokenTrie], eager: bool):
+        """Pack ``samples`` into their beam bucket, stage the audio, the
+        decoding graph and the bias (zeros for none), run the bucket's
+        program (``eager``: its body) and copy its outputs to the host."""
+        b_real = len(samples)
+        if b_real == 0:
+            raise InvalidAudioFormatError("empty batch")
         n = self._bucket_len(max(s.shape[0] for s in samples))
         b = self._bucket_batch_warm(b_real, n, "beam")
         with self.device_lock:
-            prog = self._bucket_program("beam", b, n, g)
+            prog = self._bucket_program("beam", b, n, graph)
             self._stage_audio(prog, samples)
-            self._stage_graph(g)
+            self._stage_graph(graph)
             with torch.inference_mode():
                 if bias is None:
                     prog.inputs["bias"].zero_()
@@ -814,7 +829,7 @@ class AsrPipeline:
             host = prog.to_host(prog.run_eager() if eager else prog.run())
         if not eager:
             self._mark_compiled("beam", b, n)
-        return BeamTrace(*host[:-2]), host[-2], host[-1]
+        return host
 
     def decode_beam_batch(self, samples: Sequence[np.ndarray], *,
                           bias=None, graph: Optional[TokenTrie] = None,

@@ -15,8 +15,10 @@
     GET  /admin/config               effective configuration
 
 Request validation, status codes and the camelCase response schema are the
-reference's. Not served yet: the model-repository routes (ROADMAP.md queue
-1 item 6, [#12]).
+reference's. ``model_family`` chooses the model: the transducer, or the CTC
+and AED families (``runtime/family_pipeline.py``), which serve the batch
+endpoint only (streaming and lattices answer 400 for them). Not served
+yet: the model-repository routes (ROADMAP.md queue 1 item 6, [#12]).
 
 Entry point: ``python -m amira_rust_asr_server_tpu_torch.server --preset
 large`` (``AMIRA_STREAMING_MODE=native`` with ``--preset large-streaming``
@@ -31,7 +33,6 @@ import base64
 import dataclasses
 import json
 import time
-from pathlib import Path
 from typing import Any, Optional
 
 import torch
@@ -44,14 +45,14 @@ from ..errors import (AppError, CapacityExceededError, CircuitOpenError,
 from ..reliability import get_logger, init_tracing, request_span
 from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
-from ..convert import load_npz
 from ..device import resolve_device
-from ..models import Transducer
 from ..models.presets import get_preset
 from ..ops.lattice import decode_beam_lattice
 from ..runtime import AsrPipeline
+from ..runtime.family_pipeline import build_family_pipeline, family_model
 from ..runtime.pipeline import check_supported
 from ..types import AsrResponse, StreamStatus
+from ..utils.affinity import ThreadType, set_thread_affinity
 from ..utils.platform import initialize_platform
 from .state import AppState
 from .stream import StreamProcessor
@@ -383,26 +384,18 @@ def create_app(state: AppState) -> web.Application:
     return app
 
 
-def load_model(cfg: Config, preset: Optional[str] = None) -> Transducer:
-    """The preset's model with the configured weights: a converted ``.npz``
-    state dict (tools/export_torch_params.py), or a seeded random init.
+def load_model(cfg: Config, preset: Optional[str] = None) -> torch.nn.Module:
+    """The model of ``cfg.model_family`` (transducer, CTC or AED) on the
+    preset, with the configured weights: a converted ``.npz`` state dict
+    (tools/export_torch_params.py), or a seeded random init.
 
     With no ``checkpoint_path`` the port serves torch-seeded random weights
     (``INIT_SEED``) where the reference serves ``PRNGKey(0)`` weights, so
     the two packages' servers (the ``large`` preset included) give
     different text. Parity between them goes through the same weights:
     ``convert.from_jax_params`` or a converted ``.npz``."""
-    model = Transducer.from_preset(preset or cfg.model_preset)
-    if not cfg.checkpoint_path:
-        return model.init_weights(torch.Generator().manual_seed(INIT_SEED))
-    if Path(cfg.checkpoint_path).suffix != ".npz":
-        raise NotImplementedError(
-            f"checkpoint {cfg.checkpoint_path!r}: the port reads converted "
-            ".npz state dicts; convert an orbax tree with "
-            "tools/export_torch_params.py")
-    model.load_state_dict(load_npz(cfg.checkpoint_path))
-    log.info("loaded checkpoint from %s", cfg.checkpoint_path)
-    return model
+    return family_model(cfg.model_family, preset or cfg.model_preset, cfg,
+                        seed=INIT_SEED)
 
 
 def build_state(config: Optional[Config] = None,
@@ -422,7 +415,17 @@ def build_state(config: Optional[Config] = None,
         log.warning("vocabulary %s not found; using empty vocab",
                     cfg.vocabulary_path)
         vocab = Vocabulary.from_map({})
-    pipeline = AsrPipeline(load_model(cfg, preset), vocab, cfg, device)
+    model = load_model(cfg, preset)
+    if cfg.checkpoint_path:
+        log.info("loaded %s checkpoint from %s", cfg.model_family,
+                 cfg.checkpoint_path)
+    if cfg.model_family == "transducer":
+        pipeline = AsrPipeline(model, vocab, cfg, device)
+    else:
+        # the CTC and AED families on the same serving surface
+        _, pipeline = build_family_pipeline(
+            cfg.model_family, preset or cfg.model_preset, vocab, cfg, device,
+            model=model)
     state = AppState(pipeline, vocab, cfg)
     if warmup if warmup is not None else cfg.warmup_on_start:
         t0 = time.time()
@@ -457,6 +460,9 @@ async def run_server(state: AppState, host: Optional[str] = None,
                        port or cfg.server_port)
     await site.start()
     state.shutdown.install_signal_handlers()
+    if state.affinity_plan is not None and state.affinity_plan.enabled:
+        # the event loop's thread is the plan's IO pool
+        set_thread_affinity(state.affinity_plan.cores_for(ThreadType.IO))
     log.info("serving on %s:%s", host or cfg.server_host,
              port or cfg.server_port)
     try:

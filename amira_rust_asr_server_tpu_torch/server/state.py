@@ -1,6 +1,9 @@
 """Application state: the serving layer's container (port of
-server/state.py, without the reload guard and the CPU-affinity plan, which
-the port does not serve yet).
+server/state.py, without the reload guard, which the port does not serve
+yet). With ``enable_platform_optimizations`` and ``enable_cpu_affinity``
+it plans the host's cores (``utils/affinity.py``), logs the plan and pins
+the dispatch and session threads to it; ``run_server`` pins the event
+loop's thread to the plan's IO cores.
 
 Besides the batch surface it holds the streams' admission (the stream
 semaphore, the active-stream registry, the session threads) and, in native
@@ -25,6 +28,7 @@ from ..reliability import CircuitBreaker, GracefulShutdown, get_logger
 from ..vocab import Vocabulary
 from ..runtime import AsrPipeline, ContinuousBatcher
 from ..runtime.lane_engine import StreamingLaneEngine
+from ..utils.affinity import AffinityPlan, ThreadType, make_initializer
 from .metrics import PrometheusMetrics, ServiceMetrics
 
 log = get_logger("asr.state")
@@ -72,15 +76,27 @@ class AppState:
         self.breaker = CircuitBreaker(
             excluded_exceptions=(CapacityExceededError,))
         self.shutdown = GracefulShutdown()
+        # optional host-core partitioning: a dedicated core for the device
+        # feeder, the sessions kept off it
+        self.affinity_plan: Optional[AffinityPlan] = None
+        if (self.config.enable_platform_optimizations
+                and self.config.enable_cpu_affinity):
+            self.affinity_plan = AffinityPlan.plan()
+            get_logger("asr.affinity").info(
+                "affinity plan",
+                extra={"fields": self.affinity_plan.to_log()})
+        plan = self.affinity_plan or AffinityPlan(False, "affinity off")
         # one dispatch thread: work for one device serializes anyway
         self.inference_executor = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="device-dispatch")
+            max_workers=1, thread_name_prefix="device-dispatch",
+            initializer=make_initializer(plan, ThreadType.DISPATCH))
         # session threads run each stream's host work (buffering, weaving,
         # featurizing) and block on the batcher or the lane engine: one per
         # admissible stream
         self.session_executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=self.config.max_concurrent_streams + 2,
-            thread_name_prefix="stream-session")
+            thread_name_prefix="stream-session",
+            initializer=make_initializer(plan, ThreadType.SESSION))
         self.batcher = ContinuousBatcher(pipeline, self.inference_executor)
         if self.prometheus:
             self.batcher.prometheus = self.prometheus

@@ -68,6 +68,9 @@ def synth_digits(words: Sequence[str], *, noise: float = 0.0,
 
 ASSETS = Path(__file__).resolve().parent / "assets"
 TINY_DIGITS_NPZ = ASSETS / "tiny_digits.npz"
+# the CTC and AED families' tiny-digits weights, served by model_family
+TINY_DIGITS_FAMILY_NPZ = {"ctc": ASSETS / "tiny_digits_ctc.npz",
+                          "aed": ASSETS / "tiny_digits_aed.npz"}
 TINY_DIGITS_VOCAB = (Path(__file__).resolve().parents[1] / "model-repo"
                      / "tiny-digits-vocab.txt")
 
@@ -80,4 +83,4 @@ def pcm16_digits(words: Sequence[str], noise: float = 0.004,
 
 
 __all__ = ["DIGIT_WORDS", "synth_digits", "pcm16_digits", "TINY_DIGITS_NPZ",
-           "TINY_DIGITS_VOCAB"]
+           "TINY_DIGITS_FAMILY_NPZ", "TINY_DIGITS_VOCAB"]

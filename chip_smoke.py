@@ -120,6 +120,17 @@ their plain PyTorch versions:
      beside the parent's design (the encoder's program replayed, then the
      host loop) in turns, the host reads per request (at most ceil(steps /
      N) + 1) and the step kernel's launches counted through the replays
+  R  the CTC and AED families: the tiny-digits CTC and AED weights on the
+     card, greedy and beam, bf16, must transcribe "two five nine"; large
+     (seeded weights) in f32 at 1 x 2 s, each family's greedy and beam
+     bucket replay against its eager body (identical tokens, counts,
+     frames, confidences; beam: n-best tokens and scores), with the greedy
+     dispatch's cost both ways; then build_state(preset=large,
+     model_family=ctc|aed) behind the HTTP server, bf16: greedy 2, 8 and
+     30 s, beam 2 s with n-best 4, and quantization="int8" at 2 and 30 s;
+     200/COMPLETE in the reference schema, the log-mel kernel launched on
+     every request and the W8A8 kernel on every int8 one (and on no other);
+     each request's wall and its bucket's replay device time
 
 Any failure raises and exits non-zero. The line before the last holds the
 kernels' measurements as JSON; the last line is
@@ -127,7 +138,7 @@ kernels' measurements as JSON; the last line is
 lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
 the int8 and per-step phases, ``--phases ABMN`` the streaming phases,
 ``--phases ABO`` the bucket programs, ``--phases ABPQ`` streaming beam and
-the per-step route's device loop.
+the per-step route's device loop, ``--phases ABR`` the model families.
 """
 
 from __future__ import annotations
@@ -145,7 +156,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMNOPQ"
+ALL_PHASES = "ABCDEFGHIJKLMNOPQR"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -654,10 +665,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-async def _serve_and_post(state, port: int, reqs):
+async def _serve_and_post(state, port: int, reqs, per_request=None):
     """Serve ``state`` on ``port`` and post one request per ``(secs,
     extra body fields)`` of random PCM; returns the responses and the
-    kernels' launch counts over the requests alone."""
+    kernels' launch counts over the requests alone (each request's own
+    counts appended to ``per_request`` when it is a list)."""
     import aiohttp
 
     from amira_rust_asr_server_tpu_torch.ops import kernels
@@ -676,17 +688,23 @@ async def _serve_and_post(state, port: int, reqs):
                 except aiohttp.ClientConnectionError:
                     pass
                 await asyncio.sleep(0.1)
-            kernels.reset_launch_counts()
+            total: dict = {}
             for secs, extra in reqs:
                 n = int(secs * 16000)
                 pcm = (rng.standard_normal(n) * 3000).astype("<i2").tobytes()
+                kernels.reset_launch_counts()
                 t0 = time.perf_counter()
                 async with session.post(
                         f"{url}/v2/decode/batch/default",
                         json={"audio_buffer": list(pcm), **extra}) as r:
                     status, body = r.status, await r.json()
                 out.append((secs, n, status, body, time.perf_counter() - t0))
-            counts = kernels.launch_counts()
+                counts = kernels.launch_counts()
+                if per_request is not None:
+                    per_request.append(counts)
+                for name, c in counts.items():
+                    total[name] = total.get(name, 0) + c
+            counts = total
             async with session.get(f"{url}/metrics") as r:
                 metrics = await r.json()
     finally:
@@ -2441,6 +2459,192 @@ def phase_q(results):
         r["joint_argmax_launches"] for r in out.values())
 
 
+# -- the CTC and AED families (phase R) ---------------------------------------
+def family_keys(md: dict, beam: bool) -> set:
+    """The metadata keys of a family's response: token details and words
+    ride only on greedy responses with tokens, n-best and the decode path
+    on beam ones."""
+    keys = {"audio_length_samples", "features_length", "encoded_length",
+            "tokens"}
+    if beam:
+        return keys | {"n_best", "decode_path"}
+    return keys | ({"token_details", "words"} if md.get("tokens") else set())
+
+
+def phase_r(results):
+    """The CTC and AED families: the tiny-digits goldens on the card, each
+    family's bucket replay against its eager body in f32 (greedy and beam),
+    then large behind the HTTP server through build_state (bf16 greedy 2,
+    8 and 30 s, beam 2 s with n-best 4; int8 2 and 30 s): 200/COMPLETE, the
+    mel kernel launched on every request and the W8A8 kernel on every
+    int8 one, and each served bucket's device time."""
+    import copy
+
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
+        build_family_pipeline
+    from amira_rust_asr_server_tpu_torch.server import app as app_mod
+    from amira_rust_asr_server_tpu_torch.testing import (
+        TINY_DIGITS_FAMILY_NPZ, TINY_DIGITS_VOCAB, pcm16_digits)
+    dispatch_cost = pipeline_profiler().dispatch_cost
+    dev = torch.device("cuda")
+    out = results["families"] = {}
+    for fam in ("ctc", "aed"):
+        for mode in ("greedy", "beam"):
+            cfg = Config(model_family=fam, audio_sec_buckets=[2.0],
+                         batch_buckets=[1, 2], decoding_mode=mode,
+                         beam_n_best=3,
+                         checkpoint_path=str(TINY_DIGITS_FAMILY_NPZ[fam]),
+                         vocabulary_path=str(TINY_DIGITS_VOCAB),
+                         inference_backend="tpu")
+            state = app_mod.build_state(cfg, preset="tiny", warmup=False)
+            kernels.reset_launch_counts()
+            try:
+                tr = state.pipeline.process_batch(
+                    pcm16_digits(["two", "five", "nine"]))
+            finally:
+                state.close()
+            counts = kernels.launch_counts()
+            say("R", f"tiny-digits {fam} {mode} bf16 on the card: "
+                f"{tr.text!r} tokens {tr.tokens}, log_mel launches "
+                f"{counts['log_mel']}")
+            if (tr.text != "two five nine" or tr.tokens != [3, 6, 10]
+                    or counts["log_mel"] < 1):
+                raise AssertionError(f"[R] tiny-digits {fam} {mode} golden")
+
+    # one seeded large model per family, copied for every configuration:
+    # build_state's load_model would draw the same weights again
+    vocab_path = "model-repo/vocab.txt"
+    base = {fam: app_mod.load_model(Config(model_family=fam), "large")
+            for fam in ("ctc", "aed")}
+    load_model = app_mod.load_model
+    n2 = 32000
+    samples = [digits_audio(1, 2.0, seed=70)[0]]
+    for fam in ("ctc", "aed"):
+        cfg = Config(model_family=fam, vocabulary_path=vocab_path,
+                     inference_backend="tpu", audio_sec_buckets=[2.0],
+                     batch_buckets=[1], compute_dtype="float32",
+                     beam_n_best=4)
+        _, pipe = build_family_pipeline(fam, "large", load_vocab(cfg), cfg,
+                                        dev, model=copy.deepcopy(base[fam]))
+        t0 = time.perf_counter()
+        pipe._warm_one(1, n2)
+        warm_s = time.perf_counter() - t0
+        prog = pipe.programs[("greedy", 1, n2)]
+        got = pipe.decode_samples_batch(samples)[0]
+        want = pipe._decode_batch(samples, eager=True)[0]
+        same = all(np.array_equal(getattr(got, f), getattr(want, f))
+                   for f in ("tokens", "counts", "frame_idx", "confidence"))
+        replay = dispatch_cost(lambda: pipe.decode_samples_batch(samples),
+                               prog.run, reps=3)
+        eager = dispatch_cost(
+            lambda: pipe._decode_batch(samples, eager=True), prog.run_eager,
+            reps=2)
+        say("R", f"large {fam} f32 greedy 1 x 2 s: warm {warm_s:.2f} s "
+            f"(capture {prog.capture_seconds:.3f} s, graph pool "
+            f"+{prog.graph_bytes / 2**20:.1f} MiB, launches per replay "
+            f"{prog.launches}); replay vs eager body: tokens, counts, frames "
+            f"and confidences identical {same} ({int(got.counts[0])} tokens)")
+        for how, c in (("eager", eager), ("replay", replay)):
+            say("R", f"large {fam} f32 greedy {how}: {c['host_launches']} "
+                f"host launch calls, {c['kernels']} kernels busy "
+                f"{c['busy_ms']:.3f} ms of a {c['traced_span_ms']:.3f} ms "
+                f"traced span (idle share {c['idle_share']:.3f}); device "
+                f"time {c['device_ms']:.3f} ms, host wall "
+                f"{c['host_wall_ms']:.3f} ms")
+        pipe.config = dataclasses.replace(pipe.config, decoding_mode="beam")
+        pipe._warm_one(1, n2)
+        bprog = next(p for k, p in pipe.programs.items() if k[0] == "beam")
+        got_b = pipe.family_beam(samples, n_best=4)[0]
+        want_b = pipe.family_beam(samples, n_best=4, eager=True)[0]
+        same_b = (np.array_equal(got_b.tokens, want_b.tokens)
+                  and got_b.n_best == want_b.n_best)
+        beam_ms = cuda_ms(bprog.graph.replay, 3)
+        say("R", f"large {fam} f32 beam 1 x 2 s: capture "
+            f"{bprog.capture_seconds:.3f} s, graph pool "
+            f"+{bprog.graph_bytes / 2**20:.1f} MiB, replay {beam_ms:.3f} ms "
+            f"device; replay vs eager body: n-best tokens and scores "
+            f"identical {same_b}")
+        out[f"{fam} f32 replay"] = {
+            "identical": same, "beam_identical": same_b,
+            "capture_s": prog.capture_seconds,
+            "beam_capture_s": bprog.capture_seconds,
+            "replay": replay, "eager": eager, "beam_replay_ms": beam_ms}
+        if not (same and same_b):
+            raise AssertionError(f"[R] {fam}: a replay disagrees with its "
+                                 "eager body in f32")
+        del pipe, prog, bprog
+        torch.cuda.empty_cache()
+
+    runs = (("greedy", {}, (2.0, 8.0, 30.0)),
+            ("beam", dict(decoding_mode="beam", beam_n_best=4), (2.0,)),
+            ("int8", dict(quantization="int8"), (2.0, 30.0)))
+    launches = {"log_mel": 0, "quant_matmul": 0}
+    try:
+        for fam in ("ctc", "aed"):
+            app_mod.load_model = lambda cfg, preset=None, fam=fam: \
+                copy.deepcopy(base[fam])
+            for label, kw, secs in runs:
+                cfg = Config(model_family=fam, vocabulary_path=vocab_path,
+                             inference_backend="tpu", batch_buckets=[1],
+                             audio_sec_buckets=list(secs), **kw)
+                t0 = time.perf_counter()
+                state = app_mod.build_state(cfg, preset="large")
+                build_s = time.perf_counter() - t0
+                pipe = state.pipeline
+                if pipe.device.type != "cuda" or pipe.family != fam:
+                    raise AssertionError(f"[R] {fam} {label}: not on the "
+                                         "card")
+                per_request = []
+                resp, _, _ = asyncio.run(_serve_and_post(
+                    state, free_port(), [(s, {}) for s in secs],
+                    per_request))
+                mode = "beam" if label == "beam" else "greedy"
+                device_ms = {
+                    f"{k[2] / 16000:g}s": cuda_ms(p.graph.replay, 3)
+                    for k, p in pipe.programs.items() if k[0] == mode}
+                mcfg = pipe.model.config
+                for (s, n, status, body, wall), counts in zip(resp,
+                                                              per_request):
+                    md = body.get("metadata", {})
+                    key = f"{fam} {label} {s:.0f}s"
+                    dms = device_ms[f"{s:g}s"]
+                    out[key] = {"wall_ms": wall * 1e3, "device_ms": dms,
+                                "tokens": len(md.get("tokens", [])),
+                                "log_mel": counts["log_mel"],
+                                "quant_matmul": counts["quant_matmul"],
+                                "build_s": build_s}
+                    say("R", f"large {key} bf16: HTTP {status} "
+                        f"{body.get('status')} {len(md.get('tokens', []))} "
+                        f"tokens {md.get('decode_path', '')}, request wall "
+                        f"{wall * 1e3:.1f} ms, bucket replay {dms:.3f} ms "
+                        f"device; launches log_mel {counts['log_mel']} "
+                        f"quant_matmul {counts['quant_matmul']} (built and "
+                        f"warmed in {build_s:.1f} s)")
+                    if not response_ok(mcfg, n, status, body,
+                                       family_keys(md, label == "beam")):
+                        raise AssertionError(f"[R] bad response {key}: "
+                                             f"{json.dumps(body)[:600]}")
+                    if label == "beam" and (len(md["n_best"]) != 4 or
+                                            md["decode_path"] != pipe.beam_path):
+                        raise AssertionError(f"[R] {key}: n-best / path")
+                    if counts["log_mel"] < 1 or (
+                            (counts["quant_matmul"] < 1) == (label == "int8")):
+                        raise AssertionError(f"[R] {key}: launches {counts}")
+                    for name in launches:
+                        launches[name] += counts[name]
+                del pipe, state
+                torch.cuda.empty_cache()
+    finally:
+        app_mod.load_model = load_model
+    for name, n in launches.items():
+        results.setdefault(name, {})["family_launches"] = n
+    say("R", f"kernel launches over the families' requests: {launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -2483,6 +2687,8 @@ def main(argv=None) -> int:
         phase_p(results)
     if "Q" in phases:
         phase_q(results)
+    if "R" in phases:
+        phase_r(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -2500,6 +2706,7 @@ def main(argv=None) -> int:
                       "ws_native": results["ws_native"],
                       "ws_beam": results["ws_beam"],
                       "step_route": results["step_route"],
+                      "families": results["families"],
                       "programs": results["programs"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -635,3 +635,39 @@ def test_beam_chunk_replay_equals_eager_with_two_sessions(dev):
     for (a, ha), (b, hb) in zip(*ends):
         assert a.tokens == b.tokens and ha == hb and a.score == b.score
     assert all(a.tokens for a, _ in ends[0])
+
+
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+@pytest.mark.parametrize("family", ["ctc", "aed"])
+def test_family_replay_equals_eager_body(dev, family, mode):
+    """A CTC or AED bucket's replay and its eager body on the same inputs,
+    f32: identical tokens, counts, frames and confidences (greedy), n-best
+    tokens and scores (beam); the replay runs the mel kernel once and no
+    other hand kernel; the committed tiny-digits weights transcribe the
+    golden through the replay."""
+    from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
+        build_family_pipeline
+    from amira_rust_asr_server_tpu_torch.testing import (
+        TINY_DIGITS_FAMILY_NPZ, pcm16_digits)
+    cfg = Config(model_family=family, inference_backend=dev.type.replace(
+                     "cuda", "tpu"), decoding_mode=mode,
+                 checkpoint_path=str(TINY_DIGITS_FAMILY_NPZ[family]),
+                 **BUCKETS)
+    _, pipe = build_family_pipeline(
+        family, "tiny", Vocabulary.load(TINY_DIGITS_VOCAB), cfg, dev)
+    batch = utterances(21, [["one", "two", "three"], ["nine"], ["five"]])
+    if mode == "greedy":
+        got = pipe.decode_samples_batch(batch)[0]
+        want = pipe._decode_batch(batch, eager=True)[0]
+        for field in ("tokens", "counts", "frame_idx", "confidence"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(want, field))
+    else:
+        got = pipe.family_beam(batch, n_best=3)[0]
+        want = pipe.family_beam(batch, n_best=3, eager=True)[0]
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        assert got.n_best == want.n_best
+    prog = next(p for k, p in pipe.programs.items() if k[0] == mode)
+    assert prog.graph is not None and prog.launches == {"log_mel": 1}
+    assert pipe.process_batch(
+        pcm16_digits(["two", "five", "nine"])).text == "two five nine"

@@ -9,7 +9,8 @@
 - the port imports without jax (in a subprocess: this test process has jax
   loaded already by tests/conftest.py);
 - what the port does not serve yet is refused loudly, and what it serves
-  is accepted on the card (beam search: tests/test_torch_beam_pipeline.py;
+  is accepted on the card (CTC and AED: tests/test_torch_families.py;
+  beam search: tests/test_torch_beam_pipeline.py;
   int8: tests/test_torch_quant.py; the per-step greedy route:
   tests/test_torch_decode_step.py).
 """
@@ -41,6 +42,7 @@ from amira_rust_asr_server_tpu_torch.convert import from_jax_params, load_npz
 from amira_rust_asr_server_tpu_torch.device import resolve_device
 from amira_rust_asr_server_tpu_torch.errors import DeviceError
 from amira_rust_asr_server_tpu_torch.models import Transducer
+from amira_rust_asr_server_tpu_torch.models import presets
 from amira_rust_asr_server_tpu_torch.models.presets import TINY
 from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
 from amira_rust_asr_server_tpu_torch.runtime.pipeline import check_supported
@@ -324,11 +326,14 @@ def test_pcm16_conversion_matches_reference():
 
 @pytest.mark.parametrize("overrides", [
     dict(model_family="aed"), dict(model_family="ctc")])
-def test_unported_options_are_refused(overrides):
+def test_unported_options_are_refused(overrides, monkeypatch):
+    """The CTC and AED families are served (tests/test_torch_families.py);
+    what they still lack, an MoE encoder, is refused by name."""
+    monkeypatch.setitem(presets.PRESETS, "tiny-moe",
+                        dataclasses.replace(TINY, moe_experts=2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_state(digits_config(**overrides),
-                    preset=overrides.get("model_preset", "tiny"),
-                    warmup=False)
+        build_state(digits_config(checkpoint_path=None, **overrides),
+                    preset="tiny-moe", warmup=False)
 
 
 @pytest.mark.parametrize("overrides, reason", [
