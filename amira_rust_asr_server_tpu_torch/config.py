@@ -71,11 +71,14 @@ class Config:
     inference_backend: str = "tpu"
 
     # -- TPU-native model/runtime config ------------------------------------
-    checkpoint_path: Optional[str] = None  # orbax checkpoint dir (None = random init)
+    # a converted .npz state dict (tools/export_torch_params.py; None =
+    # seeded random init)
+    checkpoint_path: Optional[str] = None
     model_preset: str = "large"  # see models/presets.py
     # model repository root for the live-reload surface (the in-process
     # analogue of Triton's DEFAULT_MODEL_REPO, ref: constants.rs:291-292):
-    # <repo>/<name>.json pointers name orbax trees; served via
+    # <repo>/<name>.npz, or a <repo>/<name>.json pointer to an .npz or to
+    # an orbax tree converted beside it (<tree>.npz); served via
     # /v2/repository/* (server/app.py, runtime/reload.py)
     model_repo_path: str = "model-repo"
     compute_dtype: str = "bfloat16"

@@ -16,17 +16,20 @@ the encoder, whose modules are torch's:
 LayerScale gains and the predictor/joint, head and decoder dicts carry over
 as they are (the decode-loop kernel reads the LSTM ``w [in, 4P]`` layout
 directly). :func:`to_model` builds the family's model and loads the state
-dict strictly: every key and shape.
+dict strictly: every key and shape. :func:`stage_checkpoint` prepares a
+converted ``.npz`` for a reload of a serving model without touching it.
 """
 
 from __future__ import annotations
 
+import zipfile
 from pathlib import Path
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .errors import AppError
 from .models import Transducer
 from .models.aed import AEDModel
 from .models.ctc import CTCModel
@@ -123,6 +126,47 @@ def to_model(tree: Dict[str, Any], cfg: ModelConfig,
     model = MODELS[family](cfg, **model_kw)
     model.load_state_dict(from_jax_params(tree, cfg, family))
     return model
+
+
+class CheckpointMismatchError(AppError):
+    """A checkpoint that does not fit the serving model's parameters (a
+    wrong preset or family), or no readable ``.npz``: refused before any
+    serving state is touched (the reference's, in its reload module)."""
+
+    http_status = 422
+    code = "checkpoint_mismatch"
+
+
+def stage_checkpoint(model: torch.nn.Module, path, lock
+                     ) -> Dict[str, torch.Tensor]:
+    """The ``.npz`` state dict at ``path`` made ready to serve on ``model``,
+    which it does not touch: read on the host, every key and shape checked
+    against ``model.state_dict()`` (:class:`CheckpointMismatchError` on any
+    difference), then each tensor cast to its parameter's type on its
+    parameter's device, in new tensors. ``lock`` (the pipeline's
+    ``device_lock``) is held around each tensor's copy, so other threads'
+    device work interleaves and no capture sees a copy."""
+    try:
+        arrays = load_npz(path)
+    except (OSError, ValueError, zipfile.BadZipFile) as e:
+        raise CheckpointMismatchError(
+            f"checkpoint {str(path)!r} is not a readable .npz state dict: "
+            f"{e}") from e
+    want = model.state_dict()
+    bad = ([f"missing {k}" for k in want if k not in arrays]
+           + [f"unexpected {k}" for k in arrays if k not in want]
+           + [f"{k}: {tuple(arrays[k].shape)} != {tuple(t.shape)}"
+              for k, t in want.items()
+              if k in arrays and arrays[k].shape != t.shape])
+    if bad:
+        raise CheckpointMismatchError(
+            f"checkpoint {str(path)!r} does not fit the serving model "
+            f"({len(bad)} mismatched): " + "; ".join(bad[:5]))
+    staged = {}
+    for name, t in want.items():
+        with lock:
+            staged[name] = arrays.pop(name).to(t.device).to(t.dtype)
+    return staged
 
 
 def load_checkpoint(model: torch.nn.Module, path) -> torch.nn.Module:

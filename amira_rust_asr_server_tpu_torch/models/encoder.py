@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels.decode_loop import copy_into_
 from ..ops.quant import pack_weight_int8, quant_dense
 from .presets import ModelConfig, get_preset
 
@@ -118,7 +119,7 @@ class QLinear(nn.Linear):
     """``nn.Linear`` with the reference ``QDense``'s int8 serving path. The
     parameters keep ``nn.Linear``'s names, so converted weights load as they
     are; the int8 weight, its scales and the f32 bias are non-persistent
-    buffers made once by :meth:`freeze_int8` from the served weights
+    buffers made by :meth:`freeze_int8` from the served weights
     (quantized on the fly until then, as the reference does inside its
     program)."""
 
@@ -130,11 +131,19 @@ class QLinear(nn.Linear):
         self.register_buffer("bias32", None, persistent=False)
 
     def freeze_int8(self) -> None:
-        """Quantize the current weight for the int8 path, once. Call it
-        after any dtype cast: a later cast would round ``w_scale``."""
+        """Quantize the current weight for the int8 path. Call it after any
+        dtype cast: a later cast would round ``w_scale``. Called again
+        (new weights copied in), it writes into the buffers it made, which
+        captured programs read at their addresses."""
         self.quant = True
-        self.wq, self.w_scale = pack_weight_int8(self.weight)
-        self.bias32 = self.bias.detach().float().contiguous()
+        wq, w_scale = pack_weight_int8(self.weight)
+        bias32 = self.bias.detach().float().contiguous()
+        if self.wq is None:
+            self.wq, self.w_scale, self.bias32 = wq, w_scale, bias32
+        else:
+            for dst, src in ((self.wq, wq), (self.w_scale, w_scale),
+                             (self.bias32, bias32)):
+                copy_into_(dst, src)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.quant:

@@ -23,6 +23,12 @@ The kernel runs one block per SM, each owning a slice of the columns
 per block once (:func:`pack_columns`), the int8 halves' words zero-padded to
 the int8 tensor cores' k-step (:func:`pad_words`). The step kernel
 (``decode_step``) runs on the same grid with :meth:`JointWeights.block_slices`.
+
+Captured CUDA graphs read these tables at fixed addresses, so new weights
+reach them only in place: :meth:`DecodeWeights.refresh_` and
+:meth:`JointWeights.refresh_` copy tables recomputed from the new weights
+into the tensors that exist, the per-grid block slices made so far among
+them.
 """
 
 from __future__ import annotations
@@ -124,6 +130,28 @@ def pack_columns(w: torch.Tensor, blocks: int, width: int,
     return out[:, 0] if vec else out
 
 
+def copy_into_(dst, src) -> None:
+    """``src``'s values into ``dst``'s tensors in place, through dicts of
+    them; a tensor that shares ``src``'s memory (both alias one parameter)
+    is left as it is."""
+    if isinstance(dst, dict):
+        for key, value in dst.items():
+            copy_into_(value, src[key])
+    elif dst is not None and dst.data_ptr() != src.data_ptr():
+        dst.copy_(src)
+
+
+def refresh_tables_(old, new) -> None:
+    """The fields of ``new`` (the same tables recomputed from new weights)
+    copied into those of ``old``, and every grid's block slices ``old`` has
+    made, from ``new``'s slices of the same grid. Call it in inference
+    mode: the slices are made in it."""
+    for f in dataclasses.fields(old):
+        copy_into_(getattr(old, f.name), getattr(new, f.name))
+    for key, slices in old.__dict__.get("_block_slices", {}).items():
+        copy_into_(slices, new.block_slices(*key))
+
+
 @dataclasses.dataclass
 class JointWeights:
     """The joint's weights as the decode kernels read them: matrices in the
@@ -157,6 +185,12 @@ class JointWeights:
             cache[rows] = torch.zeros((n_bytes,), dtype=torch.uint8,
                                       device=self.wo.device)
         return cache[rows]
+
+    def refresh_(self, new: "JointWeights") -> None:
+        """``new``'s tables (the same weights recomputed) copied into these
+        in place, with the block slices made so far; the addresses do not
+        change (:func:`refresh_tables_`)."""
+        refresh_tables_(self, new)
 
     @classmethod
     def from_model(cls, model, dtype: torch.dtype) -> "JointWeights":
@@ -244,6 +278,14 @@ class DecodeWeights:
                     out[name + "s"] = pack_columns(self.quant[name], **gates)
             cache[key] = out
         return cache[key]
+
+    def refresh_(self, new: "DecodeWeights") -> None:
+        """``new``'s tables (the same weights recomputed, int8 halves
+        included) copied into these in place: the fields, the block slices
+        made so far and :attr:`joint`'s; the addresses do not change."""
+        refresh_tables_(self, new)
+        if "_joint" in self.__dict__:
+            self.joint.refresh_(new.joint)
 
     @property
     def dtype(self) -> torch.dtype:

@@ -286,3 +286,13 @@ def build_family_pipeline(family: str, preset: str, vocab: Vocabulary,
     cfg = dataclasses.replace(cfg, int8_decode_weights=False)
     cls = CTCPipeline if family == "ctc" else AEDPipeline
     return model, cls(model, vocab, cfg, device)
+
+
+def serving_pipeline(model: torch.nn.Module, vocab: Vocabulary, cfg: Config,
+                     device: Optional[torch.device] = None) -> AsrPipeline:
+    """The pipeline that serves ``model`` of ``cfg.model_family``: the
+    transducer's :class:`AsrPipeline`, or the CTC or AED family's."""
+    if cfg.model_family == "transducer":
+        return AsrPipeline(model, vocab, cfg, device)
+    return build_family_pipeline(cfg.model_family, cfg.model_preset, vocab,
+                                 cfg, device, model=model)[1]

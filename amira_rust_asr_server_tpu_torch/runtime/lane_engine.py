@@ -35,7 +35,7 @@ import torch
 from .. import constants as C
 from ..ops.streaming import encode_chunk, init_encoder_cache
 from .native_stream import StreamingFeaturizer, fresh_carry
-from .pipeline import StepLoop
+from .pipeline import StepLoop, take_carry
 from .programs import DeviceProgram, host_staging, stage
 
 
@@ -126,9 +126,10 @@ class StreamingLaneEngine:
         with pipeline.device_lock, torch.inference_mode():
             self.enc_cache = init_encoder_cache(cfg, n_lanes, self._dtype,
                                                 dev)
-            (self.dec_h, self.dec_c, self.pred_out,
-             self.last_token) = fresh_carry(self.model, n_lanes, self._dtype,
-                                            dev)
+            # h, c, pred_out, last token of every lane
+            self.carry = fresh_carry(self.model, n_lanes, self._dtype, dev)
+            self.dec_h, self.dec_c, self.pred_out, self.last_token = \
+                self.carry
             # one fresh lane's carry, for the lane reset
             self._fresh = (self.dec_h[:, :1].clone(),
                            self.dec_c[:, :1].clone(),
@@ -187,6 +188,21 @@ class StreamingLaneEngine:
                 torch.cuda.synchronize(self._device)
         self.warmed_up = True
         return time.perf_counter() - t0
+
+    @torch.inference_mode()
+    def refresh_(self) -> None:
+        """After the pipeline's weights changed in place (a reload), the
+        fresh lane's carry recomputed into its tensors. The chunk step's
+        graph reads the parameters themselves, and a lane is reset when a
+        stream attaches, so nothing else holds the old weights; a reload
+        waits for zero live lanes."""
+        with self.pipeline.device_lock:
+            # over every lane, as at construction: one lane's arithmetic
+            # can round apart from the batch's
+            h, c, pred, _ = fresh_carry(self.model, self.n_lanes,
+                                        self._dtype, self._device)
+            for dst, src in zip(self._fresh, (h[:, :1], c[:, :1], pred[:1])):
+                dst.copy_(src)
 
     # ------------------------------------------------------------------
     def attach(self) -> Optional[int]:
@@ -276,18 +292,10 @@ class StreamingLaneEngine:
     def _decode(self, enc_pre):
         """The carried decode of every lane, the carry updated in place;
         (counts, tokens)."""
-        return self._take(self.pipeline.decode_carried(
+        return take_carry(self.carry, self.pipeline.decode_carried(
             enc_pre, self.program.inputs["enc_lens"], self.dec_h, self.dec_c,
             self.pred_out, self.last_token, max_symbols=self.max_symbols,
             max_total=self.max_total))
-
-    def _take(self, res):
-        """The new carry into the carry's own buffers; (counts, tokens)."""
-        for dst, src in zip((self.dec_h, self.dec_c, self.pred_out,
-                             self.last_token),
-                            (*res.state, res.pred_out, res.last_token)):
-            dst.copy_(src)
-        return res.counts, res.tokens
 
     def _step(self, feats: np.ndarray, active: np.ndarray,
               enc_lens: np.ndarray, *, eager: bool = False):
@@ -309,7 +317,8 @@ class StreamingLaneEngine:
                 outs = prog.run_eager() if eager else prog.run()
                 if self.steps is not None:
                     with torch.inference_mode():
-                        outs = self._take(self.steps.finish(outs[0]))
+                        outs = take_carry(self.carry,
+                                          self.steps.finish(outs[0]))
             return prog.to_host(outs)
 
     def tick(self) -> Dict[int, List[int]]:

@@ -5,7 +5,8 @@ Unlike the chunked mode nothing is re-decoded and nothing is woven: every
 sample is featurized once, every mel frame is encoded once against the
 encoder cache (``ops/streaming.py``), and every encoder frame is consumed
 once by the carried greedy decode (:meth:`AsrPipeline.decode_carried`, the
-loop kernel or the per-step route). Partial transcripts only grow.
+loop kernel or the per-step route). A solo session's chunk step is the
+pipeline's captured solo chunk program. Partial transcripts only grow.
 
 Featurization (host, float64, as the reference's): the stream is
 ``reflect(first 256) + samples + zeros at the end``; frame t covers stream
@@ -18,15 +19,14 @@ the whole utterance.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 import torch
 
 from .. import constants as C
-from ..ops.greedy import GreedyResult
 from ..ops.mel import mel_filterbank, windowed_dft_basis
-from ..ops.streaming import encode_chunk, init_encoder_cache
+from ..ops.streaming import init_encoder_cache
 from ..types import Transcription
 
 _PAD = C.N_FFT // 2  # 256
@@ -127,15 +127,17 @@ def fresh_carry(model, lanes: int, dtype, device):
 
 
 class NativeStreamSession:
-    """One stream's native-mode pipeline; its device state stays on the
-    device between chunks. ``pipeline`` is the served
-    :class:`~runtime.pipeline.AsrPipeline` (its model, device, working type
-    and decode route)."""
+    """One stream's native-mode pipeline; its device state (encoder cache,
+    decode carry) stays on the device between chunks. ``pipeline`` is the
+    served :class:`~runtime.pipeline.AsrPipeline` (its model, device,
+    working type and decode route); each chunk runs the pipeline's shared
+    solo chunk program (:meth:`AsrPipeline.solo_chunk`), or with ``eager``
+    its body eagerly (the oracle)."""
 
     def __init__(self, pipeline, chunk_frames: int = 64,
                  norm: str = "stream",
                  max_symbols: int = C.MAX_SYMBOLS_PER_STEP,
-                 max_total: int = C.MAX_TOTAL_TOKENS):
+                 max_total: int = C.MAX_TOTAL_TOKENS, eager: bool = False):
         cfg = pipeline.model.config
         if not cfg.causal:
             raise ValueError("native streaming needs a causal model preset")
@@ -147,12 +149,13 @@ class NativeStreamSession:
         self.chunk_frames = chunk_frames
         self.max_symbols = max_symbols
         self.max_total = max_total
+        self.eager = eager
         self.featurizer = StreamingFeaturizer(cfg.n_mels, norm)
-        self._dtype = pipeline.compute_dtype
-        with pipeline.device_lock:
-            self.enc_cache = init_encoder_cache(cfg, 1, self._dtype,
-                                                pipeline.device)
-        self.decode_carry: Optional[GreedyResult] = None
+        dt, dev = pipeline.compute_dtype, pipeline.device
+        with pipeline.device_lock, torch.inference_mode():
+            self.enc_cache = init_encoder_cache(cfg, 1, dt, dev)
+            # h, c, pred_out, last token: the SOS carry
+            self.carry = fresh_carry(pipeline.model, 1, dt, dev)
         self.tokens: List[int] = []
         self.mel_backlog = np.zeros((0, cfg.n_mels), np.float32)
 
@@ -183,36 +186,16 @@ class NativeStreamSession:
             features_length=self.featurizer.frames_emitted,
             encoded_length=encoded)
 
-    @torch.inference_mode()
     def _process_chunk(self, chunk: np.ndarray, real_frames: int) -> None:
-        """One chunk, eagerly: a solo session (every engine lane busy) has
-        its own cache and carry, so it runs no shared program."""
-        with self.pipeline.device_lock:
-            pipe = self.pipeline
-            model = pipe.model
-            dev = pipe.device
-            feats = torch.from_numpy(
-                self.featurizer.normalize(chunk).T[None].copy()).to(
-                    dev, self._dtype)                              # [1, M, Tc]
-            n_enc = -(-real_frames // model.config.subsampling_factor)
-            enc, self.enc_cache = encode_chunk(model.encoder, feats,
-                                               self.enc_cache)
-            carry = self.decode_carry
-            if carry is None:
-                h, c, pred_out, last = fresh_carry(model, 1, self._dtype, dev)
-            else:
-                (h, c), pred_out, last = (carry.state, carry.pred_out,
-                                          carry.last_token)
-            # max_total budgets each chunk step, as the reference's counter is
-            # local to each decode call: a long session never goes silent
-            res = pipe.decode_carried(
-                model.joint_precompute_enc(enc).contiguous(),
-                torch.tensor([n_enc], dtype=torch.int32, device=dev), h, c,
-                pred_out, last, max_symbols=self.max_symbols,
-                max_total=self.max_total)
-            self.decode_carry = res
-            n = int(res.counts[0])
-            self.tokens.extend(int(t) for t in res.tokens[0, :n].tolist())
+        """One chunk through the solo chunk program: only its real frames
+        decode."""
+        sub = self.pipeline.model.config.subsampling_factor
+        n_enc = -(-real_frames // sub)
+        counts, tokens = self.pipeline.solo_chunk(
+            self.enc_cache, self.carry, self.featurizer.normalize(chunk),
+            n_enc, max_symbols=self.max_symbols, max_total=self.max_total,
+            eager=self.eager)
+        self.tokens.extend(int(t) for t in tokens[0, :int(counts[0])])
 
     def transcript(self) -> str:
         return self.vocab.decode_tokens(self.tokens)

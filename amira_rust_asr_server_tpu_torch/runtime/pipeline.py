@@ -56,7 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,7 @@ from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
 from ..ops.kernels.decode_step import JointWeights, make_fused_step_fn
 from ..ops.streaming import EncoderCache, encode_chunk, init_encoder_cache
 from ..types import TokenInfo, Transcription
+from .native_stream import fresh_carry
 from .programs import DeviceProgram, host_staging, stage
 
 log = get_logger("asr.pipeline")
@@ -169,6 +170,15 @@ class StepLoop:
             (flag,) = self.program.run()
 
 
+def take_carry(carry: Sequence[torch.Tensor], res: GreedyResult
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``res``'s new carry into ``carry`` (h, c, pred_out, last token) in
+    place; returns (counts, tokens)."""
+    for dst, src in zip(carry, (*res.state, res.pred_out, res.last_token)):
+        dst.copy_(src)
+    return res.counts, res.tokens
+
+
 @dataclasses.dataclass
 class StreamState:
     """Per-stream decode state, resident on the device across chunks."""
@@ -222,6 +232,9 @@ class AsrPipeline:
         # (chunk frames, beam width, expansions, graph capacity) -> the
         # streaming beam's chunk program (:meth:`beam_chunk`)
         self.beam_chunk_programs: dict = {}
+        # (chunk frames, max_symbols, max_total) -> a solo native session's
+        # chunk program (:meth:`solo_chunk`)
+        self.solo_chunk_programs: dict = {}
         self._fresh_beams: dict = {}  # beam width -> a fresh BeamCarry
         # graph capacity -> the static decoding-graph tables the beam
         # programs of that capacity read (:meth:`_stage_graph`)
@@ -323,6 +336,53 @@ class AsrPipeline:
         return "plain"
 
     # ------------------------------------------------------------------
+    # new weights under the captured programs
+    # ------------------------------------------------------------------
+    def swap_weights(self, staged: Dict[str, torch.Tensor]) -> None:
+        """Serve new weights: ``staged``, the model's state dict with each
+        tensor on the device in its parameter's type
+        (``convert.stage_checkpoint``), is copied into the parameters in
+        place, then every table derived from them is recomputed in place
+        (:meth:`refresh_tables`). No program is dropped or captured again:
+        the CUDA graphs read the parameters and the tables at addresses
+        that do not change, as the reference's programs take the params as
+        arguments. Holds :attr:`device_lock` and waits for the device
+        before it returns, so no run sees a half-copied set; the reload
+        runs it on the dispatch thread."""
+        with self.device_lock:
+            params = self.model.state_dict()
+            with torch.no_grad():
+                for name, tensor in staged.items():
+                    params[name].copy_(tensor)
+            self.refresh_tables()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def refresh_tables(self) -> None:
+        """Recompute every table derived from the weights into the tensors
+        that hold it, after the parameters changed in place: the int8
+        encoder's (``QLinear.freeze_int8``), the loop kernels' and the step
+        kernel's (``DecodeWeights.refresh_``, ``JointWeights.refresh_``),
+        the fresh lane's carry and every fresh beam."""
+        with self.device_lock:
+            if self.model.config.quant_int8:
+                self.model.freeze_int8()
+            for old, new in zip((self.decode_weights, self.step_weights),
+                                self._decode_tables()):
+                if old is not None:
+                    old.refresh_(new)
+            if self._fresh_cache is not None:
+                (out, (h, c)), (out1, (h1, c1)) = (self._fresh_cache,
+                                                   self._sos_carry())
+                for dst, src in ((out, out1), (h, h1), (c, c1)):
+                    dst.copy_(src)
+            for width, fresh in self._fresh_beams.items():
+                for dst, src in zip(fresh.tensors(),
+                                    self._sos_beam(width).tensors()):
+                    dst.copy_(src)
+
+    # ------------------------------------------------------------------
     def _encode(self, audio, audio_lens):
         """log-mel (through the mel kernel's wrapper) -> encoder -> the
         joint's encoder projection."""
@@ -413,17 +473,20 @@ class AsrPipeline:
     def _fresh_carry(self):
         """The decode carry of a fresh (SOS) lane, ``(pred_out [1, P],
         (h, c) [layers, 1, P])`` in f32 on the device, computed once from
-        the served weights."""
+        the served weights (and again in place by :meth:`refresh_tables`)."""
         with self.device_lock:
             if self._fresh_cache is None:
-                mcfg = self.model.config
-                with torch.inference_mode():
-                    out, (h, c) = self.model.predict_step(
-                        torch.full((1,), mcfg.blank_id, dtype=torch.int32,
-                                   device=self.device),
-                        self.model.init_state(1, torch.float32, self.device))
-                self._fresh_cache = (out.float(), (h.float(), c.float()))
+                self._fresh_cache = self._sos_carry()
             return self._fresh_cache
+
+    @torch.inference_mode()
+    def _sos_carry(self):
+        mcfg = self.model.config
+        out, (h, c) = self.model.predict_step(
+            torch.full((1,), mcfg.blank_id, dtype=torch.int32,
+                       device=self.device),
+            self.model.init_state(1, torch.float32, self.device))
+        return out.float(), (h.float(), c.float())
 
     def _bucket_program(self, mode: str, b: int, n: int,
                         graph: Optional[TokenTrie] = None) -> DeviceProgram:
@@ -897,32 +960,34 @@ class AsrPipeline:
         whose SOS step the whole-utterance kernel runs too; on the plain
         scan's route its SOS step)."""
         mcfg = self.model.config
-        dt, dev = self.compute_dtype, self.device
         with self.device_lock, torch.inference_mode():
             fresh = self._fresh_beams.get(beam_width)
             if fresh is None:
-                if self.beam_decode_path(None) == "pallas_kernel":
-                    h, c = self.model.init_state(1, dt, dev)
-                    _, fresh = beam_loop(
-                        torch.zeros((1, 1, mcfg.d_joint), dtype=dt,
-                                    device=dev),
-                        torch.zeros((1,), dtype=torch.int32, device=dev),
-                        h, c, torch.zeros((mcfg.vocab_size,), device=dev),
-                        self.decode_weights, beam_width=beam_width,
-                        max_expansions=1, blank_id=mcfg.blank_id,
-                        return_carry=True)
-                else:
-                    fresh = beam_carry_init(
-                        self.model.predict_step,
-                        self.model.init_state(1, dt, dev), mcfg.blank_id, 1,
-                        beam_width)
-                self._fresh_beams[beam_width] = fresh
+                fresh = self._fresh_beams[beam_width] = self._sos_beam(
+                    beam_width)
             carry = BeamCarry(*(x.clone() for x in (
                 fresh.scores, fresh.lens, fresh.pred_out)),
                 state=tuple(x.clone() for x in fresh.state),
                 last_token=fresh.last_token.clone(),
                 g_state=fresh.g_state.clone())
-            return init_encoder_cache(mcfg, 1, dt, dev), carry
+            return (init_encoder_cache(mcfg, 1, self.compute_dtype,
+                                       self.device), carry)
+
+    def _sos_beam(self, beam_width: int) -> BeamCarry:
+        """The SOS beam carry of :meth:`fresh_beam`, computed anew."""
+        mcfg = self.model.config
+        dt, dev = self.compute_dtype, self.device
+        if self.beam_decode_path(None) == "pallas_kernel":
+            h, c = self.model.init_state(1, dt, dev)
+            return beam_loop(
+                torch.zeros((1, 1, mcfg.d_joint), dtype=dt, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev), h, c,
+                torch.zeros((mcfg.vocab_size,), device=dev),
+                self.decode_weights, beam_width=beam_width, max_expansions=1,
+                blank_id=mcfg.blank_id, return_carry=True)[1]
+        return beam_carry_init(self.model.predict_step,
+                               self.model.init_state(1, dt, dev),
+                               mcfg.blank_id, 1, beam_width)
 
     def _beam_chunk_program(self, chunk_frames: int, beam_width: int,
                             max_expansions: int, cap: int) -> DeviceProgram:
@@ -1040,6 +1105,129 @@ class AsrPipeline:
                                 max_expansions=max_expansions, graph=graph)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # native streaming, solo: one chunk program per shape, shared by the
+    # sessions that find every lane of the engine busy
+    # ------------------------------------------------------------------
+    def _solo_chunk_program(self, chunk_frames: int, max_symbols: int,
+                            max_total: int) -> DeviceProgram:
+        """A solo native session's chunk step: the cached causal encoder
+        over ``chunk_frames`` mel frames, the joint's encoder projection
+        and the carried greedy decode of ``enc_lens`` encoder frames
+        (:meth:`decode_carried`; on the step and plain routes the loop's
+        first steps, its :class:`StepLoop` running the rest); the cache and
+        the carry (h, c, pred_out, last token in the working type) are
+        static and updated in place. ``body(host_loop=True)`` decodes with
+        :meth:`decode_carried` on every route: the eager oracle. Made on
+        first use; called under :attr:`device_lock`."""
+        key = (chunk_frames, max_symbols, max_total)
+        prog = self.solo_chunk_programs.get(key)
+        if prog is not None:
+            return prog
+        mcfg, dt, dev = self.model.config, self.compute_dtype, self.device
+        x = {"feats": torch.zeros((1, mcfg.n_mels, chunk_frames),
+                                  dtype=torch.float32, device=dev),
+             "enc_lens": torch.zeros((1,), dtype=torch.int32, device=dev)}
+        with torch.inference_mode():
+            cache = init_encoder_cache(mcfg, 1, dt, dev)
+            carry = fresh_carry(self.model, 1, dt, dev)
+        name = f"solo chunk step {chunk_frames} frames"
+        steps = None if self.greedy_route == "loop" else StepLoop(
+            self, name, max_symbols=max_symbols, max_total=max_total)
+
+        def body(host_loop: bool = False):
+            enc, new_cache = encode_chunk(self.model.encoder,
+                                          x["feats"].to(dt), cache)
+            for dst, src in zip(cache.tensors(), new_cache.tensors()):
+                dst.copy_(src)
+            del new_cache
+            enc_pre = self.model.joint_precompute_enc(enc).contiguous()
+            if steps is not None and not host_loop:
+                return (steps.start(self.carried_loop(
+                    enc_pre, x["enc_lens"], *carry, max_total=max_total)),)
+            # max_total budgets each chunk step, as the reference's counter
+            # is local to each decode call: a long session never goes silent
+            return take_carry(carry, self.decode_carried(
+                enc_pre, x["enc_lens"], *carry, max_symbols=max_symbols,
+                max_total=max_total))
+
+        prog = DeviceProgram(name, dev, body, x, pool=self.graph_pool())
+        prog.host = {k: host_staging(t.shape, t.dtype, dev)
+                     for k, t in x.items()}
+        prog.cache, prog.carry, prog.steps = cache, carry, steps
+        self.solo_chunk_programs[key] = prog
+        return prog
+
+    def solo_chunk(self, cache: EncoderCache, carry: Sequence[torch.Tensor],
+                   feats: np.ndarray, n_enc: int, *, max_symbols: int,
+                   max_total: int, eager: bool = False
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """One native chunk of one solo stream: its normalized mel ``feats
+        [Tc, M]`` of which ``n_enc`` encoder frames are real, from and into
+        its own ``cache`` and ``carry`` (h, c, pred_out, last token; copied
+        into the chunk program's static state, then back out, under
+        :attr:`device_lock`). Returns (counts [1], tokens [1, max_total])
+        on the host. ``eager`` runs the program's body instead of its
+        replay, with the host loop on the step and plain routes (the
+        oracle; tests, ``chip_smoke.py``)."""
+        with self.device_lock:
+            prog = self._solo_chunk_program(feats.shape[0], max_symbols,
+                                            max_total)
+            prog.host["feats"].numpy()[0] = feats.T
+            prog.host["enc_lens"].numpy()[0] = n_enc
+            for name in ("feats", "enc_lens"):
+                stage(prog.inputs[name], prog.host[name])
+            mine = cache.tensors() + list(carry)
+            static = prog.cache.tensors() + list(prog.carry)
+            with torch.inference_mode():
+                for dst, src in zip(static, mine):
+                    dst.copy_(src)
+                if eager:
+                    outs = prog.body(host_loop=True)
+            if not eager:
+                outs = prog.run()
+                if prog.steps is not None:
+                    with torch.inference_mode():
+                        outs = take_carry(prog.carry,
+                                          prog.steps.finish(outs[0]))
+            with torch.inference_mode():
+                for dst, src in zip(mine, static):
+                    dst.copy_(src)
+            return prog.to_host(outs)
+
+    def solo_chunk_warm(self, chunk_frames: int, max_symbols: int,
+                        max_total: int) -> bool:
+        """The solo chunk program of these shapes has run (is captured)."""
+        prog = self.solo_chunk_programs.get((chunk_frames, max_symbols,
+                                             max_total))
+        return prog is not None and prog.warm
+
+    def warm_solo_chunk(self, chunk_frames: int, max_symbols: int,
+                        max_total: int) -> float:
+        """Make the solo chunk program ready before a stream needs it (on
+        CUDA: its eager run, then the capture, and on the step and plain
+        routes its steps' program), on silence of a fresh stream; returns
+        the seconds taken."""
+        import time
+        t0 = time.perf_counter()
+        mcfg, dt, dev = self.model.config, self.compute_dtype, self.device
+        with self.device_lock:
+            prog = self._solo_chunk_program(chunk_frames, max_symbols,
+                                            max_total)
+            if not prog.warm:
+                with torch.inference_mode():
+                    cache = init_encoder_cache(mcfg, 1, dt, dev)
+                    carry = fresh_carry(self.model, 1, dt, dev)
+                self.solo_chunk(cache, carry,
+                                np.zeros((chunk_frames, mcfg.n_mels),
+                                         np.float32), 0,
+                                max_symbols=max_symbols, max_total=max_total)
+                if prog.steps is not None:
+                    prog.steps.program.warm_up()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------------

@@ -13,12 +13,16 @@
     GET  /metrics                    JSON metrics (or prometheus)
     POST /admin/reset-batch-count    zombie-request reset
     GET  /admin/config               effective configuration
+    GET|POST /v2/repository/index    model-repository listing
+    POST /v2/repository/models/{name}/load   hot checkpoint reload
+                                     (?validate=1: a canary decode, and a
+                                     rollback if it fails); see
+                                     runtime/reload.py
 
 Request validation, status codes and the camelCase response schema are the
 reference's. ``model_family`` chooses the model: the transducer, or the CTC
 and AED families (``runtime/family_pipeline.py``), which serve the batch
-endpoint only (streaming and lattices answer 400 for them). Not served
-yet: the model-repository routes (ROADMAP.md queue 1 item 6, [#12]).
+endpoint only (streaming and lattices answer 400 for them).
 
 Entry point: ``python -m amira_rust_asr_server_tpu_torch.server --preset
 large`` (``AMIRA_STREAMING_MODE=native`` with ``--preset large-streaming``
@@ -48,9 +52,9 @@ from ..audio import pcm16_bytes_to_f32
 from ..device import resolve_device
 from ..models.presets import get_preset
 from ..ops.lattice import decode_beam_lattice
-from ..runtime import AsrPipeline
-from ..runtime.family_pipeline import build_family_pipeline, family_model
+from ..runtime.family_pipeline import family_model, serving_pipeline
 from ..runtime.pipeline import check_supported
+from ..runtime.reload import hot_swap, repository_index
 from ..types import AsrResponse, StreamStatus
 from ..utils.affinity import ThreadType, set_thread_affinity
 from ..utils.platform import initialize_platform
@@ -345,6 +349,45 @@ async def get_config(request: web.Request) -> web.Response:
     return web.json_response(cfg)
 
 
+async def repository_index_handler(request: web.Request) -> web.Response:
+    """Model-repository listing, the in-process analogue of Triton's
+    ``POST /v2/repository/index`` (served on GET too)."""
+    state: AppState = request.app["state"]
+    rows = repository_index(state.config.model_repo_path,
+                            state.loaded_model)
+    return web.json_response({
+        "models": rows,
+        "loaded": state.loaded_model,
+        "model_repository": state.config.model_repo_path,
+    })
+
+
+async def repository_load(request: web.Request) -> web.Response:
+    """Hot checkpoint reload, Triton's ``/v2/repository/models/{name}/load``
+    in-process: new weights without a restart or a capture
+    (runtime/reload.py). 404 unknown model, 409 while native lanes are
+    live, 422 on a mismatched checkpoint; the old weights keep serving on
+    any failure."""
+    state: AppState = request.app["state"]
+    if state.shutdown.is_shutting_down:
+        return web.json_response(
+            {"error": "shutting_down", "message": "server is draining"},
+            status=503)
+    name = request.match_info["name"]
+    validate = request.query.get("validate", "") in ("1", "true", "yes")
+    loop = asyncio.get_running_loop()
+    try:
+        # the session executor: reading and staging take seconds, never on
+        # the event loop; the swap itself runs on the dispatch thread
+        info = await loop.run_in_executor(
+            state.session_executor, hot_swap, state, name, validate)
+    except Exception as e:  # noqa: BLE001 — boundary: report, keep serving
+        if not isinstance(e, AppError):
+            log.exception("reload failed for %r", name)
+        return error_response(e)
+    return web.json_response({"status": "success", **info})
+
+
 async def reset_batch_count(request: web.Request) -> web.Response:
     state: AppState = request.app["state"]
     state.metrics.reset_batch_count()
@@ -381,6 +424,10 @@ def create_app(state: AppState) -> web.Application:
     app.router.add_get("/metrics", metrics_handler)
     app.router.add_post("/admin/reset-batch-count", reset_batch_count)
     app.router.add_get("/admin/config", get_config)
+    app.router.add_get("/v2/repository/index", repository_index_handler)
+    app.router.add_post("/v2/repository/index", repository_index_handler)
+    app.router.add_post("/v2/repository/models/{name}/load",
+                        repository_load)
     return app
 
 
@@ -419,13 +466,7 @@ def build_state(config: Optional[Config] = None,
     if cfg.checkpoint_path:
         log.info("loaded %s checkpoint from %s", cfg.model_family,
                  cfg.checkpoint_path)
-    if cfg.model_family == "transducer":
-        pipeline = AsrPipeline(model, vocab, cfg, device)
-    else:
-        # the CTC and AED families on the same serving surface
-        _, pipeline = build_family_pipeline(
-            cfg.model_family, preset or cfg.model_preset, vocab, cfg, device,
-            model=model)
+    pipeline = serving_pipeline(model, vocab, cfg, device)
     state = AppState(pipeline, vocab, cfg)
     if warmup if warmup is not None else cfg.warmup_on_start:
         t0 = time.time()
@@ -440,6 +481,12 @@ def build_state(config: Optional[Config] = None,
             took = state.lane_engine.warm()
             log.info("warmed the lane engine (%d lanes) in %.1fs",
                      state.lane_engine.n_lanes, took)
+            # and the solo chunk program a stream runs when every lane is
+            # busy
+            took = pipeline.warm_solo_chunk(cfg.native_chunk_frames,
+                                            cfg.max_symbols_per_step,
+                                            cfg.max_total_tokens)
+            log.info("warmed the solo chunk program in %.1fs", took)
         if (cfg.decoding_mode == "beam" and cfg.streaming_mode == "native"
                 and pipeline.model.config.causal):
             # the streaming beam's chunk program, likewise

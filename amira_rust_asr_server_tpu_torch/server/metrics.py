@@ -1,6 +1,6 @@
 """Service metrics (port of server/metrics.py; that module's package imports
-jax through ``server/__init__`` -> ``app`` -> ``runtime``), the streams'
-and the lane engine's included.
+jax through ``server/__init__`` -> ``app`` -> ``runtime``), the streams',
+the lane engine's and the reloads' included.
 
 - :class:`ServiceMetrics`: JSON counters served at /metrics.
 - :class:`PrometheusMetrics`: the prometheus_client series this port feeds,
@@ -28,6 +28,11 @@ class ServiceMetrics:
         self.total_batches = 0
         self.rejections = 0
         self.errors = 0
+        self.model_reloads = 0
+        self.loaded_model_name: Optional[str] = None
+        # the last reload's phases, ms: prepare (off the dispatch thread),
+        # swap (the dispatch thread's stall), canary
+        self.last_reload_ms: Optional[Dict[str, float]] = None
 
     def increment_stream(self) -> None:
         with self._lock:
@@ -60,6 +65,15 @@ class ServiceMetrics:
         with self._lock:
             self.active_batches = 0
 
+    def record_model_reload(self, name: str,
+                            phases_ms: Dict[str, float]) -> None:
+        """A live checkpoint swap (``runtime/reload.py`` ``hot_swap``) and
+        its phases' ms."""
+        with self._lock:
+            self.model_reloads += 1
+            self.loaded_model_name = name
+            self.last_reload_ms = phases_ms
+
     def to_json(self) -> Dict[str, Any]:
         with self._lock:
             return {
@@ -71,6 +85,9 @@ class ServiceMetrics:
                 "total_batches": self.total_batches,
                 "rejections": self.rejections,
                 "errors": self.errors,
+                "model_reloads": self.model_reloads,
+                "loaded_model": self.loaded_model_name,
+                "last_reload_ms": self.last_reload_ms,
                 "uptime_seconds": round(time.time() - self.start_time, 1),
             }
 
@@ -164,6 +181,9 @@ class PrometheusMetrics:
             "asr_lane_sheds_total",
             "Stream attaches rejected: all lanes busy", registry=r)
         self.lane_live_fn = None
+        self.model_reloads = Counter(
+            "asr_model_reloads_total",
+            "Hot checkpoint reloads (runtime/reload.py)", registry=r)
         self.beam_path = Counter(
             "asr_beam_decode_path_total",
             "Beam decodes by program (graphs past the kernel's state cap "

@@ -1,8 +1,9 @@
 """Application state: the serving layer's container (port of
-server/state.py, without the reload guard, which the port does not serve
-yet). With ``enable_platform_optimizations`` and ``enable_cpu_affinity``
-it plans the host's cores (``utils/affinity.py``), logs the plan and pins
-the dispatch and session threads to it; ``run_server`` pins the event
+server/state.py), the live-reload surface's included (which repository
+model serves, and the guard against concurrent reloads). With
+``enable_platform_optimizations`` and ``enable_cpu_affinity`` it plans
+the host's cores (``utils/affinity.py``), logs the plan and pins the
+dispatch and session threads to it; ``run_server`` pins the event
 loop's thread to the plan's IO cores.
 
 Besides the batch surface it holds the streams' admission (the stream
@@ -76,6 +77,13 @@ class AppState:
         self.breaker = CircuitBreaker(
             excluded_exceptions=(CapacityExceededError,))
         self.shutdown = GracefulShutdown()
+        # live-reload surface (runtime/reload.py): which repository model
+        # serves, and a guard against concurrent reloads
+        self.loaded_model: Optional[dict] = None
+        if self.config.checkpoint_path:
+            self.loaded_model = {"name": None,
+                                 "checkpoint": self.config.checkpoint_path}
+        self.reload_lock = threading.Lock()
         # optional host-core partitioning: a dedicated core for the device
         # feeder, the sessions kept off it
         self.affinity_plan: Optional[AffinityPlan] = None

@@ -20,7 +20,8 @@ preset) runs :class:`~runtime.incremental.IncrementalAsr`, whose window
 re-decodes ride the batcher's "stream" class; ``streaming_mode="native"``
 on a causal preset attaches the stream to the shared lane engine, or to a
 solo :class:`~runtime.native_stream.NativeStreamSession` when every lane is
-busy; with ``decoding_mode="beam"`` it runs a
+busy (each chunk the pipeline's shared solo chunk program); with
+``decoding_mode="beam"`` it runs a
 :class:`~runtime.beam_stream.StreamingBeamSession` per stream (K
 hypotheses carried across chunks, each chunk the pipeline's shared beam
 chunk program).
@@ -90,6 +91,16 @@ class _LaneAdapter:
                 state.pipeline, chunk_frames=cfg.native_chunk_frames,
                 norm=cfg.native_norm, max_symbols=cfg.max_symbols_per_step,
                 max_total=cfg.max_total_tokens)
+
+    @property
+    def warmed(self) -> bool:
+        """The program this stream runs is captured: the engine's chunk
+        step, or the pipeline's solo chunk program."""
+        if self.session is None:
+            return self.engine.warmed_up
+        s = self.session
+        return self.state.pipeline.solo_chunk_warm(
+            s.chunk_frames, s.max_symbols, s.max_total)
 
     def _feed(self, samples, final: bool) -> str:
         if self.session is not None:
@@ -326,16 +337,10 @@ class StreamProcessor:
                         return finalize()
                     return self.incremental.transcript()
             # the budget follows the warmth of the program this stream
-            # runs: the lane engine's chunk step, or the pipeline's buckets
-            # (a solo native session runs cold)
-            if isinstance(self.incremental, _BeamStreamAdapter):
-                warmed = self.incremental.warmed
-            elif getattr(self.incremental, "session", None) is not None:
-                warmed = False
-            elif getattr(self.incremental, "engine", None) is not None:
-                warmed = self.incremental.engine.warmed_up
-            else:
-                warmed = self.state.pipeline.warmed_up
+            # runs: a native or beam stream's chunk program, or (chunked)
+            # the pipeline's buckets
+            warmed = getattr(self.incremental, "warmed",
+                             self.state.pipeline.warmed_up)
             budget = (self.state.config.inference_timeout_secs if warmed
                       else self.state.config.cold_bucket_timeout_secs)
             try:

@@ -156,7 +156,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMNOPQR"
+ALL_PHASES = "ABCDEFGHIJKLMNOPQRST"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -1476,13 +1476,11 @@ def check_streams(phase: str, outs, secs, want, every_stream=True) -> list:
 
 def blank_bias_setter(pipe):
     """``set(bias)`` adds ``bias`` to the seeded weights' blank logit in the
-    served joint and rewrites the decode kernels' weights in place (the
-    captured programs read their memory); returns the bias as the joint's
-    type holds it."""
+    served joint and recomputes the tables derived from it in place (the
+    captured programs read their memory: ``AsrPipeline.refresh_tables``);
+    returns the bias as the joint's type holds it."""
     import torch
 
-    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
-        DecodeWeights
     blank = pipe.model.config.blank_id
     b = pipe.model.joint.out.b
     base = float(b[blank].detach())
@@ -1491,22 +1489,8 @@ def blank_bias_setter(pipe):
         with pipe.device_lock:
             with torch.no_grad():
                 b[blank] = base + bias
-            refresh()
+            pipe.refresh_tables()
         return float(b[blank].detach()) - base
-
-    @torch.inference_mode()
-    def refresh() -> None:
-        with pipe.device_lock:
-            new = DecodeWeights.from_model(pipe.model, pipe.compute_dtype)
-            old = pipe.decode_weights
-            for f in dataclasses.fields(DecodeWeights):
-                if f.name not in ("quant", "quant_words"):
-                    getattr(old, f.name).copy_(getattr(new, f.name))
-            # the per-block slices made so far (the joint's among them)
-            for key, slices in old.__dict__.get("_block_slices", {}).items():
-                fresh = new.block_slices(*key)
-                for name, t in slices.items():
-                    t.copy_(fresh[name])
 
     return set_bias
 
@@ -1915,6 +1899,23 @@ def phase_n(results):
                                    max_symbols=30, max_total=200)
         sess.feed(w)
         solo.append(sess.end().tokens)
+    # the sessions above replayed the solo chunk program; its eager body,
+    # the oracle, on the first streams
+    sprog = pipe32.solo_chunk_programs[(64, 30, 200)]
+    eager_solo = []
+    for w in waves[:4]:
+        sess = NativeStreamSession(pipe32, chunk_frames=64, norm="none",
+                                   max_symbols=30, max_total=200, eager=True)
+        sess.feed(w)
+        eager_solo.append(sess.end().tokens)
+    say("N", f"solo chunk program (captured in {sprog.capture_seconds:.3f} "
+        f"s, graph pool +{sprog.graph_bytes / 2**20:.1f} MiB, launches per "
+        f"replay {sprog.launches}), f32: the tokens of 4 streams equal its "
+        f"eager body's {eager_solo == solo[:4]} "
+        f"({sum(len(t) for t in eager_solo)} tokens)")
+    if eager_solo != solo[:4]:
+        raise AssertionError("[N] the solo chunk program's replay differs "
+                             "from its eager body in f32")
     bad = [i for i in range(64) if eng.tokens[lanes[i]] != solo[i]]
     say("N", f"lane engine, 64 lanes (8 join per tick), f32: "
         f"{eng.stats.ticks} ticks in {t_eng:.2f} s, mean "
@@ -2084,6 +2085,55 @@ def phase_n(results):
             f"events without the profiler); real-time streams per card "
             f"64 x 640 ms / {c['tick_ms']['64']:.2f} ms = "
             f"{c['streams_per_card']:.0f}")
+    # 6. a stream that finds all 64 lanes busy runs a solo session on the
+    # pipeline's solo chunk program, budgeted warm
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.server.stream import _LaneAdapter
+    pipe = state.pipeline
+    key = (cfg.native_chunk_frames, cfg.max_symbols_per_step,
+           cfg.max_total_tokens)
+    warm_s = pipe.warm_solo_chunk(*key)
+    adapter = _LaneAdapter(state)
+    if adapter.session is None or not adapter.warmed:
+        raise AssertionError("[N] no warm solo session with 64 lanes busy")
+    kernels.reset_launch_counts()
+    for i in range(0, len(pcms[0]), 3200):
+        adapter.process_chunk(pcms[0][i:i + 3200])
+    solo_text = adapter.finalize()
+    solo_counts = kernels.launch_counts()
+    sess = NativeStreamSession(pipe, chunk_frames=key[0], norm="none",
+                               max_symbols=key[1], max_total=key[2],
+                               eager=True)
+    sess.feed(waves[0])
+    eager_text = sess.end().text
+    feats = np.random.default_rng(42).standard_normal(
+        (key[0], mcfg.n_mels)).astype(np.float32)
+    with pipe.device_lock, torch.inference_mode():
+        cache = init_encoder_cache(mcfg, 1, pipe.compute_dtype, dev)
+        carry = fresh_carry(pipe.model, 1, pipe.compute_dtype, dev)
+    walls = {"replay": [], "eager": []}
+    for how in ("replay", "eager", "eager", "replay"):
+        for _ in range(5):
+            ta = time.perf_counter()
+            pipe.solo_chunk(cache, carry, feats, key[0] // 4,
+                            max_symbols=key[1], max_total=key[2],
+                            eager=how == "eager")
+            walls[how].append((time.perf_counter() - ta) * 1e3)
+    solo_ms = {how: float(np.median(v)) for how, v in walls.items()}
+    sprog = pipe.solo_chunk_programs[key]
+    say("N", f"solo session with all 64 lanes busy, bf16: warmed in "
+        f"{warm_s:.2f} s (capture {sprog.capture_seconds:.3f} s, graph pool "
+        f"+{sprog.graph_bytes / 2**20:.1f} MiB); 10 s stream's final "
+        f"{len(solo_text.split())} words, equal to the eager body's "
+        f"{solo_text == eager_text}; launches {solo_counts}; the chunk "
+        f"step's host wall (median of 10 in two turns) replayed "
+        f"{solo_ms['replay']:.3f} ms, eager {solo_ms['eager']:.3f} ms")
+    if solo_counts["greedy_loop"] < 1:
+        raise AssertionError("[N] the solo session launched no greedy loop")
+    native["solo"] = {"step_ms": solo_ms, "warm_s": warm_s,
+                      "capture_s": sprog.capture_seconds,
+                      "graph_mb": sprog.graph_bytes / 2**20,
+                      "bf16_equals_eager": solo_text == eager_text}
     rep = native["replay"]
     results["ws_native"] = {
         "partial_ms_p50": percentile(lat, 50),
@@ -2095,6 +2145,7 @@ def phase_n(results):
         "idle_share": rep["step"]["idle_share"],
         "streams_per_card": rep["streams_per_card"],
         "eager": native["eager"],
+        "solo": native["solo"],
         "capture_s": eng.program.capture_seconds,
         "graph_mb": eng.program.graph_bytes / 2**20,
         "blank_bias": bias,
@@ -2645,6 +2696,438 @@ def phase_r(results):
     say("R", f"kernel launches over the families' requests: {launches}")
 
 
+# -- reload (phase S) and the offline tools (phase T) -----------------------
+def seeded_npz(path, family: str, preset: str, seed: int):
+    """A seeded model of ``family`` on ``preset``, every 1-D parameter also
+    perturbed (a zero-bias init gives the same SOS carry for any weights),
+    written to ``path`` as a converted ``.npz``; returns the model (f32,
+    host)."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.convert import save_npz
+    from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
+        family_model
+    model = family_model(family, preset, Config(), seed=seed)
+    gen = torch.Generator().manual_seed(1000 + seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    save_npz(path, model.state_dict())
+    return model
+
+
+def served_outputs(state, samples) -> dict:
+    """Token lists of every program ``state`` serves, on ``samples`` (2 s
+    waves): the greedy bucket (or the beam bucket's n-best and every token
+    its search expanded), and on a causal preset the lane engine's tick, a
+    solo session, a streaming beam session (K = 4) and the tokens the beam
+    chunk program expands on the first chunk (random weights' beams end
+    nearly empty, their searches do not)."""
+    from amira_rust_asr_server_tpu_torch.runtime.beam_stream import \
+        StreamingBeamSession
+    from amira_rust_asr_server_tpu_torch.runtime.native_stream import (
+        NativeStreamSession, StreamingFeaturizer)
+    pipe, cfg = state.pipeline, state.config
+    out = {}
+    if cfg.decoding_mode == "beam":
+        res = pipe.decode_beam_batch(samples[:1], n_best=4)[0]
+        out["beam n-best"] = [seq for _, seq in res.n_best[0]]
+        trace = pipe._beam_dispatch(samples[:1])[0]
+        out["beam expansions"] = [trace.exp_token.reshape(-1).tolist()]
+    else:
+        res = pipe.decode_samples_batch(samples[:1])[0]
+        out["greedy"] = [list(res.tokens[0, :int(res.counts[0])])]
+    if pipe.model.config.causal:
+        eng = state.lane_engine
+        with state.lane_lock:
+            lanes = [eng.attach() for _ in samples]
+            for lane, w in zip(lanes, samples):
+                eng.feed(lane, w, final=True)
+            while eng.pending():
+                eng.tick()
+            out["lane engine"] = [list(eng.tokens[lane]) for lane in lanes]
+            for lane in lanes:
+                eng.detach(lane)
+        kw = dict(chunk_frames=cfg.native_chunk_frames, norm="none")
+        solo = NativeStreamSession(pipe, **kw)
+        solo.feed(samples[0])
+        out["solo"] = [solo.end().tokens]
+        beam = StreamingBeamSession(pipe, beam_width=4, **kw)
+        beam.feed(samples[0])
+        out["beam chunk"] = [beam.end().tokens]
+        feats = StreamingFeaturizer(pipe.model.config.n_mels, "none").feed(
+            samples[0], final=True)[:cfg.native_chunk_frames]
+        cache, carry = pipe.fresh_beam(4)
+        sub = pipe.model.config.subsampling_factor
+        raw = pipe.beam_chunk(cache, carry, feats, -(-feats.shape[0] // sub),
+                              beam_width=4)
+        out["beam chunk expansions"] = [raw[3].reshape(-1).tolist()]
+    return out
+
+
+def outputs_agreement(got: dict, want: dict) -> float:
+    """Share of identical tokens between two :func:`served_outputs`."""
+    same = total = 0
+    for key in want:
+        for a, b in zip(got[key], want[key]):
+            same += sum(x == y for x, y in zip(a, b))
+            total += max(len(a), len(b))
+    return same / total if total else 1.0
+
+
+async def _reload_over_http(state, port: int, pcm: bytes, name: str):
+    """Serve ``state`` and drive the repository routes: a 2 s request, the
+    404 and 422 loads and the request again, then the load of ``name``
+    with a 2 s request issued while it runs, the request on the new
+    weights, the index, a load with ?validate=1 and /metrics. Returns
+    {step: (status, body, wall s)}."""
+    import aiohttp
+
+    from amira_rust_asr_server_tpu_torch.server.app import run_server
+    server = asyncio.create_task(run_server(state, "127.0.0.1", port))
+    url = f"http://127.0.0.1:{port}"
+    out = {}
+    try:
+        async with aiohttp.ClientSession() as session:
+            for _ in range(600):
+                try:
+                    async with session.get(f"{url}/health") as r:
+                        if r.status == 200:
+                            break
+                except aiohttp.ClientConnectionError:
+                    pass
+                await asyncio.sleep(0.1)
+
+            async def call(step, method, path, **kw):
+                t0 = time.perf_counter()
+                async with session.request(method, url + path, **kw) as r:
+                    out[step] = (r.status, await r.json(),
+                                 time.perf_counter() - t0)
+
+            post = dict(json={"audio_buffer": list(pcm)})
+            batch = "/v2/decode/batch/default"
+            await call("before", "POST", batch, **post)
+            await call("404", "POST", "/v2/repository/models/absent/load")
+            await call("422", "POST", "/v2/repository/models/base-s7/load")
+            await call("after refusals", "POST", batch, **post)
+
+            async def request_during_load():
+                await asyncio.sleep(0.2)  # the load is reading its .npz
+                await call("during", "POST", batch, **post)
+            await asyncio.gather(
+                call("load", "POST", f"/v2/repository/models/{name}/load"),
+                request_during_load())
+            await call("after", "POST", batch, **post)
+            await call("index", "GET", "/v2/repository/index")
+            await call("validate", "POST",
+                       f"/v2/repository/models/{name}/load?validate=1")
+            await call("metrics", "GET", "/metrics")
+    finally:
+        state.shutdown.trigger()
+        await server
+    return out
+
+
+def phase_s(results):
+    """Reload at large through build_state and the repository routes, then
+    every captured program against a pipeline built afresh on the new
+    weights (f32 identical, bf16 >= 99%), for every route and family."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.audio import pcm16_bytes_to_f32
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.convert import MODELS
+    from amira_rust_asr_server_tpu_torch.models.presets import get_preset
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
+        serving_pipeline
+    from amira_rust_asr_server_tpu_torch.runtime.reload import (
+        ReloadConflictError, hot_swap)
+    from amira_rust_asr_server_tpu_torch.server import app as app_mod
+    from amira_rust_asr_server_tpu_torch.server.state import AppState
+    dev = torch.device("cuda")
+    vocab_path = "model-repo/vocab.txt"
+    out = results["reload"] = {}
+    launches: dict = {}
+
+    def take() -> None:
+        """Count the launches since the last reset (the served programs')."""
+        for k, n in kernels.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        kernels.reset_launch_counts()
+
+    tmp = tempfile.mkdtemp(prefix="reload-repo-")
+    t0 = time.perf_counter()
+    new = {}
+    for fam in ("transducer", "ctc", "aed"):
+        name = f"{fam}-s7"
+        path = os.path.join(tmp, f"{name}.npz")
+        new[fam] = seeded_npz(path, fam, "large", seed=7)
+        with open(os.path.join(tmp, f"{name}.json"), "w") as f:
+            json.dump({"preset": "large", "family": fam,
+                       "checkpoint": path}, f)
+    seeded_npz(os.path.join(tmp, "base-s7.npz"), "transducer", "base", 7)
+    old = {fam: app_mod.load_model(Config(model_family=fam), "large")
+           for fam in ("transducer", "ctc", "aed")}
+    say("S", f"repository {tmp}: seeded (seed 7) large .npz of the three "
+        f"families and a base one written, {time.perf_counter() - t0:.1f} "
+        "s")
+    samples = list(digits_audio(2, 2.0, seed=80))
+
+    # 1. large, bf16, behind the server: the repository routes
+    load_model = app_mod.load_model
+    app_mod.load_model = lambda cfg, preset=None: copy.deepcopy(
+        old["transducer"])
+    try:
+        cfg = Config(vocabulary_path=vocab_path, inference_backend="tpu",
+                     model_repo_path=tmp, batch_buckets=[1, 4],
+                     audio_sec_buckets=[2.0, 8.0])
+        state = app_mod.build_state(cfg, preset="large")
+    finally:
+        app_mod.load_model = load_model
+    pipe = state.pipeline
+    warm = pipe._warmup_thread
+    if warm is not None:
+        warm.join(timeout=600)
+    programs = {k: (p, p.graph) for k, p in pipe.programs.items()}
+    ptrs = {k: v.data_ptr() for k, v in pipe.model.state_dict().items()}
+    mem = (torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev))
+    kernels.reset_launch_counts()
+    http = asyncio.run(_reload_over_http(state, free_port(),
+                                         pcm16(samples[0]),
+                                         "transducer-s7"))
+    take()
+    torch.cuda.empty_cache()
+    mem_after = (torch.cuda.memory_allocated(dev),
+                 torch.cuda.memory_reserved(dev))
+    toks = {k: v[1].get("metadata", {}).get("tokens") for k, v in
+            http.items() if k in ("before", "after refusals", "during",
+                                  "after")}
+    phases = http["metrics"][1]["last_reload_ms"]
+    for step in ("before", "404", "422", "after refusals", "load", "during",
+                 "after", "index", "validate"):
+        status, body, wall = http[step]
+        say("S", f"{step}: HTTP {status}, wall {wall * 1e3:.1f} ms"
+            + (f", {len(body['metadata']['tokens'])} tokens"
+               if "metadata" in body else
+               f": {json.dumps(body)[:160]}"))
+    statuses = {k: http[k][0] for k in ("before", "404", "422",
+                                        "after refusals", "load", "during",
+                                        "after", "index", "validate")}
+    if statuses != {"before": 200, "404": 404, "422": 422,
+                    "after refusals": 200, "load": 200, "during": 200,
+                    "after": 200, "index": 200, "validate": 200}:
+        raise AssertionError(f"[S] statuses {statuses}")
+    if toks["after refusals"] != toks["before"]:
+        raise AssertionError("[S] a refused reload changed the tokens")
+    index = {m["name"]: m["state"] for m in http["index"][1]["models"]}
+    if index.get("transducer-s7") != "READY" or not http["validate"][1][
+            "validated"] or http["metrics"][1]["model_reloads"] != 2:
+        raise AssertionError(f"[S] index {index}, metrics "
+                             f"{http['metrics'][1]}")
+    same_programs = {k: (p, p.graph) for k, p in
+                     pipe.programs.items()} == programs
+    same_ptrs = ptrs == {k: v.data_ptr()
+                         for k, v in pipe.model.state_dict().items()}
+    # every warm bucket's replay against a pipeline built afresh on the new
+    # weights, in the same buckets
+    fresh = serving_pipeline(copy.deepcopy(new["transducer"]),
+                             pipe.vocab, cfg, dev)
+    shares = {}
+    for b in (1, 4):
+        for secs in (2.0, 8.0):
+            waves = list(digits_audio(b, secs, seed=81))
+            got = pipe.decode_samples_batch(waves)[0]
+            take()
+            want = fresh.decode_samples_batch(waves)[0]
+            kernels.reset_launch_counts()
+            shares[f"{b}x{secs:g}s"] = token_agreement(
+                got.tokens, got.counts, want.tokens, want.counts)
+    # the served request's audio as the server decoded it (16-bit PCM)
+    served_new = fresh.decode_samples_batch(
+        [pcm16_bytes_to_f32(pcm16(samples[0]))])[0]
+    kernels.reset_launch_counts()
+    want_served = [int(t) for t in
+                   served_new.tokens[0, :int(served_new.counts[0])]]
+    served_same = outputs_agreement({"r": [toks["after"]]},
+                                    {"r": [want_served]})
+    say("S", f"large bf16 reload over HTTP: phases prepare "
+        f"{phases['prepare']:.1f} ms, swap (the dispatch thread's stall) "
+        f"{phases['swap']:.1f} ms, canary {phases['canary']:.1f} ms (the "
+        f"?validate=1 load); a 2 s request during the load "
+        f"{http['during'][2] * 1e3:.1f} ms (before "
+        f"{http['before'][2] * 1e3:.1f}); programs kept (none captured "
+        f"again) {same_programs}, parameters at their addresses "
+        f"{same_ptrs}; memory allocated "
+        f"{mem[0] / 2**20:.0f} -> {mem_after[0] / 2**20:.0f} MiB, reserved "
+        f"{mem[1] / 2**20:.0f} -> {mem_after[1] / 2**20:.0f} MiB; every "
+        f"warm bucket's replay vs a fresh pipeline on the new weights, "
+        f"token agreement {shares}; the served 2 s request's tokens against "
+        f"the fresh pipeline's {served_same:.4f}")
+    if (not (same_programs and same_ptrs) or served_same < 0.99
+            or min(shares.values()) < 0.99):
+        raise AssertionError("[S] the reloaded buckets disagree with a "
+                             "fresh pipeline")
+    out["http"] = {"phases_ms": phases,
+                   "load_wall_ms": http["load"][2] * 1e3,
+                   "validate_wall_ms": http["validate"][2] * 1e3,
+                   "request_during_ms": http["during"][2] * 1e3,
+                   "request_before_ms": http["before"][2] * 1e3,
+                   "bucket_agreement": shares,
+                   "served_agreement": served_same,
+                   "allocated_mib": [mem[0] / 2**20, mem_after[0] / 2**20],
+                   "reserved_mib": [mem[1] / 2**20, mem_after[1] / 2**20]}
+    del state, pipe, fresh
+    torch.cuda.empty_cache()
+
+    # 2. every route and family, f32 (identical) and bf16 (>= 99%): the
+    # reloaded programs against a pipeline built afresh on the new weights
+    routes = (("greedy loop", "large", "transducer", {}),
+              ("greedy step", "large", "transducer",
+               dict(use_pallas_decode_loop=False)),
+              ("beam", "large", "transducer", dict(decoding_mode="beam")),
+              ("int8", "large", "transducer",
+               dict(quantization="int8", int8_decode_weights=True)),
+              ("native", "large-streaming", "transducer",
+               dict(streaming_mode="native", native_norm="none",
+                    max_lanes=4)),
+              ("ctc", "large", "ctc", {}),
+              ("aed", "large", "aed", {}))
+    table = out["routes"] = {}
+    # the causal preset has the same parameters: the same weights
+    causal = []
+    for model in (old["transducer"], new["transducer"]):
+        causal.append(MODELS["transducer"](get_preset("large-streaming")))
+        causal[-1].load_state_dict(model.state_dict())
+    for dtype in ("float32", "bfloat16"):
+        for label, preset, fam, kw in routes:
+            pair = causal if preset != "large" else (old[fam], new[fam])
+            cfg = Config(vocabulary_path=vocab_path, inference_backend="tpu",
+                         model_repo_path=tmp, batch_buckets=[1],
+                         audio_sec_buckets=[2.0], compute_dtype=dtype,
+                         model_family=fam, model_preset=preset, **kw)
+            states = []
+            for model in pair:
+                st = AppState(serving_pipeline(
+                    copy.deepcopy(model), load_vocab(cfg), cfg, dev),
+                    load_vocab(cfg), cfg)
+                st.pipeline.warmup()
+                if st.lane_engine is not None:
+                    st.lane_engine.warm()
+                    st.pipeline.warm_solo_chunk(
+                        cfg.native_chunk_frames, cfg.max_symbols_per_step,
+                        cfg.max_total_tokens)
+                    st.pipeline.warm_beam_chunk(cfg.native_chunk_frames, 4)
+                states.append(st)
+            st, fresh = states
+            kernels.reset_launch_counts()
+            before = served_outputs(st, samples)
+            take()
+            refused = None
+            if st.lane_engine is not None:
+                lane = st.lane_engine.attach()
+                try:
+                    hot_swap(st, f"{fam}-s7")
+                except ReloadConflictError as e:
+                    refused = e.http_status
+                st.lane_engine.detach(lane)
+            info = hot_swap(st, f"{fam}-s7")
+            got = served_outputs(st, samples)
+            take()
+            want = served_outputs(fresh, samples)
+            kernels.reset_launch_counts()
+            share = outputs_agreement(got, want)
+            ms = st.metrics.to_json()["last_reload_ms"]
+            n_tok = sum(len(t) for v in got.values() for t in v)
+            lane_note = (f"; with a live lane: HTTP status {refused}"
+                         if refused else "")
+            say("S", f"{label} ({preset}, {fam}, {dtype}): reload "
+                f"{info['swap_ms']:.0f} ms (prepare {ms['prepare']:.0f}, "
+                f"swap {ms['swap']:.1f}){lane_note}; {sorted(got)} vs a "
+                f"fresh pipeline: token agreement {share:.4f} over "
+                f"{n_tok} tokens; changed by the reload "
+                f"{got != before}")
+            table[f"{label} {dtype}"] = {"agreement": share,
+                                         "tokens": n_tok,
+                                         "swap_ms": ms["swap"],
+                                         "prepare_ms": ms["prepare"]}
+            if (share < (1.0 if dtype == "float32" else 0.99)
+                    or (st.lane_engine is not None and refused != 409)):
+                raise AssertionError(f"[S] {label} {dtype} after the reload")
+            for x in states:
+                x.close()
+            del states, st, fresh
+            torch.cuda.empty_cache()
+    for name, n in launches.items():
+        results.setdefault(name, {})
+        results[name]["launches"] = results[name].get("launches", 0) + n
+    out["launches"] = launches
+    say("S", f"kernel launches of the reloaded programs: {launches}")
+
+
+def phase_t(results):
+    """The offline CLI and the GPU selfcheck as a user runs them, on the
+    card: two WAVs (one unreadable), then tools/gpu_selfcheck.py."""
+    import tempfile
+    import wave
+
+    from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
+                                                         TINY_DIGITS_VOCAB,
+                                                         synth_digits)
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = results["tools"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ok, bad = os.path.join(tmp, "ok.wav"), os.path.join(tmp, "bad.wav")
+        sig = synth_digits(["two", "five", "nine"], noise=0.004,
+                           rng=np.random.default_rng(0))
+        with wave.open(ok, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm16(sig))
+        with open(bad, "wb") as f:
+            f.write(b"not a wav")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "amira_rust_asr_server_tpu_torch.transcribe", bad, ok,
+             "--preset", "tiny", "--checkpoint", str(TINY_DIGITS_NPZ),
+             "--vocab", str(TINY_DIGITS_VOCAB),
+             "--json"], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    rec = json.loads(lines[-1]) if lines else {}
+    say("T", f"python -m amira_rust_asr_server_tpu_torch.transcribe (bad, "
+        f"ok): rc {proc.returncode} in {wall:.1f} s; stdout {lines}; "
+        f"stderr's last line {proc.stderr.strip().splitlines()[-1:]}")
+    if (proc.returncode != 1 or len(lines) != 1
+            or rec.get("transcription") != "two five nine"
+            or rec.get("tokens") != [3, 6, 10]):
+        raise AssertionError("[T] the CLI's result")
+    out["transcribe"] = {"rc": proc.returncode, "wall_s": wall,
+                         "file_wall_s": rec["wall_seconds"]}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "gpu_selfcheck.py"),
+         "--preset", "tiny"], cwd=root, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.strip().splitlines():
+        say("T", f"gpu_selfcheck: {line}")
+    say("T", f"tools/gpu_selfcheck.py --preset tiny: rc {proc.returncode} "
+        f"in {wall:.1f} s")
+    if proc.returncode != 0:
+        say("T", proc.stderr[-2000:])
+        raise AssertionError("[T] the GPU selfcheck failed")
+    out["selfcheck"] = {"rc": proc.returncode, "wall_s": wall}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -2689,6 +3172,10 @@ def main(argv=None) -> int:
         phase_q(results)
     if "R" in phases:
         phase_r(results)
+    if "S" in phases:
+        phase_s(results)
+    if "T" in phases:
+        phase_t(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -2707,6 +3194,8 @@ def main(argv=None) -> int:
                       "ws_beam": results["ws_beam"],
                       "step_route": results["step_route"],
                       "families": results["families"],
+                      "reload": results["reload"],
+                      "tools": results["tools"],
                       "programs": results["programs"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

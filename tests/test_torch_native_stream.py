@@ -5,8 +5,11 @@ across by ``convert.from_jax_params``, f32 on the CPU, where the carried
 decode runs the loop kernel's plain version.
 
 Tolerances: the featurizer within 1e-6 of JAX's (both float64 on the host);
-session tokens identical.
+session tokens identical. A session's chunk step is the pipeline's solo
+chunk program; its eager body is the oracle it is held to.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -22,7 +25,8 @@ from amira_rust_asr_server_tpu.runtime.native_stream import \
     StreamingFeaturizer as JaxFeaturizer
 from amira_rust_asr_server_tpu.vocab import Vocabulary as JaxVocabulary
 from amira_rust_asr_server_tpu_torch.config import Config
-from amira_rust_asr_server_tpu_torch.constants import HOP_LENGTH
+from amira_rust_asr_server_tpu_torch.constants import (HOP_LENGTH,
+                                                       MAX_SYMBOLS_PER_STEP)
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.models.presets import TINY_STREAMING
@@ -157,3 +161,62 @@ def test_session_refuses_a_non_causal_preset():
         audio_sec_buckets=[1.0], batch_buckets=[1]))
     with pytest.raises(ValueError, match="causal"):
         NativeStreamSession(pipe)
+
+
+@pytest.mark.parametrize("route", ["loop", "step"])
+def test_solo_program_equals_eager_body(pair, route):
+    """A solo session's chunk step runs the pipeline's shared solo chunk
+    program (one per chunk shape and budget, made by the first chunk) and
+    gives the tokens of its eager body (on the step route: the encoder,
+    then the host loop), max_total budgeting each chunk step; on the step
+    route the program ends in the loop's first steps and its step loop
+    runs the rest."""
+    _, _, base = pair
+    pipe = AsrPipeline(base.model, base.vocab, dataclasses.replace(
+        base.config, use_pallas_decode_loop=route == "loop"))
+    assert pipe.greedy_route == route
+    w = wave(6, 32000, 0.5)
+    key = (16, MAX_SYMBOLS_PER_STEP, 5)
+    assert not pipe.solo_chunk_warm(*key)
+    got, want = (feed_all(NativeStreamSession(
+        pipe, chunk_frames=16, norm="none", max_total=5, eager=eager), w,
+        4000) for eager in (False, True))
+    assert len(got.tokens) > 5
+    assert got.tokens == want.tokens and got.text == want.text
+    assert got.encoded_length == want.encoded_length
+    assert list(pipe.solo_chunk_programs) == [key]
+    assert pipe.solo_chunk_warm(*key)
+    prog = pipe.solo_chunk_programs[key]
+    assert (prog.steps is None) == (route == "loop")
+
+
+def test_solo_stream_is_budgeted_by_its_programs_warmth(pair):
+    """A native stream that finds every lane busy runs a solo session, and
+    its budget follows the solo chunk program's warmth (build_state warms
+    it beside the lane engine); the warm-up leaves a stream's tokens as
+    they were."""
+    from amira_rust_asr_server_tpu_torch.server.state import AppState
+    from amira_rust_asr_server_tpu_torch.server.stream import _LaneAdapter
+    _, _, base = pair
+    cfg = dataclasses.replace(base.config, streaming_mode="native",
+                              native_chunk_frames=16, native_norm="none",
+                              max_lanes=1)
+    pipe = AsrPipeline(base.model, base.vocab, cfg)
+    state = AppState(pipe, pipe.vocab, cfg)
+    try:
+        w = wave(7)
+        want = feed_all(NativeStreamSession(pipe, chunk_frames=16,
+                                            norm="none", eager=True), w,
+                        3200).tokens
+        lane, solo = _LaneAdapter(state), _LaneAdapter(state)
+        assert lane.session is None and solo.session is not None
+        assert lane.warmed is False and solo.warmed is False
+        state.lane_engine.warm()
+        assert pipe.warm_solo_chunk(16, cfg.max_symbols_per_step,
+                                    cfg.max_total_tokens) >= 0
+        assert lane.warmed and solo.warmed
+        solo.session.feed(w)
+        assert solo.session.end().tokens == want
+        lane.release()
+    finally:
+        state.close()

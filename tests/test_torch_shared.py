@@ -11,7 +11,8 @@ The port imports nothing of the JAX package, so ``constants``, ``config``,
 - ``Vocabulary`` decodes, encodes and groups words as the reference does on
   the committed 1025-line ``model-repo/vocab.txt``;
 - the constants and the digit audio are equal;
-- importing every module of the port (``pkgutil.walk_packages``) loads no
+- importing every module of the port (``pkgutil.walk_packages``; the
+  reload, the CLI among them) and ``tools/gpu_selfcheck.py`` loads no
   module of the JAX package (in a subprocess: this process has it loaded).
 """
 
@@ -151,12 +152,15 @@ def test_digit_audio_matches_jax():
 
 def test_port_imports_nothing_of_the_jax_package():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
         "import amira_rust_asr_server_tpu_torch as port\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    port.__path__, port.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'gpu_selfcheck', 'tools/gpu_selfcheck.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "ref = 'amira_rust_asr_server_tpu'\n"
         "bad = [m for m in sys.modules\n"
         "       if m == ref or m.startswith(ref + '.')]\n"
