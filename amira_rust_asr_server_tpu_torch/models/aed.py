@@ -16,9 +16,8 @@ inside, so a CUDA graph captures it whole: :meth:`AEDModel.decode_greedy`
 and :meth:`AEDModel.decode_beam` re-run the causally masked full decoder
 every step, as the reference does; :meth:`AEDModel.decode_greedy_cached`
 keeps static ``[L, B, U+1, H, Dh]`` self-attention K/V buffers and projects
-the cross-attention K/V once.
-
-The loss (training) is not ported yet (ROADMAP.md queue 1, [#13]).
+the cross-attention K/V once. :meth:`AEDModel.loss` is the teacher-forced
+cross-entropy the family trains on.
 """
 
 from __future__ import annotations
@@ -181,6 +180,29 @@ class AEDModel(EncoderModel):
             x = x + _ff(_ln(x, lp["ln3"]), lp["ff"])
         x = _ln(x, p.ln_out)
         return x @ p.out["w"] + p.out["b"]
+
+    def loss(self, features: torch.Tensor, feat_lens: torch.Tensor,
+             labels: torch.Tensor, label_lens: torch.Tensor) -> torch.Tensor:
+        """Mean per-token teacher-forced cross-entropy: the targets are
+        ``labels`` with EOS (= blank) at position ``label_lens``, the
+        decoder's input ``[BOS, labels]``; the mean runs over the valid
+        positions, EOS included."""
+        blank = self.config.blank_id
+        enc, enc_lens = self.encode(features, feat_lens)
+        dev = enc.device
+        labels = labels.to(dev).long()
+        label_lens = label_lens.to(dev).long()
+        b, u_lab = labels.shape
+        dec_in = torch.cat([torch.full((b, 1), blank, dtype=torch.long,
+                                       device=dev), labels], dim=1)
+        pos = torch.arange(u_lab + 1, device=dev)[None, :]
+        targets = torch.where(pos < label_lens[:, None],
+                              F.pad(labels, (0, 1)), blank)  # EOS at len
+        valid = (pos <= label_lens[:, None]).to(torch.float32)
+        logp = torch.log_softmax(self.decoder_logits(dec_in, enc, enc_lens),
+                                 dim=-1)
+        nll = -torch.gather(logp, 2, targets[..., None])[..., 0]
+        return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
     def decode_greedy(self, features: torch.Tensor, feat_lens: torch.Tensor,
                       *, max_len: int = 64

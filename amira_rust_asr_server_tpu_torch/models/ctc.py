@@ -6,8 +6,6 @@ way) and ``head.w [d_enc, V]``, ``head.b [V]`` in the reference's layout.
 The head runs in the promoted dtype of its input and weights: the serving
 pipeline hands it the encoder output in f32, as the reference casts ``enc``
 to f32 before its head, so ``log_probs`` is a log-softmax in f32.
-
-The loss (training) is not ported yet (ROADMAP.md queue 1, [#13]).
 """
 
 from __future__ import annotations
@@ -69,3 +67,11 @@ class CTCModel(EncoderModel):
         return ctc_beam_decode(self.log_probs(enc), enc_lens,
                                self.config.blank_id, width=width, graph=graph,
                                bias=bias, strict=strict)
+
+    def loss(self, features: torch.Tensor, feat_lens: torch.Tensor,
+             labels: torch.Tensor, label_lens: torch.Tensor) -> torch.Tensor:
+        """Mean per-example CTC negative log-likelihood."""
+        from ..ops.ctc import ctc_loss
+        enc, enc_lens = self.encode(features, feat_lens)
+        return ctc_loss(self.log_probs(enc), enc_lens, labels, label_lens,
+                        self.config.blank_id).mean()

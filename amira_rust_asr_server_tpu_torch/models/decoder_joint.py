@@ -122,6 +122,22 @@ def pred_step(pred: Predictor, cfg: ModelConfig, tokens: torch.Tensor,
     return x, (torch.stack(new_h), torch.stack(new_c))
 
 
+def pred_forward(pred: Predictor, cfg: ModelConfig, targets: torch.Tensor,
+                 state: PredState) -> Tuple[torch.Tensor, PredState]:
+    """Teacher-forced prediction net for training: ``targets [B, U]`` ->
+    outputs ``[B, U+1, d_pred]``, output u being the net's summary of the
+    first u labels (u = 0 is the SOS/blank step). Padded labels past a
+    lane's length run through the net too; the loss masks them."""
+    b = targets.shape[0]
+    sos = torch.full((b, 1), cfg.blank_id, dtype=targets.dtype,
+                     device=targets.device)
+    outs = []
+    for tok in torch.cat([sos, targets], dim=1).unbind(1):
+        out, state = pred_step(pred, cfg, tok, state)
+        outs.append(out)
+    return torch.stack(outs, dim=1), state
+
+
 def joint_precompute_enc(joint: Joint, enc: torch.Tensor) -> torch.Tensor:
     """[B, T, d_enc] -> [B, T, d_joint]: the encoder projection, hoisted out
     of the decode loop."""
@@ -133,3 +149,13 @@ def joint_step_pre(joint: Joint, enc_pre_frame: torch.Tensor,
     """Joint logits [B, V] from a precomputed encoder projection."""
     hidden = torch.relu(enc_pre_frame + joint.pred_proj(pred_out))
     return joint.out(hidden)
+
+
+def joint_full(joint: Joint, enc: torch.Tensor, pred: torch.Tensor
+               ) -> torch.Tensor:
+    """The full lattice: ``[B, T, D] x [B, U, P] -> [B, T, U, V]`` (the
+    training loss never builds it for a whole utterance:
+    ``ops/rnnt_loss.py``)."""
+    e = joint.enc_proj(enc)
+    p = joint.pred_proj(pred)
+    return joint.out(torch.relu(e[:, :, None, :] + p[:, None, :, :]))

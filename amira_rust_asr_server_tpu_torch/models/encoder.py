@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.decode_loop import copy_into_
 from ..ops.quant import pack_weight_int8, quant_dense
@@ -326,8 +327,17 @@ class ConformerEncoder(nn.Module):
             < enc_lens[:, None]
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         x = torch.where(pad_mask[:, :, None], x, zero)
+        # remat: each block's activations are recomputed in the backward
+        # pass instead of saved; only while autograd records, so serving
+        # (inference mode) never sees it
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.n_layers):
-            x = getattr(self, f"block{i}")(x, pad_mask)
+            block = getattr(self, f"block{i}")
+            if remat:
+                x = checkpoint(block, x, pad_mask, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = block(x, pad_mask)
         x = self.out_proj(x)
         return torch.where(pad_mask[:, :, None], x, zero), enc_lens
 
@@ -349,7 +359,8 @@ def init_encoder_weights(encoder: ConformerEncoder,
 
 class EncoderModel(nn.Module):
     """What the model families share: a conformer encoder under
-    ``encoder``, the int8 serving switch and the parameter count."""
+    ``encoder``, the int8 serving switch, the parameter count and the
+    ``.npz`` checkpoints."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -376,3 +387,19 @@ class EncoderModel(nn.Module):
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    # -- checkpoint io --------------------------------------------------------
+    def save_checkpoint(self, path) -> None:
+        """Write the state dict as the converter's ``.npz`` (f32 arrays by
+        key), which ``convert.load_checkpoint``, a reload and the model
+        repository read as they are."""
+        from ..convert import save_npz
+        if not str(path).endswith(".npz"):
+            raise ValueError(f"checkpoint {str(path)!r}: the port writes "
+                             ".npz state dicts")
+        save_npz(path, self.state_dict())
+
+    def load_checkpoint(self, path) -> "EncoderModel":
+        """Load an ``.npz`` state dict into this model, strictly."""
+        from ..convert import load_checkpoint
+        return load_checkpoint(self, path)

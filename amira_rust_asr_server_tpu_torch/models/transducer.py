@@ -9,8 +9,9 @@ from typing import Optional
 import torch
 
 from .decoder_joint import (Joint, Predictor, init_joint_params,
-                            init_pred_params, init_pred_state,
-                            joint_precompute_enc, joint_step_pre, pred_step)
+                            init_pred_params, init_pred_state, joint_full,
+                            joint_precompute_enc, joint_step_pre,
+                            pred_forward, pred_step)
 from .encoder import EncoderModel, init_encoder_weights
 from .presets import ModelConfig
 
@@ -36,12 +37,19 @@ class Transducer(EncoderModel):
     def predict_step(self, tokens: torch.Tensor, state):
         return pred_step(self.predictor, self.config, tokens, state)
 
+    def predict_forward(self, targets: torch.Tensor, state):
+        return pred_forward(self.predictor, self.config, targets, state)
+
     def joint_precompute_enc(self, enc: torch.Tensor) -> torch.Tensor:
         return joint_precompute_enc(self.joint, enc)
 
     def joint_step_pre(self, enc_pre_frame: torch.Tensor,
                        pred_out: torch.Tensor) -> torch.Tensor:
         return joint_step_pre(self.joint, enc_pre_frame, pred_out)
+
+    def joint_full(self, enc: torch.Tensor, pred: torch.Tensor
+                   ) -> torch.Tensor:
+        return joint_full(self.joint, enc, pred)
 
     def init_state(self, batch: int, dtype=torch.float32,
                    device: Optional[torch.device] = None):

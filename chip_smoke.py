@@ -131,6 +131,26 @@ their plain PyTorch versions:
      200/COMPLETE in the reference schema, the log-mel kernel launched on
      every request and the W8A8 kernel on every int8 one (and on no other);
      each request's wall and its bucket's replay device time
+  S  hot reload at large: build_state behind the server with a temporary
+     repository of seeded .npz files; the repository routes, then every
+     route's programs reloaded and held against a pipeline built afresh
+  T  the offline CLI and tools/gpu_selfcheck.py as subprocesses
+  U  training on the card: large (421,818,886 parameters, seeded, f32),
+     one 16 x 6 s synthspeech batch with 24 label slots: the first step's
+     loss and global gradient norm with and without remat (rel 1e-5) and
+     both peaks; five steps of make_train_step (warmup-cosine schedule, lr
+     2e-4, no warmup): every loss finite, the loss after them below the
+     first, the log-mel kernel launched once per step and nothing else;
+     the step wall (median of the last 3), peak memory, one step's idle
+     share under torch.profiler and its model FLOPs against the f32 peak;
+     the memory-light RNN-T loss against the full lattice at large's joint
+     widths (B 4, T 76, U 24: loss rel 1e-5, every gradient within rel
+     1e-4 of its norm, peak below the lattice's bytes); two CTC and two
+     AED steps at large; then python -m amira_rust_asr_server_tpu_torch.
+     train --digits at tools/train_digits.py's defaults as a subprocess,
+     whose held-out exact match must reach the JAX trainer's less 0.10,
+     and its .npz loaded by name over HTTP (the repository's load route)
+     must decode "two five nine" to the trainer's own tokens
 
 Any failure raises and exits non-zero. The line before the last holds the
 kernels' measurements as JSON; the last line is
@@ -138,7 +158,8 @@ kernels' measurements as JSON; the last line is
 lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
 the int8 and per-step phases, ``--phases ABMN`` the streaming phases,
 ``--phases ABO`` the bucket programs, ``--phases ABPQ`` streaming beam and
-the per-step route's device loop, ``--phases ABR`` the model families.
+the per-step route's device loop, ``--phases ABR`` the model families,
+``--phases ABU`` training.
 """
 
 from __future__ import annotations
@@ -156,7 +177,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMNOPQRST"
+ALL_PHASES = "ABCDEFGHIJKLMNOPQRSTU"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -3128,12 +3149,388 @@ def phase_t(results):
     out["selfcheck"] = {"rc": proc.returncode, "wall_s": wall}
 
 
+# the JAX trainer's held-out exact match at tools/train_digits.py's
+# defaults (800 steps, batch 16, lr 2e-3, seed 0, 50 sentences), run on
+# the CPU: 44 / 50 (PERF.md section 6); phase U holds the port's trainer to
+# this less 0.10
+JAX_DIGITS_EXACT_MATCH = 0.88
+
+
+def train_step_flops(cfg, b: int, n_samples: int, u: int) -> float:
+    """The model FLOPs of one transducer train step on ``b`` utterances of
+    ``n_samples`` with ``u`` label slots, counted from the shapes: the
+    forward's matmuls and convolutions (a multiply-add is two operations;
+    the encoder, prediction net and joint, not the log-mel features) times
+    three for forward and backward. The loss's recomputed joint blocks
+    are not counted (they are not model FLOPs)."""
+    t = 1 + n_samples // 160
+    sub, c_in = 0.0, cfg.n_mels
+    for _ in range(int(math.log2(cfg.subsampling_factor))):
+        t = (t + 1) // 2
+        sub += 2 * t * cfg.subsampling_dim * c_in * 5
+        c_in = cfg.subsampling_dim
+    d = cfg.d_model
+    sub += 2 * t * c_in * d
+    # per frame: ff1 and ff2 (16 d^2 each at expansion 4), qkv 6 d^2,
+    # out 2 d^2, conv pw1 4 d^2 and pw2 2 d^2, attention 4 t d, depthwise
+    # 2 k d
+    ff = 2 * 2 * 2 * d * cfg.ff_expansion * d
+    block = ff + 6 * d * d + 2 * d * d + 6 * d * d + 4 * t * d \
+        + 2 * cfg.conv_kernel * d
+    enc = sub + t * (cfg.n_layers * block + 2 * d * cfg.d_enc)
+    u1 = u + 1
+    pred = u1 * (sum(2 * ((cfg.d_embed if i == 0 else cfg.d_pred)
+                          + cfg.d_pred) * 4 * cfg.d_pred
+                     for i in range(cfg.pred_layers))
+                 + 2 * cfg.d_pred * cfg.d_joint)
+    joint = t * 2 * cfg.d_enc * cfg.d_joint \
+        + t * u1 * 2 * cfg.d_joint * cfg.vocab_size
+    return 3.0 * b * (enc + pred + joint)
+
+
+def grad_norm(model) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(p.grad) for p in model.parameters()
+        if p.grad is not None])))
+
+
+async def _load_and_decode(state, port: int, name: str, pcm: bytes):
+    """Serve ``state``, load ``name`` through the repository's load route,
+    then post ``pcm``; returns {step: (status, body)}."""
+    import aiohttp
+
+    from amira_rust_asr_server_tpu_torch.server.app import run_server
+    server = asyncio.create_task(run_server(state, "127.0.0.1", port))
+    url = f"http://127.0.0.1:{port}"
+    out = {}
+    try:
+        async with aiohttp.ClientSession() as session:
+            for _ in range(600):
+                try:
+                    async with session.get(f"{url}/health") as r:
+                        if r.status == 200:
+                            break
+                except aiohttp.ClientConnectionError:
+                    pass
+                await asyncio.sleep(0.1)
+            async with session.post(
+                    f"{url}/v2/repository/models/{name}/load") as r:
+                out["load"] = (r.status, await r.json())
+            async with session.post(f"{url}/v2/decode/batch/default",
+                                    json={"audio_buffer": list(pcm)}) as r:
+                out["decode"] = (r.status, await r.json())
+    finally:
+        state.shutdown.trigger()
+        await server
+    return out
+
+
+def phase_u(results):
+    """Training on the card: the flagship's train step at full width (5
+    steps on one synthspeech batch), the memory-light RNN-T loss against
+    the full lattice, remat against no remat, the CTC and AED families'
+    steps, then the digits trainer end to end as a subprocess and its
+    .npz served through the model repository's load route."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.convert import MODELS
+    from amira_rust_asr_server_tpu_torch.device import disable_tf32
+    from amira_rust_asr_server_tpu_torch.models.presets import LARGE
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.ops.rnnt_loss import (
+        joint_loss, joint_loss_lattice, transducer_loss,
+        transducer_loss_lattice)
+    from amira_rust_asr_server_tpu_torch.parallel import (
+        aed_loss_fn, ctc_loss_fn, init_training, loss_fn, make_optimizer,
+        make_train_step)
+    from amira_rust_asr_server_tpu_torch.parallel.train import \
+        warmup_cosine_decay_schedule
+    from amira_rust_asr_server_tpu_torch.server import app as app_mod
+    from amira_rust_asr_server_tpu_torch.testing import (
+        TINY_DIGITS_VOCAB, pcm16_digits, synthspeech_batches)
+    from torch.autograd import DeviceType
+    dev = torch.device("cuda")
+    disable_tf32()
+    torch.cuda.empty_cache()
+    out = results["training"] = {}
+    launches: dict = {}
+    b, n_samples, u = 16, 96000, 24  # tools/train_synth.py's defaults
+    batch = next(synthspeech_batches(b, audio_bucket=n_samples,
+                                     label_bucket=u, seed=0))
+    sched = warmup_cosine_decay_schedule(0.0, 2e-4, 0, 3000,
+                                         end_value=2e-5)
+
+    # 1. the flagship's step at full width
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    model = MODELS["transducer"](LARGE).to(dev)
+    opt = make_optimizer(sched)
+    state = init_training(model, torch.Generator().manual_seed(0), opt)
+    n_params = model.param_count()
+    say("U", f"large transducer, {n_params:,} parameters, seeded and "
+        f"placed in {time.perf_counter() - t0:.1f} s; batch {b} x "
+        f"{n_samples / 16000:g} s, {u} label slots, lengths "
+        f"{batch.label_lens.tolist()}")
+    if n_params != 421_818_886:
+        raise AssertionError(f"[U] large has {n_params} parameters")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def loss_and_norm(m):
+        """One forward + backward: (loss, global grad norm, peak MiB above
+        what was allocated before it: activations and gradients)."""
+        m.zero_grad(set_to_none=True)
+        x = batch.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        value = loss_fn(m, x)
+        value.backward()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        return float(value.detach()), grad_norm(m), peak
+
+    # 3. remat: the same first step with each block recomputed
+    plain = loss_and_norm(model)
+    model.zero_grad(set_to_none=True)
+    cfg_r = dataclasses.replace(LARGE, remat=True)
+    model_r = MODELS["transducer"](cfg_r).to(dev)
+    model_r.load_state_dict(init)
+    remat = loss_and_norm(model_r)
+    del model_r
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    say("U", f"first step without / with remat: loss {plain[0]:.6f} / "
+        f"{remat[0]:.6f}, global grad norm {plain[1]:.6f} / "
+        f"{remat[1]:.6f}, peak above the weights {plain[2]:.0f} / "
+        f"{remat[2]:.0f} MiB (activations and the 1,609 MiB of gradients)")
+    if (abs(remat[0] - plain[0]) > 1e-5 * abs(plain[0])
+            or abs(remat[1] - plain[1]) > 1e-5 * abs(plain[1])):
+        raise AssertionError("[U] remat changed the loss or the gradient")
+    out["remat"] = {"loss": [plain[0], remat[0]],
+                    "grad_norm": [plain[1], remat[1]],
+                    "peak_mib": [plain[2], remat[2]]}
+
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(state, batch)))  # waits for the device
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    with torch.no_grad():
+        after = float(loss_fn(model, batch.to(dev)))
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    busy, span = pipeline_profiler().busy_and_span(kern)
+    kernels.reset_launch_counts()
+    wall = float(np.median(walls[-3:]))
+    # the profiler slows the host's ~9,400 launches, so the traced span is
+    # longer than an unprofiled step: both shares are kept
+    idle_unprofiled = 1 - busy / wall
+    flops = train_step_flops(LARGE, b, n_samples, u)
+    mfu = flops / (wall / 1e3) / PEAK_OPS["f32"]
+    say("U", f"5 steps: losses {[round(x, 4) for x in losses]}, after "
+        f"them {after:.4f}; step wall {[round(w, 1) for w in walls]} ms "
+        f"(median of the last 3: {wall:.1f} ms); peak {peak:.0f} MiB above "
+        f"what earlier phases hold; "
+        f"launches {counts}")
+    say("U", f"one step under torch.profiler: {len(kern)} kernels, busy "
+        f"{busy:.1f} ms of a {span:.1f} ms span, idle share "
+        f"{1 - busy / span:.3f} (against the unprofiled step wall: "
+        f"{idle_unprofiled:.3f}); model FLOPs {flops / 1e12:.3f} T per "
+        f"step, {flops / (wall / 1e3) / 1e12:.1f} TFLOP/s, MFU {mfu:.3f} "
+        f"against the f32 peak of {PEAK_OPS['f32'] / 1e12:.0f} TFLOP/s")
+    if (not all(np.isfinite(losses)) or not after < losses[0]
+            or counts["log_mel"] != 5
+            or any(n for k, n in counts.items() if k != "log_mel")):
+        raise AssertionError("[U] the flagship's steps")
+    launches["log_mel"] = counts["log_mel"]
+    out["large_step"] = {
+        "losses": losses, "loss_after": after, "step_ms": walls,
+        "step_wall_ms": wall, "peak_mib": peak, "kernels": len(kern),
+        "busy_ms": busy, "traced_span_ms": span,
+        "idle_share": 1 - busy / span,
+        "idle_share_unprofiled": idle_unprofiled, "model_flops": flops,
+        "mfu_f32": mfu}
+
+    # 2. the memory-light loss against the full lattice, at large's joint
+    # widths
+    bl, tl, ul = 4, 76, 24
+    rng = np.random.default_rng(11)
+    enc = torch.from_numpy(rng.standard_normal(
+        (bl, tl, LARGE.d_enc)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, LARGE.blank_id, (bl, ul))
+                              .astype(np.int32)).to(dev)
+    enc_lens = torch.tensor([76, 70, 60, 40], dtype=torch.int32, device=dev)
+    label_lens = torch.tensor([24, 20, 11, 0], dtype=torch.int32,
+                              device=dev)
+    got = []
+    for fn in (transducer_loss, transducer_loss_lattice):
+        model.zero_grad(set_to_none=True)
+        x = enc.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn(model, x, enc_lens, labels, label_lens).sum()
+        value.backward()
+        torch.cuda.synchronize()
+        took = (time.perf_counter() - t0) * 1e3
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        got.append((float(value.detach()), x.grad, grads, took))
+    # the memory of the part the lattice lives in: the joint and the
+    # recurrence, from the prediction net's outputs and the encoder output
+    # (leaves), with the joint's weight gradients already allocated; the
+    # prediction net's own backward (per-step weight gradients of the
+    # LSTM, the same in both) is left out
+    with torch.no_grad():
+        state0 = model.init_state(bl, device=dev)
+        pred_seq = model.predict_forward(labels, state0)[0]
+    peaks = []
+    for fn in (joint_loss, joint_loss_lattice):
+        for _ in range(2):  # the first run allocates the weights' gradients
+            model.zero_grad(set_to_none=False)
+            x = enc.clone().requires_grad_()
+            p_in = pred_seq.clone().requires_grad_()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn(model.joint, x, p_in, enc_lens, labels, label_lens,
+               LARGE.blank_id).sum().backward()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        peaks.append(peak)
+    model.zero_grad(set_to_none=True)
+    (l1, g1, p1, w1), (l2, g2, p2, w2) = got
+    m1, m2 = peaks
+    lattice_mib = bl * tl * (ul + 1) * LARGE.vocab_size * 4 / 2**20
+    rel = {"enc": float((g1 - g2).norm() / g2.norm())}
+    rel.update({n: float((g - p2[n]).norm() / p2[n].norm())
+                for n, g in p1.items()})
+    worst = max(rel, key=rel.get)
+    say("U", f"memory-light loss vs full lattice (B {bl}, T {tl}, U {ul}, "
+        f"V {LARGE.vocab_size}, f32): loss {l1:.6f} vs {l2:.6f}; "
+        f"{len(rel)} gradients, the largest relative difference "
+        f"{rel[worst]:.2e} ({worst}); forward + backward {w1:.1f} ms vs "
+        f"{w2:.1f} ms; peak of the joint and the recurrence above their "
+        f"inputs and weight gradients {m1:.1f} MiB vs {m2:.1f} MiB (the "
+        f"lattice alone {lattice_mib:.1f} MiB)")
+    if (set(p1) != set(p2) or abs(l1 - l2) > 1e-5 * abs(l2)
+            or rel[worst] > 1e-4 or not m1 < lattice_mib):
+        raise AssertionError("[U] the memory-light loss")
+    out["loss_vs_lattice"] = {"loss": [l1, l2], "max_grad_rel": rel[worst],
+                              "peak_mib": [m1, m2],
+                              "lattice_mib": lattice_mib, "ms": [w1, w2]}
+    del model, state, step, init, got, p1, p2, g1, g2
+    torch.cuda.empty_cache()
+
+    # 4. the CTC and AED families at large: two steps each
+    for fam, fam_loss in (("ctc", ctc_loss_fn), ("aed", aed_loss_fn)):
+        fmodel = MODELS[fam](LARGE).to(dev)
+        fopt = make_optimizer(sched)
+        fstate = init_training(fmodel, torch.Generator().manual_seed(0),
+                               fopt)
+        fstep = make_train_step(fmodel, fopt, loss=fam_loss)
+        kernels.reset_launch_counts()
+        fl, fw = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fl.append(float(fstep(fstate, batch)))
+            fw.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        say("U", f"large {fam}: {fmodel.param_count():,} parameters, "
+            f"losses {[round(x, 4) for x in fl]}, step wall "
+            f"{[round(w, 1) for w in fw]} ms, launches {counts}")
+        if (not all(np.isfinite(fl)) or counts["log_mel"] != 2
+                or any(n for k, n in counts.items() if k != "log_mel")):
+            raise AssertionError(f"[U] the {fam} steps")
+        launches["log_mel"] += counts["log_mel"]
+        out[fam] = {"losses": fl, "step_ms": fw}
+        del fmodel, fstate, fstep
+        torch.cuda.empty_cache()
+
+    # 5. the digits trainer end to end, then its .npz served by name
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        name = "tiny-digits-run"
+        min_acc = JAX_DIGITS_EXACT_MATCH - 0.10
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "amira_rust_asr_server_tpu_torch.train",
+             "--digits", "--family", "transducer", "--min-acc",
+             f"{min_acc:.2f}", "--ckpt-out",
+             os.path.join(tmp, f"{name}.npz")],
+            cwd=root, capture_output=True, text=True, timeout=900)
+        took = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            if line.startswith(("held-out", "  MISS", "saved", "step   799",
+                                "accuracy")):
+                say("U", f"train --digits: {line.strip()}")
+        say("U", f"python -m amira_rust_asr_server_tpu_torch.train "
+            f"--digits: rc {proc.returncode} in {took:.1f} s")
+        if proc.returncode != 0:
+            say("U", proc.stderr[-3000:])
+            raise AssertionError("[U] the digits trainer")
+        with open(os.path.join(tmp, f"{name}.json")) as f:
+            pointer = json.load(f)
+        acc = pointer["held_out_exact_match"]
+        if acc < min_acc:
+            raise AssertionError(f"[U] held-out exact match {acc}")
+        rates = [float(x.split("(")[1].split()[0]) for x in lines
+                 if x.startswith("step ")]
+        cfg = Config(vocabulary_path=str(TINY_DIGITS_VOCAB),
+                     inference_backend="tpu", model_repo_path=tmp,
+                     compute_dtype="float32", batch_buckets=[1])
+        st = app_mod.build_state(cfg, preset="tiny", warmup=False)
+        kernels.reset_launch_counts()
+        http = asyncio.run(_load_and_decode(
+            st, free_port(), name, pcm16_digits(["two", "five", "nine"])))
+        counts = kernels.launch_counts()
+        kernels.reset_launch_counts()
+    served = http["decode"][1].get("metadata", {}).get("tokens")
+    say("U", f"the trained .npz loaded by name over HTTP: load "
+        f"{http['load'][0]}, decode {http['decode'][0]} "
+        f"{http['decode'][1].get('transcription')!r} tokens {served}; the "
+        f"trainer's own evaluation {pointer['probe']['tokens']}; launches "
+        f"{counts}")
+    if (http["load"][0] != 200 or http["decode"][0] != 200
+            or served != pointer["probe"]["tokens"]
+            or counts["log_mel"] < 1 or counts["greedy_loop"] < 1):
+        raise AssertionError("[U] the trained checkpoint over HTTP")
+    for k in ("log_mel", "greedy_loop"):
+        launches[k] = launches.get(k, 0) + counts[k]
+    out["digits"] = {"held_out_exact_match": acc,
+                     "jax_held_out_exact_match": JAX_DIGITS_EXACT_MATCH,
+                     "wall_s": took, "steps_per_s": rates[-1],
+                     "probe_tokens": served}
+    for k, n in launches.items():
+        results.setdefault(k, {})
+        results[k]["launches"] = results[k].get("launches", 0) + n
+    out["launches"] = launches
+    say("U", f"kernel launches of phase U's main path: {launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
     phases = ap.parse_args(argv).phases.upper()
     results: dict = {}
     smi = phase_a()
+    say("A", f"nvidia-smi name, power limit: {smi}")
     # build_state probes the platform; this run makes no network request,
     # so the cloud probe answers as it does with no network
     from amira_rust_asr_server_tpu_torch.utils import platform
@@ -3176,6 +3573,8 @@ def main(argv=None) -> int:
         phase_s(results)
     if "T" in phases:
         phase_t(results)
+    if "U" in phases:
+        phase_u(results)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -3196,6 +3595,7 @@ def main(argv=None) -> int:
                       "families": results["families"],
                       "reload": results["reload"],
                       "tools": results["tools"],
+                      "training": results["training"],
                       "programs": results["programs"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
