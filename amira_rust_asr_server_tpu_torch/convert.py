@@ -13,9 +13,10 @@ the encoder, whose modules are torch's:
 - flax Conv ``kernel [k, in/g, out]``  -> ``weight [out, in/g, k]``
 - flax LayerNorm ``scale``             -> ``weight``
 
-LayerScale gains and the predictor/joint, head and decoder dicts carry over
-as they are (the decode-loop kernel reads the LSTM ``w [in, 4P]`` layout
-directly). :func:`to_model` builds the family's model and loads the state
+LayerScale gains, the mixture-of-experts stacks (``ff2.gate``, ``w1``,
+``b1``, ``w2``, ``b2``) and the predictor/joint, head and decoder dicts
+carry over as they are (the decode-loop kernel reads the LSTM ``w [in,
+4P]`` layout directly). :func:`to_model` builds the family's model and loads the state
 dict strictly: every key and shape. :func:`stage_checkpoint` prepares a
 converted ``.npz`` for a reload of a serving model without touching it.
 """
@@ -53,17 +54,33 @@ def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+# a flax kernel's axes in the torch weight, by rank: Dense [in, out] ->
+# [out, in], Conv [k, in/g, out] -> [out, in/g, k] (each its own inverse)
+_KERNEL_PERMS = {2: (1, 0), 3: (2, 1, 0)}
+
+
 def _encoder_leaf(key: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     head, _, leaf = key.rpartition(".")
     if leaf == "kernel":
-        if arr.ndim == 2:
-            return f"{head}.weight", arr.T
-        if arr.ndim == 3:
-            return f"{head}.weight", arr.transpose(2, 1, 0)
-        raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
+        if arr.ndim not in _KERNEL_PERMS:
+            raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
+        return f"{head}.weight", arr.transpose(_KERNEL_PERMS[arr.ndim])
     if leaf == "scale":
         return f"{head}.weight", arr
     return key, arr
+
+
+def jax_leaf(key: str, ndim: int) -> Tuple[str, Tuple[int, ...]]:
+    """The reference's path (``/``-joined) of the state-dict entry ``key``
+    of rank ``ndim``, and for each torch dim the dim of the reference's
+    array it is: the converter's key map, read backwards."""
+    head, _, leaf = key.rpartition(".")
+    if key.startswith("encoder.") and leaf == "weight":
+        if ndim == 1:
+            return f"{head}/scale".replace(".", "/"), (0,)
+        return (f"{head}/kernel".replace(".", "/"),
+                _KERNEL_PERMS[ndim])
+    return key.replace(".", "/"), tuple(range(ndim))
 
 
 def family_of(tree: Dict[str, Any], family: Optional[str] = None) -> str:
@@ -91,9 +108,6 @@ def from_jax_params(tree: Dict[str, Any], cfg: ModelConfig,
     """JAX param tree (numpy leaves) of a transducer, CTC or AED model (by
     its keys, or ``family``) -> the port's state dict."""
     family_of(tree, family)
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE encoders are not ported yet (ROADMAP.md queue 1, item 14)")
     out: Dict[str, torch.Tensor] = {}
     for key, leaf in _flatten(tree):
         arr = np.array(leaf, dtype=np.float32)  # a writable copy

@@ -23,6 +23,13 @@ The eight dense layers of each conformer block are :class:`QLinear`, the
 reference's ``QDense``: with ``ModelConfig.quant_int8`` they run W8A8
 through ``ops.quant.quant_dense`` (the W8A8 kernel's wrapper). The
 subsampler's and the output projection stay plain, as in the reference.
+With ``ModelConfig.moe_experts > 0`` each block's second feed-forward is
+:class:`MoEFeedForward`, which int8 leaves alone, as the reference's
+computes it with plain einsums.
+
+On a device mesh (``parallel/mesh.py``) the dense layers, convolutions and
+expert stacks split their work over the ``model`` axis (``models/tp.py``);
+everything else reads its parameters whole.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels.decode_loop import copy_into_
 from ..ops.quant import pack_weight_int8, quant_dense
+from . import tp
 from .presets import ModelConfig, get_preset
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm default
@@ -110,13 +118,22 @@ class ChannelLastConv(nn.Module):
             lo, hi = self.causal_pad, 0
         else:
             lo, hi = _same_pad(x.shape[1], self.k, self.stride)
-        y = F.pad(x.transpose(1, 2), (lo, hi))
-        y = F.conv1d(y, self.weight, self.bias, stride=self.stride,
-                     groups=self.groups)
-        return y.transpose(1, 2)
+        return self.conv(F.pad(x.transpose(1, 2), (lo, hi))).transpose(1, 2)
+
+    def conv(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution of an already padded ``[B, C, T]`` input."""
+        return tp.conv1d(self, x)
 
 
-class QLinear(nn.Linear):
+class Linear(nn.Linear):
+    """``nn.Linear`` that splits over a mesh's ``model`` axis when its
+    weight is sharded there (``models/tp.py``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tp.linear(self, x)
+
+
+class QLinear(Linear):
     """``nn.Linear`` with the reference ``QDense``'s int8 serving path. The
     parameters keep ``nn.Linear``'s names, so converted weights load as they
     are; the int8 weight, its scales and the f32 bias are non-persistent
@@ -231,20 +248,60 @@ class FeedForward(nn.Module):
         return self.w2(F.silu(self.w1(x)))
 
 
+class MoEFeedForward(nn.Module):
+    """Mixture-of-experts feed-forward, dense compute: every expert runs
+    every token, and a top-k gate, renormalized over the selected experts,
+    weights their sum. The parameters keep the reference's layout: ``gate
+    [d, E]``, ``w1 [E, d, f]``, ``b1 [E, f]``, ``w2 [E, f, d]``, ``b2
+    [E, d]``; on a mesh the expert stacks shard over ``model`` (expert
+    parallelism, ``models/tp.experts``).
+
+    The selection is a threshold, as the reference's: every expert whose
+    logit reaches the k-th largest is kept (ties keep more than k, which
+    bf16 logits often have), the others are masked with -1e9 in the
+    working type before the softmax over all E."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d, e = cfg.d_model, cfg.moe_experts
+        f = cfg.ff_expansion * d
+        self.top_k = min(cfg.moe_top_k, e)
+        self.gate = nn.Parameter(torch.zeros(d, e))
+        self.w1 = nn.Parameter(torch.zeros(e, d, f))
+        self.b1 = nn.Parameter(torch.zeros(e, f))
+        self.w2 = nn.Parameter(torch.zeros(e, f, d))
+        self.b2 = nn.Parameter(torch.zeros(e, d))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w1, b1, w2, b2, first, group = tp.experts(self)
+        gate = self.gate
+        if group is not None:
+            # each rank sums its own experts only, so the gradients that
+            # reach the input and the gate are its share: summed over ranks
+            x, gate = tp.copy_to(x, group), tp.copy_to(gate, group)
+        logits = x @ gate                                        # [B, T, E]
+        thresh = torch.topk(logits, self.top_k, dim=-1).values[..., -1:]
+        masked = torch.where(logits >= thresh, logits,
+                             scalar(MASK_FILL, logits))
+        combine = torch.softmax(masked, dim=-1)
+        h = F.silu(torch.einsum("btd,edf->ebtf", x, w1) + b1[:, None, None])
+        y = torch.einsum("ebtf,efd->ebtd", h, w2) + b2[:, None, None]
+        out = torch.einsum("ebtd,bte->btd", y,
+                           combine[..., first:first + w1.shape[0]])
+        return out if group is None else tp.reduce_over(out, group)
+
+
 class ConformerBlock(nn.Module):
     BRANCHES = ("ff1", "mhsa", "conv", "ff2")
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "moe_experts > 0 is not ported yet (ROADMAP.md queue 1, "
-                "item 14: MoE expert parallelism)")
         d = cfg.d_model
         self.ff1 = FeedForward(cfg)
         self.mhsa = MHSA(cfg)
         self.conv = ConvModule(cfg)
-        self.ff2 = FeedForward(cfg)
+        self.ff2 = (MoEFeedForward(cfg) if cfg.moe_experts > 0
+                    else FeedForward(cfg))
         for name in self.BRANCHES:
             self.add_module(f"ln_{name}", LayerNorm(d))
         self.ln_out = LayerNorm(d)
@@ -284,7 +341,7 @@ class Subsampler(nn.Module):
             self.add_module(f"conv{i}", ChannelLastConv(
                 c_in, ch, 5, stride=2, causal_pad=4 if cfg.causal else -1))
             c_in = ch
-        self.proj = nn.Linear(ch, cfg.d_model)
+        self.proj = Linear(ch, cfg.d_model)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         lens = lengths
@@ -307,7 +364,7 @@ class ConformerEncoder(nn.Module):
         self.subsampler = Subsampler(cfg)
         for i in range(cfg.n_layers):
             self.add_module(f"block{i}", ConformerBlock(cfg))
-        self.out_proj = nn.Linear(cfg.d_model, cfg.d_enc)
+        self.out_proj = Linear(cfg.d_model, cfg.d_enc)
 
     def freeze_int8(self) -> None:
         """The int8 serving path for every block's dense layers."""
@@ -315,9 +372,9 @@ class ConformerEncoder(nn.Module):
             if isinstance(mod, QLinear):
                 mod.freeze_int8()
 
-    def forward(self, features: torch.Tensor, lengths: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        cfg = self.cfg
+    def prologue(self, features: torch.Tensor, lengths: torch.Tensor):
+        """The subsampler: ``(x [B, T', d_model] masked, encoded lengths,
+        the padding mask [B, T'])``."""
         x = self.subsampler(features.transpose(1, 2), lengths)
         enc_lens = lengths
         for _ in range(self.subsampler.n_stages):
@@ -326,7 +383,19 @@ class ConformerEncoder(nn.Module):
         pad_mask = torch.arange(x.shape[1], device=x.device)[None, :] \
             < enc_lens[:, None]
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        x = torch.where(pad_mask[:, :, None], x, zero)
+        return torch.where(pad_mask[:, :, None], x, zero), enc_lens, pad_mask
+
+    def epilogue(self, x: torch.Tensor, pad_mask: torch.Tensor
+                 ) -> torch.Tensor:
+        """The output projection, padding frames zeroed."""
+        x = self.out_proj(x)
+        return torch.where(pad_mask[:, :, None], x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        x, enc_lens, pad_mask = self.prologue(features, lengths)
         # remat: each block's activations are recomputed in the backward
         # pass instead of saved; only while autograd records, so serving
         # (inference mode) never sees it
@@ -338,8 +407,7 @@ class ConformerEncoder(nn.Module):
                                preserve_rng_state=False)
             else:
                 x = block(x, pad_mask)
-        x = self.out_proj(x)
-        return torch.where(pad_mask[:, :, None], x, zero), enc_lens
+        return self.epilogue(x, pad_mask), enc_lens
 
 
 @torch.no_grad()
@@ -347,14 +415,21 @@ def init_encoder_weights(encoder: ConformerEncoder,
                          generator: torch.Generator) -> None:
     """Seeded random init of an encoder (on the CPU, so a seed gives the
     same weights on every device): fan-in-scaled normals for dense and
-    conv weights, zero biases; LayerNorm scales and LayerScale gains keep
-    their construction values (1 and the preset's gain)."""
+    conv weights and expert stacks, zero biases; LayerNorm scales and
+    LayerScale gains keep their construction values (1 and the preset's
+    gain)."""
     for mod in encoder.modules():
         if isinstance(mod, (nn.Linear, ChannelLastConv)):
             w = mod.weight
             fan_in = w[0].numel()
             w.copy_(torch.randn(w.shape, generator=generator) / fan_in ** 0.5)
             mod.bias.zero_()
+        elif isinstance(mod, MoEFeedForward):
+            for w in (mod.gate, mod.w1, mod.w2):
+                w.copy_(torch.randn(w.shape, generator=generator)
+                        / w.shape[-2] ** 0.5)
+            mod.b1.zero_()
+            mod.b2.zero_()
 
 
 class EncoderModel(nn.Module):

@@ -14,7 +14,9 @@ where the reference's trainers do. It reproduces:
 - flax's per-parameter keys: the root key folded with the first four
   bytes of the SHA-1 of the module path and the scope's rng counter (1 for
   a module's first parameter), and ``lecun_normal`` (truncated normal,
-  variance 1 / fan_in) for every dense and convolution kernel;
+  variance 1 / fan_in) for every dense and convolution kernel and for the
+  mixture-of-experts gate and expert stacks (fan_in = prod(shape[:-1]),
+  so an expert stack's counts the experts);
 - the reference's own splits and scales for the prediction net, the joint,
   the CTC head and the AED decoder.
 
@@ -124,9 +126,18 @@ def _encoder(encoder: nn.Module, key: Key) -> None:
     """The flax ``ConformerEncoder.init(key)`` weights: every dense and
     convolution kernel ``lecun_normal`` under its module's key, biases
     and LayerNorm offsets 0, LayerNorm scales 1, LayerScale gains their
-    preset value (as constructed)."""
-    from .encoder import ChannelLastConv
+    preset value (as constructed). A mixture-of-experts ``ff2`` makes its
+    five parameters itself, in the order gate, w1, b1, w2, b2, so each
+    takes the module's key with the rng counter of its place."""
+    from .encoder import ChannelLastConv, MoEFeedForward
     for name, mod in encoder.named_modules():
+        if isinstance(mod, MoEFeedForward):
+            path = name.split(".")
+            for counter, w in ((1, mod.gate), (2, mod.w1), (4, mod.w2)):
+                _set(w, lecun_normal(param_key(key, path, counter), w.shape))
+            mod.b1.zero_()
+            mod.b2.zero_()
+            continue
         if isinstance(mod, nn.Linear):           # kernel [in, out]
             w = lecun_normal(param_key(key, name.split(".")),
                              mod.weight.shape[::-1])

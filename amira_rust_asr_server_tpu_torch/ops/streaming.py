@@ -15,7 +15,11 @@ weights of the port's :class:`~models.encoder.ConformerEncoder`, so one
 module serves batch and chunk; LayerScale gains apply as in the batch
 block. The dense layers always run in the working type: the reference's
 chunk encoder reads the unquantized kernels, so ``quantization="int8"``
-(the batch encoder's W8A8) does not reach this path there either.
+(the batch encoder's W8A8) does not reach this path there either. A
+mixture-of-experts ``ff2`` runs its module, which is stateless per frame,
+so chunked still equals batch. On a device mesh the dense layers and
+convolutions split over ``model`` as the batch encoder's do
+(``models/tp.py``); the cache stays whole on every rank.
 
 The cache keeps each per-layer field stacked over the layers
 (``[n_layers, B, ...]``, where the reference keeps lists), so the lane
@@ -31,7 +35,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..models.encoder import MASK_FILL, ConformerEncoder, rope, scalar
+from ..models import tp
+from ..models.encoder import (MASK_FILL, ConformerEncoder, MoEFeedForward,
+                              rope, scalar)
 from ..models.presets import ModelConfig
 
 
@@ -94,7 +100,7 @@ def init_encoder_cache(cfg: ModelConfig, batch: int = 1,
 
 def _dense(lin, x: torch.Tensor) -> torch.Tensor:
     """A dense layer in the working type (the unquantized weights)."""
-    return F.linear(x, lin.weight, lin.bias)
+    return tp.linear(lin, x)
 
 
 def _sub_stage(conv, x: torch.Tensor, cache: torch.Tensor
@@ -102,7 +108,7 @@ def _sub_stage(conv, x: torch.Tensor, cache: torch.Tensor
     """One causal stride-2 conv stage on a chunk: x [B, t, cin] (t even),
     cache [B, 4, cin] -> ([B, t / 2, cout], the new cache)."""
     xin = torch.cat([cache, x], dim=1)                   # [B, t + 4, cin]
-    y = F.conv1d(xin.transpose(1, 2), conv.weight, conv.bias, stride=2)
+    y = conv.conv(xin.transpose(1, 2))
     return F.silu(y.transpose(1, 2)), xin[:, -4:]
 
 
@@ -142,14 +148,15 @@ def _conv(conv, cfg: ModelConfig, x_ln: torch.Tensor, tail: torch.Tensor):
     previous chunk's post-GLU rows."""
     g = F.glu(_dense(conv.pw1, x_ln), dim=-1)            # [B, t, d]
     gin = torch.cat([tail, g], dim=1)                    # [B, t + k - 1, d]
-    y = F.conv1d(gin.transpose(1, 2), conv.dw.weight, conv.dw.bias,
-                 groups=cfg.d_model).transpose(1, 2)
+    y = conv.dw.conv(gin.transpose(1, 2)).transpose(1, 2)
     y = F.silu(conv.norm(y))
     k1 = cfg.conv_kernel - 1
     return _dense(conv.pw2, y), gin[:, gin.shape[1] - k1:]
 
 
 def _ff(ff, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(ff, MoEFeedForward):
+        return ff(x)
     return _dense(ff.w2, F.silu(_dense(ff.w1, x)))
 
 

@@ -10,9 +10,14 @@ are plain torch: the memory-light RNN-T loss (``ops/rnnt_loss.py``), the
 CTC forward algorithm (``ops/ctc.py``) and the AED cross-entropy, each
 normalized per label so learning rates transfer between the families.
 
-The reference's sharded training (a device mesh, FSDP and the
-sequence-parallel loss) is refused by name: it is parallelism, ROADMAP.md
-queue 1, item 14.
+Sharded training: :func:`init_training` with a mesh (``parallel/mesh.py``)
+places the parameters, tensor-parallel over ``model`` and, with ``fsdp``,
+sharded over ``data``; AdamW's moments then take the same placements. The
+step splits the batch over ``data``: each rank's loss is its share of the
+global per-label loss, DTensor's backward reduces every gradient into its
+parameter's placement, ``clip_grad_norm_`` takes the global norm over the
+DTensor gradients, and the loss comes back replicated.
+:func:`make_seq_parallel_loss` also shards the time axis over ``model``.
 """
 
 from __future__ import annotations
@@ -22,15 +27,15 @@ import math
 from typing import Callable, NamedTuple, Union
 
 import torch
+import torch.distributed as dist
+from torch.nn.utils import parametrize
 
 from ..device import disable_tf32
 from ..models.reference_init import init_reference_weights
 from ..ops.ctc import ctc_loss
 from ..ops.kernels.mel import log_mel_features
 from ..ops.rnnt_loss import transducer_loss
-
-NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1, item 14: parallelism "
-              "and MoE)")
+from .mesh import DATA_AXIS, MODEL_AXIS, data_slice, is_sharded, shard_params
 
 Schedule = Callable[[int], float]
 
@@ -116,6 +121,15 @@ def _per_label(losses: torch.Tensor, batch: TrainBatch) -> torch.Tensor:
         losses.dtype)
 
 
+def _label_count(batch: TrainBatch) -> torch.Tensor:
+    return torch.clamp(batch.label_lens.sum(), min=1).to(torch.float32)
+
+
+def _token_count(batch: TrainBatch) -> torch.Tensor:
+    """The AED loss's count: every label and each lane's EOS."""
+    return torch.clamp((batch.label_lens + 1).sum(), min=1).to(torch.float32)
+
+
 def loss_fn(model, batch: TrainBatch) -> torch.Tensor:
     """The transducer's loss, normalized per label."""
     feats, feat_lens = _features(model, batch)
@@ -141,8 +155,48 @@ def aed_loss_fn(model, batch: TrainBatch) -> torch.Tensor:
     return model.loss(feats, feat_lens, batch.labels, batch.label_lens)
 
 
+# what each loss is normalized by: the sharded step scales each rank's
+# loss by its share of the global count
+loss_fn.count = ctc_loss_fn.count = _label_count
+aed_loss_fn.count = _token_count
+
+
+def _time_sharded(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` laid out with ``dim`` sharded over ``model`` (each model rank
+    keeps its slice), then gathered whole for the next consumer: the
+    reference's ``with_sharding_constraint``, which GSPMD follows with the
+    gathers attention and the loss need."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    sub = mesh[MODEL_AXIS]
+    t = DTensor.from_local(x, sub, [Replicate()], run_check=False)
+    return t.redistribute(sub, [Shard(dim)]).full_tensor()
+
+
 def make_seq_parallel_loss(mesh, base: str = "rnnt"):
-    raise NotImplementedError(f"the sequence-parallel loss {NOT_PORTED}")
+    """The RNN-T (``base="rnnt"``) or CTC loss with sequence-parallel
+    layouts (Megatron-SP): the features ``[B, n_mels, T]`` sharded on
+    time over ``model`` and the encoder output ``[B, T', d]`` likewise,
+    the batch over ``data`` (the step's split). Equal to the plain loss.
+    The encoder itself computes on the gathered sequence: its blocks do
+    not yet run on time shards (ROADMAP.md queue 1)."""
+    if base not in ("rnnt", "ctc"):
+        raise ValueError(f"unknown base loss {base!r}")
+
+    def f(model, batch: TrainBatch) -> torch.Tensor:
+        feats, feat_lens = _features(model, batch)
+        enc, enc_lens = model.encode(_time_sharded(mesh, feats, 2),
+                                     feat_lens)
+        enc = _time_sharded(mesh, enc, 1)
+        if base == "ctc":
+            losses = ctc_loss(model.log_probs(enc), enc_lens, batch.labels,
+                              batch.label_lens, model.config.blank_id)
+        else:
+            losses = transducer_loss(model, enc, enc_lens, batch.labels,
+                                     batch.label_lens)
+        return _per_label(losses, batch)
+
+    f.count = _label_count
+    return f
 
 
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer, mesh=None,
@@ -152,9 +206,19 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, mesh=None,
     AdamW and the schedule's step. The loss comes back as a 0-d tensor on
     the model's device; the caller decides when to read it. ``loss`` is a
     callable ``(model, batch) -> scalar`` (:func:`ctc_loss_fn`,
-    :func:`aed_loss_fn` for the other families)."""
-    if mesh is not None:
-        raise NotImplementedError(f"a training mesh {NOT_PORTED}")
+    :func:`aed_loss_fn` for the other families).
+
+    With ``mesh``, ``model`` must already be placed on it
+    (:func:`init_training`); ``loss`` then needs a ``count(batch)``, what
+    it is normalized by (the three above have one), and every rank passes
+    the whole batch, of which it takes its share over ``data``. Each
+    step's gradient norm before clipping is kept in ``step.grad_norm``."""
+    if mesh is not None and not is_sharded(model):
+        raise ValueError("a training mesh needs the model placed on it: "
+                         "init_training(..., mesh=) or shard_params")
+    if mesh is not None and not hasattr(loss, "count"):
+        raise ValueError("a sharded step needs loss.count(batch), what the "
+                         "loss is normalized by")
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
     if device.type == "cuda":
@@ -164,18 +228,35 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, mesh=None,
         # accumulate in an order that changes from run to run
         torch.backends.cudnn.deterministic = True
 
+    def sharded_loss(batch: TrainBatch) -> torch.Tensor:
+        """This rank's share of the global loss: its batch's loss scaled
+        by its share of the global count. Gathered parameters are gathered
+        once for the step (``parametrize.cached``)."""
+        local = TrainBatch(*(data_slice(mesh, x) for x in batch))
+        total = loss.count(batch)
+        with parametrize.cached():
+            return loss(model, local) * (loss.count(local) / total)
+
     def step(opt_state: OptState, batch: TrainBatch) -> torch.Tensor:
         opt_state.adamw.zero_grad(set_to_none=True)
-        value = loss(model, batch.to(device))
+        batch = batch.to(device)
+        value = loss(model, batch) if mesh is None else sharded_loss(batch)
         value.backward()
         # clip_grad_norm_ scales by clip / (norm + 1e-6) where optax's
         # clip_by_global_norm scales by clip / norm: a relative 1e-6 / norm
-        # on clipped steps, which Adam's normalization all but removes
-        torch.nn.utils.clip_grad_norm_(params, optimizer.clip)
+        # on clipped steps, which Adam's normalization all but removes.
+        # Over DTensor gradients the norm is the global one (a DTensor)
+        norm = torch.nn.utils.clip_grad_norm_(params, optimizer.clip)
+        step.grad_norm = (norm.full_tensor() if hasattr(norm, "full_tensor")
+                          else norm).detach()
         opt_state.adamw.step()
         opt_state.schedule.step()
-        return value.detach()
+        value = value.detach()
+        if mesh is not None:  # every rank's share, summed over data
+            dist.all_reduce(value, group=mesh.get_group(DATA_AXIS))
+        return value
 
+    step.grad_norm = None
     return step
 
 
@@ -186,12 +267,15 @@ def init_training(model: torch.nn.Module,
     parameters. ``rng`` is a ``torch.Generator`` (the port's seeded init,
     ``model.init_weights``) or an int seed, which gives the reference's
     ``Model.init(PRNGKey(seed))`` weights (``models/reference_init.py``),
-    as the reference's trainers seed theirs."""
-    if mesh is not None or fsdp:
-        raise NotImplementedError(f"sharded training (mesh, fsdp) "
-                                  f"{NOT_PORTED}")
+    as the reference's trainers seed theirs. With ``mesh`` the weights
+    are then placed on it (``shard_params``; ``fsdp`` shards them over
+    ``data`` too), and AdamW's moments follow the placements."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp shards over a mesh's data axis: pass mesh")
     if isinstance(rng, torch.Generator):
         model.init_weights(rng)
     else:
         init_reference_weights(model, rng)
+    if mesh is not None:
+        shard_params(mesh, model, fsdp=fsdp)
     return optimizer.init(model.parameters())

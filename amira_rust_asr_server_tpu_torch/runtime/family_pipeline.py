@@ -209,8 +209,8 @@ class AEDPipeline(CTCPipeline):
 
     def __init__(self, model: AEDModel, vocab: Vocabulary,
                  config: Optional[Config] = None,
-                 device: Optional[torch.device] = None):
-        super().__init__(model, vocab, config, device)
+                 device: Optional[torch.device] = None, mesh=None):
+        super().__init__(model, vocab, config, device, mesh)
         if self.beam_graph is not None:
             log.warning("the aed family's beam search takes no decoding "
                         "graph (as the reference's): beam_grammar_path is "
@@ -275,17 +275,18 @@ def family_model(family: str, preset: str, cfg: Config,
 def build_family_pipeline(family: str, preset: str, vocab: Vocabulary,
                           cfg: Config, device: Optional[torch.device] = None,
                           model: Optional[torch.nn.Module] = None,
-                          seed: int = 0):
+                          seed: int = 0, mesh=None):
     """(model, pipeline) of a served CTC or AED family; the model is
     :func:`family_model`'s unless given. ``int8_decode_weights`` is turned
-    off: it quantizes a prediction net these families lack."""
+    off: it quantizes a prediction net these families lack. ``mesh``
+    places the weights on a device mesh (``AsrPipeline``)."""
     if family not in ("ctc", "aed"):
         raise ValueError(f"unknown model family {family!r}")
     if model is None:
         model = family_model(family, preset, cfg, seed)
     cfg = dataclasses.replace(cfg, int8_decode_weights=False)
     cls = CTCPipeline if family == "ctc" else AEDPipeline
-    return model, cls(model, vocab, cfg, device)
+    return model, cls(model, vocab, cfg, device, mesh)
 
 
 def serving_pipeline(model: torch.nn.Module, vocab: Vocabulary, cfg: Config,

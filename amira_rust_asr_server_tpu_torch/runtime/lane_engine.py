@@ -18,6 +18,11 @@ ends with the greedy loop's first steps, and a captured program of the
 next steps (:class:`~runtime.pipeline.StepLoop`) replays until no lane is
 active. Every device operation runs under the pipeline's ``device_lock``.
 
+On a pipeline placed on a device mesh (``AsrPipeline(..., mesh=)``, the
+reference's ``StreamingLaneEngine(..., mesh=)``) the lane state stays whole
+on every rank, the chunk encoder's dense layers and convolutions split
+over ``model``, and the chunk step runs without capture.
+
 Lifecycle: ``attach() -> lane``, ``feed(lane, samples)``,
 ``tick() -> {lane: new tokens}``, ``detach(lane)``. The server drives
 ``tick`` from its lane-ticker thread (``server/state.py``).
@@ -147,7 +152,7 @@ class StreamingLaneEngine:
                                           device=dev),
                     "enc_lens": torch.zeros((n_lanes,), dtype=torch.int32,
                                             device=dev)},
-                pool=pipeline.graph_pool())
+                pool=pipeline.graph_pool(), capture=pipeline.capture)
         self.program.host = {name: host_staging(x.shape, x.dtype, dev)
                              for name, x in self.program.inputs.items()}
 

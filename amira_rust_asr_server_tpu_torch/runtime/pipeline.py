@@ -42,6 +42,16 @@ beam kernel on CUDA, or the plain scan ``ops.beam.beam_decode`` where the
 reference runs its XLA scan (see :meth:`AsrPipeline.beam_decode_path`),
 inside the bucket's graph; the host backtrace follows the replay.
 
+On a device mesh (``mesh=``, ``parallel/mesh.py``) the parameters are
+placed as the reference places them (tensor-parallel over ``model``) after
+the kernels' tables are made from the whole weights: the loop kernels, the
+step kernel and the int8 encoder's W8A8 kernel take plain tensors, as
+GSPMD gathers the inputs of a ``pallas_call``. The encoder's dense layers,
+convolutions and experts then split over ``model`` (``models/tp.py``),
+and the programs run their bodies without capture (``DeviceProgram(...,
+capture=False)``): the split layers call collectives from the host on
+every run. Every rank of the mesh serves the same requests.
+
 Streaming state (prediction-net h/c, pred_out, last token) stays on the
 device between chunks in :class:`StreamState`. :meth:`AsrPipeline.
 decode_carried` is the one carried greedy decode: the batch dispatch, the
@@ -93,6 +103,12 @@ def check_supported(cfg: Config, device: torch.device,
     ``causal``: the model preset is causal (native streaming, greedy or
     beam, runs on it; a non-causal preset streams chunked)."""
     todo = []
+    if int(np.prod(list(cfg.mesh_shape.values()) or [1])) > 1:
+        # the library serves a mesh (AsrPipeline(..., mesh=)); the server
+        # needs one process per device with rank 0 answering HTTP
+        todo.append(f"mesh_shape={cfg.mesh_shape}: the server on more than "
+                    "one device (ROADMAP.md queue 1, item 17: multi-process "
+                    "serving)")
     if device.type == "cuda":
         # the kernels' wrappers choose the plain version by device alone, so
         # on the card the flags that would turn a kernel off are refused
@@ -142,7 +158,8 @@ class StepLoop:
         self.reads = 0
         self.program = DeviceProgram(
             f"{name}: {self.n_steps} greedy steps", pipeline.device,
-            lambda: (self._advance(self.loop),), pool=pipeline.graph_pool())
+            lambda: (self._advance(self.loop),), pool=pipeline.graph_pool(),
+            capture=pipeline.capture)
 
     def _advance(self, loop: GreedyLoop) -> torch.Tensor:
         step = self.pipeline.greedy_step_fn(self.max_symbols, self.max_total)
@@ -195,7 +212,7 @@ class AsrPipeline:
 
     def __init__(self, model: Transducer, vocab: Vocabulary,
                  config: Optional[Config] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, mesh=None):
         self.config = cfg = config or Config()
         self.device = device or resolve_device(cfg.inference_backend)
         if self.device.type == "cuda":
@@ -214,6 +231,12 @@ class AsrPipeline:
             # its cast params inside its program
             self.model.freeze_int8()
         self.decode_weights, self.step_weights = self._decode_tables()
+        self.mesh = mesh
+        # a placed model's layers call collectives from the host: no capture
+        self.capture = mesh is None
+        if mesh is not None:
+            from ..parallel.mesh import shard_params
+            shard_params(mesh, self.model)
         if cfg.decoding_mode == "greedy" and isinstance(model, Transducer):
             log.info("greedy decode route: %s (%d-layer prediction net, %s)",
                      self.greedy_route, self.model.config.pred_layers,
@@ -348,7 +371,12 @@ class AsrPipeline:
         that do not change, as the reference's programs take the params as
         arguments. Holds :attr:`device_lock` and waits for the device
         before it returns, so no run sees a half-copied set; the reload
-        runs it on the dispatch thread."""
+        runs it on the dispatch thread. A pipeline on a device mesh does not
+        reload (ROADMAP.md queue 1, item 17)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "reloading weights under a device mesh is not ported yet "
+                "(ROADMAP.md queue 1, item 17: multi-process serving)")
         with self.device_lock:
             params = self.model.state_dict()
             with torch.no_grad():
@@ -549,7 +577,7 @@ class AsrPipeline:
 
     def _new_program(self, name: str, body, inputs: dict) -> DeviceProgram:
         prog = DeviceProgram(name, self.device, body, inputs,
-                             pool=self.graph_pool())
+                             pool=self.graph_pool(), capture=self.capture)
         prog.host = {"audio": host_staging(inputs["audio"].shape,
                                            torch.float32, self.device),
                      "lens": host_staging(inputs["lens"].shape, torch.int32,
@@ -1029,7 +1057,7 @@ class AsrPipeline:
         prog = DeviceProgram(
             f"beam chunk step {chunk_frames} frames, beam {beam_width}"
             + (f", graph of up to {cap} states" if cap else ""), dev, body,
-            x, pool=self.graph_pool())
+            x, pool=self.graph_pool(), capture=self.capture)
         prog.host = {name: host_staging(t.shape, t.dtype, dev)
                      for name, t in x.items() if name != "bias"}
         prog.cache, prog.carry = cache, carry
@@ -1153,7 +1181,8 @@ class AsrPipeline:
                 enc_pre, x["enc_lens"], *carry, max_symbols=max_symbols,
                 max_total=max_total))
 
-        prog = DeviceProgram(name, dev, body, x, pool=self.graph_pool())
+        prog = DeviceProgram(name, dev, body, x, pool=self.graph_pool(),
+                             capture=self.capture)
         prog.host = {k: host_staging(t.shape, t.dtype, dev)
                      for k, t in x.items()}
         prog.cache, prog.carry, prog.steps = cache, carry, steps

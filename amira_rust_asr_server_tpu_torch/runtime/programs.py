@@ -12,7 +12,10 @@ replays it. A capture that fails raises, naming the program; nothing falls
 back to running eagerly. On the
 CPU (the caller asked for it) the body runs every time and its results are
 copied into the same static outputs, so the CPU tests exercise the buffer
-reuse the graphs rely on: a run overwrites the last run's outputs.
+reuse the graphs rely on: a run overwrites the last run's outputs. A
+program made with ``capture=False`` runs so on CUDA too: the programs of a
+pipeline placed on a device mesh, whose layers call collectives and
+DTensor redistributions from the host on every run (``models/tp.py``).
 
 The caller serializes runs of all programs of one device behind one lock
 (``AsrPipeline.device_lock``): a capture in PyTorch's default "global"
@@ -40,10 +43,11 @@ class DeviceProgram:
 
     def __init__(self, name: str, device: torch.device, body: Body,
                  inputs: Optional[Dict[str, torch.Tensor]] = None,
-                 pool=None):
+                 pool=None, capture: bool = True):
         self.name = name
         self.device = device
         self.body = body
+        self.capture = capture and device.type == "cuda"
         # the static inputs by name, and the host buffers they are filled
         # from (:func:`host_staging`), both the owner's to allocate
         self.inputs = inputs or {}
@@ -58,7 +62,7 @@ class DeviceProgram:
 
     @property
     def warm(self) -> bool:
-        """Captured (CUDA), or run once (CPU)."""
+        """Captured (CUDA), or run once (CPU, or not captured)."""
         return self.outputs is not None
 
     def warm_up(self) -> None:
@@ -74,8 +78,9 @@ class DeviceProgram:
         replays the graph and returns its static outputs. On the CPU the
         body runs and its results are copied into the static outputs.
         Either way the next run overwrites what this one returned, and the
-        body's effects on static state happen once per run."""
-        if self.device.type != "cuda":
+        body's effects on static state happen once per run. A program
+        that does not capture runs as on the CPU."""
+        if not self.capture:
             with torch.inference_mode():
                 outs = tuple(self.body())
             if self.outputs is None:

@@ -16,6 +16,10 @@ tools/train_ctc_synth.py).
     python -m amira_rust_asr_server_tpu_torch.train --synth --preset large \\
         --mix-long 0.5 --remat
 
+    # sharded: one rank per device under torchrun (tools/train.py --mesh)
+    torchrun --nproc-per-node 4 -m amira_rust_asr_server_tpu_torch.train \
+        --synthetic --mesh data=2,model=2
+
 Each mode keeps its trainer's flags and defaults; ``--seed s`` starts from
 the reference's ``PRNGKey(s)`` weights, as its trainers do
 (``models/reference_init.py``). It runs on the card
@@ -35,11 +39,13 @@ import itertools
 import json
 import os
 import sys
+import tempfile
 import time
 from typing import Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import Config
 from .constants import MAX_TOTAL_TOKENS, SAMPLE_RATE
@@ -49,7 +55,8 @@ from .models.presets import get_preset
 from .parallel import (aed_loss_fn, ctc_loss_fn, init_training, loss_fn,
                        make_optimizer, make_train_step)
 from .parallel.data import manifest_batches, synthetic_batches
-from .parallel.train import NOT_PORTED, warmup_cosine_decay_schedule
+from .parallel.mesh import full_state_dict, make_mesh, shard_params
+from .parallel.train import warmup_cosine_decay_schedule
 from .runtime.family_pipeline import serving_pipeline
 from .testing import (digit_batches, digits_vocab_map, pcm16_digits,
                       random_sentence, random_token_ids, synth_digits,
@@ -131,7 +138,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log-every", type=int, default=None)
     p.add_argument("--save-every", type=int, default=None)
     p.add_argument("--mesh", default=None,
-                   help="sharded training: not ported yet")
+                   help="sharded training over a device mesh, e.g. "
+                        "data=2,model=2: one rank per device under "
+                        "torchrun (without it, a one-rank world)")
     args = p.parse_args(argv)
     args.mode = ("digits" if args.digits else "synth" if args.synth
                  else "manifest" if args.manifest else "synthetic")
@@ -149,8 +158,38 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def build_model(args, device: torch.device):
-    """(model, optimizer state, train step) of the family, seeded."""
+def parse_mesh(spec: str) -> dict:
+    """``data=2,model=2`` -> ``{"data": 2, "model": 2}``."""
+    out = {}
+    for part in spec.split(","):
+        if part:
+            k, v = part.split("=")
+            out[k.strip()] = int(v)
+    return out
+
+
+def join_world(args, store: str) -> bool:
+    """Join the process group of ``--mesh``: torchrun's (its environment),
+    else a one-rank world of this process on the file ``store``. NCCL on
+    the card, gloo with ``--backend cpu``. True when this call made the
+    group (the caller destroys it)."""
+    if dist.is_initialized():
+        return False
+    backend = "gloo" if args.backend == "cpu" else "nccl"
+    if "WORLD_SIZE" in os.environ:
+        if backend == "nccl" and torch.cuda.is_available():
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, init_method=f"file://{store}",
+                                rank=0, world_size=1)
+    return True
+
+
+def build_model(args, device: torch.device, mesh=None):
+    """(model, optimizer state, train step) of the family, seeded; with
+    ``mesh`` the weights (after any --ckpt-in or --encoder-from) are
+    placed on it."""
     cfg = get_preset(args.preset)
     if args.remat:
         cfg = dataclasses.replace(cfg, remat=True)
@@ -176,7 +215,10 @@ def build_model(args, device: torch.device):
                              f"{args.preset}")
         print(f"warm-started the encoder from {args.encoder_from}",
               flush=True)
-    step = make_train_step(model, optimizer, loss=LOSSES[args.family])
+    if mesh is not None:
+        shard_params(mesh, model)
+        opt_state = optimizer.init(model.parameters())
+    step = make_train_step(model, optimizer, mesh, loss=LOSSES[args.family])
     return model, opt_state, step
 
 
@@ -321,6 +363,14 @@ def eval_synth(model, args, device) -> dict:
     return out
 
 
+def plain_copy(model, args, device):
+    """The family's model holding the gathered weights of ``model``,
+    placed on a mesh (every rank must call it)."""
+    plain = MODELS[args.family](model.config).to(device)
+    plain.load_state_dict(full_state_dict(model))
+    return plain
+
+
 def save(model, args, argv, report: Optional[dict] = None) -> None:
     """The ``.npz`` at --ckpt-out and its pointer ``<name>.json`` beside it,
     whose ``checkpoint`` resolves from the repository's parent."""
@@ -347,12 +397,30 @@ def save(model, args, argv, report: Optional[dict] = None) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
-    if args.mesh:
-        raise SystemExit(f"--mesh: sharded training {NOT_PORTED}")
+    if not args.mesh:
+        return train(args, argv)
+    if args.backend != "cpu" and not torch.cuda.is_available():
+        resolve_device("tpu")  # raises DeviceError
+    with tempfile.TemporaryDirectory(prefix="amira_train_") as tmp:
+        made = join_world(args, os.path.join(tmp, "store"))
+        try:
+            return train(args, argv, make_mesh(parse_mesh(args.mesh)))
+        finally:
+            if made:
+                dist.destroy_process_group()
+
+
+def train(args, argv, mesh=None) -> int:
+    """The steps, then the mode's evaluation and the checkpoint (on rank 0
+    of a mesh, from the gathered weights)."""
     device = resolve_device("cpu" if args.backend == "cpu" else "tpu")
-    model, opt_state, step = build_model(args, device)
-    print(f"{model.param_count() / 1e6:.2f}M params ({args.preset} "
-          f"{args.family}, {args.mode}) on {device}", flush=True)
+    model, opt_state, step = build_model(args, device, mesh)
+    lead = mesh is None or dist.get_rank() == 0
+    if lead:
+        print(f"{model.param_count() / 1e6:.2f}M params ({args.preset} "
+              f"{args.family}, {args.mode}) on {device}"
+              + (f", mesh {parse_mesh(args.mesh)}" if mesh else ""),
+              flush=True)
 
     stream = batches(args, model.config)
     t0 = time.time()
@@ -361,14 +429,22 @@ def main(argv=None) -> int:
         if i % args.log_every == 0 or i == args.steps - 1:
             loss_val = float(loss)  # waits for the device
             rate = (i + 1) / (time.time() - t0)
-            print(f"step {i:6d} loss {loss_val:9.4f} ({rate:.2f} steps/s)",
-                  flush=True)
+            if lead:
+                print(f"step {i:6d} loss {loss_val:9.4f} "
+                      f"({rate:.2f} steps/s)", flush=True)
             if not np.isfinite(loss_val):
                 raise SystemExit(f"diverged at step {i}")
         if (args.mode == "synth" and args.save_every and i
                 and i % args.save_every == 0):
-            save(model, args, argv)
+            weights = plain_copy(model, args, device) if mesh else model
+            if lead:
+                save(weights, args, argv)
 
+    if mesh is not None:
+        weights = plain_copy(model, args, device)
+        if not lead:
+            return 0
+        model = weights
     report = None
     if args.mode == "digits":
         report = eval_digits(model, args, device)

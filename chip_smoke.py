@@ -151,21 +151,36 @@ their plain PyTorch versions:
      whose held-out exact match must reach the JAX trainer's less 0.10,
      and its .npz loaded by name over HTTP (the repository's load route)
      must decode "two five nine" to the trainer's own tokens
+  V  MoE encoders and the device mesh: large with 4 experts, top 2
+     (seeded), bf16: greedy bucket programs at 1 x 2 s and 16 x 30 s, each
+     replay against its eager body (>= 99% identical tokens), beam at
+     1 x 2 s, int8 at 1 x 2 s (W8A8 on the dense layers, the experts
+     unquantized); large-streaming with the same experts: 16 lanes x 10 s
+     through the lane engine, tick ms; then each kernel of that path
+     against its plain version on those inputs (the log-mel on the 16 x 30
+     s audio, the greedy loop on the 16 x 30 s bucket's encoder output,
+     the beam loop on the 1 x 2 s one, W8A8 on the int8 encoder's calls);
+     a MoE large train step in f32 at 16 x 6 s (step wall, peak, idle
+     share, MFU); and the reference's dryrun_multichip in a one-rank NCCL
+     world (mesh 1 x 1, GPipe S = 1, tiny): sharded equals unsharded for
+     tokens, the encoders and the losses
 
-Any failure raises and exits non-zero. The line before the last holds the
-kernels' measurements as JSON; the last line is
+Any failure raises and exits non-zero. Each phase prints its wall as it
+ends (``phase_seconds`` in the result line). The line before the last
+holds the kernels' measurements as JSON; the last line is
 ``{"ok": true, "device": {...}}``. ``--phases`` runs a subset (no result
 lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
 the int8 and per-step phases, ``--phases ABMN`` the streaming phases,
 ``--phases ABO`` the bucket programs, ``--phases ABPQ`` streaming beam and
 the per-step route's device loop, ``--phases ABR`` the model families,
-``--phases ABU`` training.
+``--phases ABU`` training, ``--phases ABV`` MoE and the mesh.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import json
 import math
@@ -177,7 +192,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMNOPQRSTU"
+ALL_PHASES = "ABCDEFGHIJKLMNOPQRSTUV"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -3171,11 +3186,14 @@ def train_step_flops(cfg, b: int, n_samples: int, u: int) -> float:
         c_in = cfg.subsampling_dim
     d = cfg.d_model
     sub += 2 * t * c_in * d
-    # per frame: ff1 and ff2 (16 d^2 each at expansion 4), qkv 6 d^2,
-    # out 2 d^2, conv pw1 4 d^2 and pw2 2 d^2, attention 4 t d, depthwise
-    # 2 k d
-    ff = 2 * 2 * 2 * d * cfg.ff_expansion * d
-    block = ff + 6 * d * d + 2 * d * d + 6 * d * d + 4 * t * d \
+    # per frame: ff1 and ff2 (16 d^2 each at expansion 4; a mixture of E
+    # experts runs ff2 E times, plus its gate and the gated sum), qkv 6
+    # d^2, out 2 d^2, conv pw1 4 d^2 and pw2 2 d^2, attention 4 t d,
+    # depthwise 2 k d
+    ff = 2 * 2 * d * cfg.ff_expansion * d
+    e = cfg.moe_experts
+    ff2 = e * ff + 2 * d * e + 2 * e * d if e else ff
+    block = ff + ff2 + 6 * d * d + 2 * d * d + 6 * d * d + 4 * t * d \
         + 2 * cfg.conv_kernel * d
     enc = sub + t * (cfg.n_layers * block + 2 * d * cfg.d_enc)
     u1 = u + 1
@@ -3524,6 +3542,418 @@ def phase_u(results):
     say("U", f"kernel launches of phase U's main path: {launches}")
 
 
+# the dryrun's mixture of experts: 4 experts, the top 2 of each token
+MOE_KW = dict(moe_experts=4, moe_top_k=2)
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """The calls of ``module.<name>`` made inside the block, each as
+    ``(args, kwargs, result)``."""
+    orig = getattr(module, name)
+    calls = []
+
+    def record(*args, **kwargs):
+        result = orig(*args, **kwargs)
+        calls.append((args, kwargs, result))
+        return result
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_v(results):
+    """MoE encoders at the flagship's width through every serving path and
+    the trainer, each kernel of that path against its plain version on
+    their inputs, then the device mesh in a one-rank NCCL world."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.device import disable_tf32
+    from amira_rust_asr_server_tpu_torch.models import Transducer
+    from amira_rust_asr_server_tpu_torch.models.encoder import (
+        MoEFeedForward, QLinear)
+    from amira_rust_asr_server_tpu_torch.models.presets import (
+        LARGE, LARGE_STREAMING)
+    from amira_rust_asr_server_tpu_torch.ops import features, kernels, quant
+    from amira_rust_asr_server_tpu_torch.ops import mel as mel_bases
+    from amira_rust_asr_server_tpu_torch.ops.beam import (backtrace,
+                                                          finish_trace)
+    from amira_rust_asr_server_tpu_torch.ops.kernels import mel
+    from amira_rust_asr_server_tpu_torch.ops.kernels.beam_loop import (
+        beam_loop, beam_loop_reference)
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import (
+        DecodeWeights, greedy_loop, greedy_loop_reference)
+    from amira_rust_asr_server_tpu_torch.ops.kernels.quant_matmul import \
+        quant_matmul_reference
+    from amira_rust_asr_server_tpu_torch.parallel import (make_optimizer,
+                                                          make_train_step)
+    from amira_rust_asr_server_tpu_torch.parallel.dryrun import \
+        dryrun_multichip
+    from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.runtime import \
+        pipeline as pipeline_mod
+    from amira_rust_asr_server_tpu_torch.runtime.lane_engine import \
+        StreamingLaneEngine
+    from amira_rust_asr_server_tpu_torch.testing import synthspeech_batches
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    out = results["moe"] = {}
+    launches: dict = {}
+
+    def counted(fn):
+        """``fn()`` as a piece of the main path: every count set to 0
+        just before it and read just after."""
+        kernels.reset_launch_counts()
+        value = fn()
+        for k, n in kernels.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        kernels.reset_launch_counts()
+        return value
+
+    cfg_m = dataclasses.replace(LARGE, **MOE_KW)
+    t0 = time.perf_counter()
+    master = Transducer(cfg_m).init_weights(torch.Generator().manual_seed(0))
+    n_params = master.param_count()
+    say("V", f"large + {cfg_m.moe_experts} experts (top {cfg_m.moe_top_k}):"
+        f" {n_params:,} parameters (large alone 421,818,886), seeded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    vcfg = Config(vocabulary_path="model-repo/vocab.txt",
+                  inference_backend="tpu")
+    vocab = load_vocab(vcfg)
+
+    # 1. bf16 greedy bucket programs at 1 x 2 s and 16 x 30 s, and beam at
+    # 1 x 2 s, on one pipeline
+    cfg = dataclasses.replace(vcfg, audio_sec_buckets=[2.0, 30.0],
+                              batch_buckets=[1, 16])
+    pipe = AsrPipeline(copy.deepcopy(master), vocab, cfg, dev)
+    enc = pipe.model.encoder
+
+    def serve():
+        res = {}
+        for b, secs in ((1, 2.0), (16, 30.0)):
+            n = int(secs * 16000)
+            samples = list(digits_audio(b, secs, seed=70 + b))
+            t0 = time.perf_counter()
+            pipe._warm_one(b, n)
+            warm = time.perf_counter() - t0
+            prog = pipe.programs[("greedy", b, n)]
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = pipe.decode_samples_batch(samples)[0]
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with torch.inference_mode():
+                x = (prog.inputs["audio"], prog.inputs["lens"])
+                enc_ms = cuda_ms(lambda: pipe._encode(*x), 3)
+                ff2_in = torch.randn(b, pipe._encode(*x)[0].shape[1],
+                                     cfg_m.d_model, device=dev,
+                                     dtype=pipe.compute_dtype)
+                moe_ms = cfg_m.n_layers * cuda_ms(
+                    lambda: enc.block0.ff2(ff2_in), 3)
+            res[(b, secs)] = dict(samples=samples, got=got, warm_s=warm,
+                                  replay_ms=cuda_ms(prog.run, 3),
+                                  dispatch_ms=walls, encoder_ms=enc_ms,
+                                  moe_ff_ms=moe_ms, prog=prog)
+        # random weights alone make the empty hypothesis win: phase G's
+        # shallow-fusion bias makes the search emit
+        beam = [digits_audio(1, 2.0, seed=72)[0]]
+        bias = torch.from_numpy(beam_bias_and_graph(cfg_m)[0]).to(dev)
+        pipe.decode_beam_batch(beam, bias=bias)  # the eager run + capture
+        t0 = time.perf_counter()
+        best = pipe.decode_beam_batch(beam, bias=bias)[0]
+        res["beam"] = dict(samples=beam, bias=bias, best=best,
+                           dispatch_ms=(time.perf_counter() - t0) * 1e3)
+        return res
+
+    served = counted(serve)
+    for (b, secs), r in ((k, v) for k, v in served.items() if k != "beam"):
+        key = f"bf16 {b}x{secs:.0f}s"
+        out[key] = {k: r[k] for k in ("warm_s", "replay_ms", "dispatch_ms",
+                                      "encoder_ms", "moe_ff_ms")}
+        out[key]["moe_ff_share"] = r["moe_ff_ms"] / r["encoder_ms"]
+        out[key]["tokens"] = int(r["got"].counts.sum())
+        say("V", f"{key}: warm {r['warm_s']:.2f} s (eager run + capture), "
+            f"replay {r['replay_ms']:.3f} ms device, dispatch "
+            f"{[round(w, 2) for w in r['dispatch_ms']]} ms host wall; the "
+            f"log-mel + encoder + enc projection {r['encoder_ms']:.3f} ms "
+            f"eager, of which the MoE FF {r['moe_ff_ms']:.3f} ms "
+            f"({out[key]['moe_ff_share']:.3f}); "
+            f"{out[key]['tokens']} tokens")
+    out["bf16 beam 1x2s"] = {"dispatch_ms": served["beam"]["dispatch_ms"]}
+    say("V", f"bf16 beam 1 x 2 s: dispatch "
+        f"{served['beam']['dispatch_ms']:.2f} ms host wall, best "
+        f"{int(served['beam']['best'].counts[0])} tokens")
+
+    # 2. int8 at 1 x 2 s: W8A8 on the dense layers, the experts as they are
+    cfg8 = dataclasses.replace(vcfg, quantization="int8",
+                               audio_sec_buckets=[2.0], batch_buckets=[1])
+    pipe8 = AsrPipeline(copy.deepcopy(master), vocab, cfg8, dev)
+    qlin = [m for m in pipe8.model.encoder.modules()
+            if isinstance(m, QLinear)]
+    moe = [m for m in pipe8.model.encoder.modules()
+           if isinstance(m, MoEFeedForward)]
+    if (len(moe) != cfg_m.n_layers or not all(m.quant for m in qlin)
+            or any(isinstance(x, QLinear) for m in moe
+                   for x in m.modules())):
+        raise AssertionError("[V] int8 must quantize the dense layers and "
+                             "leave the experts")
+    int8_in = [digits_audio(1, 2.0, seed=73)[0]]
+
+    def serve_int8():
+        pipe8.decode_samples_batch(int8_in)  # the warm run + capture
+        t0 = time.perf_counter()
+        got = pipe8.decode_samples_batch(int8_in)[0]
+        return got, (time.perf_counter() - t0) * 1e3
+
+    got8, ms8 = counted(serve_int8)
+    out["int8 1x2s"] = {"dispatch_ms": ms8, "tokens": int(got8.counts.sum()),
+                        "w8a8_layers": len(qlin)}
+    say("V", f"int8 1 x 2 s: {len(qlin)} W8A8 layers, {len(moe)} MoE FFs "
+        f"unquantized; dispatch {ms8:.2f} ms host wall, "
+        f"{int(got8.counts.sum())} tokens")
+
+    # 3. native streaming: large-streaming with the same experts, 16 lanes
+    # of 10 s through the lane engine
+    smodel = Transducer(dataclasses.replace(LARGE_STREAMING, **MOE_KW))
+    smodel.load_state_dict(master.state_dict())
+    pipe_s = AsrPipeline(smodel, vocab, dataclasses.replace(
+        vcfg, audio_sec_buckets=[2.0], batch_buckets=[1]), dev)
+    eng = StreamingLaneEngine(pipe_s, n_lanes=16, chunk_frames=64,
+                              norm="none")
+    warm_s = eng.warm()
+    waves = digits_audio(16, 10.0, seed=74)
+
+    def stream():
+        lanes = [eng.attach() for _ in waves]
+        ticks = []
+        for i in range(0, waves.shape[1], 16000):
+            for lane, w in zip(lanes, waves):
+                eng.feed(lane, w[i:i + 16000], final=i + 16000 >=
+                         waves.shape[1])
+            while eng.pending():
+                t0 = time.perf_counter()
+                eng.tick()
+                ticks.append((time.perf_counter() - t0) * 1e3)
+        return [list(eng.tokens[lane]) for lane in lanes], ticks
+
+    before = dict(launches)
+    toks, ticks = counted(stream)
+    loops = launches.get("greedy_loop", 0) - before.get("greedy_loop", 0)
+    out["lane_engine"] = {
+        "lanes": 16, "secs": 10.0, "warm_s": warm_s, "ticks": len(ticks),
+        "tick_ms_median": float(np.median(ticks)),
+        "tick_ms_p95": percentile(ticks, 95),
+        "tokens": sum(len(t) for t in toks)}
+    say("V", f"lane engine, large-streaming + MoE, bf16, 16 lanes x 10 s: "
+        f"warmed in {warm_s:.2f} s; {len(ticks)} ticks, tick "
+        f"{out['lane_engine']['tick_ms_median']:.2f} ms median "
+        f"({out['lane_engine']['tick_ms_p95']:.2f} p95) host wall; greedy "
+        f"loop launches {loops}; {out['lane_engine']['tokens']} tokens")
+    if loops != len(ticks) or not all(0 <= t < cfg_m.vocab_size
+                                      for lane in toks for t in lane):
+        raise AssertionError("[V] the lane engine's ticks")
+    del eng, pipe_s, smodel
+
+    # 4. each kernel of the path against its plain version on its inputs
+    # (launches made to compare do not count: no counted() here)
+    checks = out["kernels"] = {}
+    audio = torch.from_numpy(np.stack(served[(16, 30.0)]["samples"])).to(dev)
+    lens = torch.full((16,), audio.shape[1], dtype=torch.int32, device=dev)
+    xp = features.preprocess(audio, lens).contiguous()
+    raw_k = mel.log_mel_raw(xp, cfg_m.n_mels)
+    raw_p = features.log_mel_raw(xp, cfg_m.n_mels)
+    spec = xp.double().unfold(1, 512, 160) @ torch.from_numpy(
+        mel_bases.windowed_dft_basis()).to(dev).double()
+    fb = torch.from_numpy(mel_bases.mel_filterbank(cfg_m.n_mels)).to(
+        dev).double()
+    raw_64 = torch.log((spec[..., :257] ** 2 + spec[..., 257:] ** 2) @ fb
+                       + 2.0 ** -24)
+    err_k, err_p = ((raw_k.double() - raw_64).abs().max().item(),
+                    (raw_p.double() - raw_64).abs().max().item())
+    checks["log_mel"] = {"max_abs_err": (raw_k - raw_p).abs().max().item(),
+                         "err_vs_f64": err_k, "plain_err_vs_f64": err_p}
+    say("V", f"log-mel kernel vs plain on the 16 x 30 s audio: max|d| "
+        f"{checks['log_mel']['max_abs_err']:.3e}; against float64 "
+        f"{err_k:.3e} (plain {err_p:.3e}; within twice)")
+    if err_k > 2 * err_p:
+        raise AssertionError("[V] the log-mel kernel")
+
+    # the loop kernels on the recorded inputs of the eager bodies: in f32
+    # (the encoder output and the carry cast up, the tables made again in
+    # f32 from the served weights) identical to the plain version, as
+    # phases D and G hold them; in bf16, where an argmax tie that rounds
+    # the other way changes the rest of a lane, the share is printed and
+    # must reach phase G's 0.9
+    w32 = DecodeWeights.from_model(pipe.model, torch.float32)
+
+    def up(x):
+        return x.float() if torch.is_tensor(x) and x.is_floating_point() \
+            else x
+
+    for b, secs in ((1, 2.0), (16, 30.0)):
+        r = served[(b, secs)]
+        with recorded(pipeline_mod, "greedy_loop") as calls:
+            want = pipe._decode_batch(r["samples"], eager=True)[0]
+        share = token_agreement(r["got"].tokens, r["got"].counts,
+                                want.tokens, want.counts)
+        (args, kw, rk), = calls
+        rp = greedy_loop_reference(*args, **kw)
+        bf16_share = token_agreement(*(x.cpu().numpy() for x in (
+            rk.tokens, rk.counts, rp.tokens, rp.counts)))
+        args32 = [up(x) for x in args[:-1]] + [w32]
+        rk32 = greedy_loop(*args32, **kw)
+        rp32 = greedy_loop_reference(*args32, **kw)
+        same32 = all(torch.equal(getattr(rk32, f), getattr(rp32, f))
+                     for f in ("counts", "tokens", "frame_idx", "last_token"))
+        checks[f"greedy_loop {b}x{secs:.0f}s"] = {
+            "replay_vs_eager_share": share, "f32_identical": same32,
+            "bf16_share": bf16_share,
+            "f32_tokens": int(rk32.counts.sum())}
+        say("V", f"bf16 {b} x {secs:.0f} s: replay vs eager body token "
+            f"share {share:.4f} (>= 0.99); the greedy loop kernel vs its "
+            f"plain version on this bucket's MoE encoder output: f32 tokens, "
+            f"frames, counts identical {same32} ({int(rk32.counts.sum())} "
+            f"tokens), bf16 token share {bf16_share:.4f} (>= 0.9)")
+        if share < 0.99 or not same32 or bf16_share < 0.9:
+            raise AssertionError(f"[V] greedy {b} x {secs:.0f} s")
+
+    beam = served["beam"]
+    with recorded(pipeline_mod, "beam_loop") as calls:
+        eager_tr = pipe._beam_dispatch(beam["samples"], beam["bias"],
+                                       eager=True)
+    replay_tr = pipe._beam_dispatch(beam["samples"], beam["bias"])
+    same = all(np.array_equal(getattr(replay_tr[0], f.name),
+                              getattr(eager_tr[0], f.name))
+               for f in dataclasses.fields(replay_tr[0]))
+    (args, kw, rk), = calls
+    elens = args[1].cpu().numpy()
+    g = kw.get("graph")
+    best = {}
+    for name, a in (("bf16", args),
+                    ("f32", [up(x) for x in args[:-1]] + [w32])):
+        ok = beam_loop(*a, **kw) if name == "f32" else rk
+        best[name] = (backtrace(finish_trace(*ok, graph=g), elens),
+                      backtrace(finish_trace(*beam_loop_reference(*a, **kw),
+                                             graph=g), elens))
+    (k32, p32), (kb, pb) = best["f32"], best["bf16"]
+    same32 = (np.array_equal(k32.counts, p32.counts)
+              and np.array_equal(k32.tokens, p32.tokens)
+              and np.allclose(k32.scores, p32.scores, rtol=1e-4, atol=0))
+    b_share = token_agreement(kb.tokens, kb.counts, pb.tokens, pb.counts)
+    checks["beam_loop 1x2s"] = {"replay_vs_eager_identical": same,
+                                "f32_identical": same32,
+                                "f32_tokens": int(k32.counts.sum()),
+                                "bf16_share": b_share}
+    say("V", f"beam 1 x 2 s (phase G's shallow-fusion bias): replay vs "
+        f"eager trace identical {same}; the beam kernel vs its plain "
+        f"version on the MoE encoder output: f32 best tokens identical and "
+        f"scores within rtol 1e-4 {same32} ({int(k32.counts.sum())} "
+        f"tokens), bf16 best token share {b_share:.4f} (>= 0.9)")
+    if not same or not same32 or b_share < 0.9:
+        raise AssertionError("[V] beam")
+
+    with recorded(quant, "quant_matmul") as calls:
+        pipe8._decode_batch(int8_in, eager=True)
+    worst = 0.0
+    for args, _, yk in calls:
+        yp = quant_matmul_reference(*args)
+        diff = (yk.float() - yp.float()).abs()
+        # one bf16 ulp: 2^-7 of the value at most (phase I's rule)
+        if not bool((diff <= 2 ** -7 * yp.float().abs()).all()):
+            raise AssertionError(f"[V] W8A8 {tuple(args[0].shape)} x "
+                                 f"{tuple(args[1].shape)} disagrees")
+        worst = max(worst, diff.max().item())
+    checks["quant_matmul 1x2s"] = {"calls": len(calls), "max_abs_err": worst}
+    say("V", f"int8 1 x 2 s: all {len(calls)} W8A8 calls of the eager body "
+        f"within one bf16 ulp of the plain version (max|d| {worst:.3e})")
+    if len(calls) != len(qlin):
+        raise AssertionError(f"[V] {len(calls)} W8A8 calls for "
+                             f"{len(qlin)} layers")
+    del pipe, pipe8, served
+    torch.cuda.empty_cache()
+
+    # 5. a MoE large train step in f32 at 16 x 6 s
+    disable_tf32()
+    model = master.to(dev)
+    opt = make_optimizer(2e-4)
+    state = opt.init(model.parameters())
+    step = make_train_step(model, opt)
+    b, n_samples, u = 16, 96000, 24
+    batch = next(synthspeech_batches(b, audio_bucket=n_samples,
+                                     label_bucket=u, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+
+    def train():
+        losses, walls = [], []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch)))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return losses, walls
+
+    losses, walls = counted(train)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+    busy, span = pipeline_profiler().busy_and_span(kern)
+    wall = float(np.median(walls[-3:]))
+    flops = train_step_flops(cfg_m, b, n_samples, u)
+    mfu = flops / (wall / 1e3) / PEAK_OPS["f32"]
+    out["train_step"] = {"losses": losses, "step_ms": walls,
+                         "step_wall_ms": wall, "peak_mib": peak,
+                         "busy_ms": busy, "traced_span_ms": span,
+                         "idle_share": 1 - busy / span,
+                         "idle_share_unprofiled": 1 - busy / wall,
+                         "model_flops": flops, "mfu_f32": mfu}
+    say("V", f"MoE large train step, f32, 16 x 6 s: losses "
+        f"{[round(x, 4) for x in losses]}, step wall "
+        f"{[round(w, 1) for w in walls]} ms (median of the last 3: "
+        f"{wall:.1f} ms); peak {peak:.0f} MiB above the weights; one step "
+        f"under torch.profiler: busy {busy:.1f} ms of {span:.1f} ms, idle "
+        f"share {1 - busy / span:.3f} (against the unprofiled step wall: "
+        f"{1 - busy / wall:.3f}); model FLOPs {flops / 1e12:.3f} T, "
+        f"MFU {mfu:.3f} against the f32 peak")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("[V] the MoE train step diverged")
+    del model, state, step, master
+    torch.cuda.empty_cache()
+
+    for k, n in launches.items():
+        results.setdefault(k, {})
+        results[k]["launches"] = results[k].get("launches", 0) + n
+    out["launches"] = launches
+    say("V", f"kernel launches of phase V's main path: {launches}")
+    if not all(launches.get(k) for k in ("log_mel", "greedy_loop",
+                                         "beam_loop", "quant_matmul")):
+        raise AssertionError("[V] a kernel of the MoE path never launched")
+
+    # 6. the device mesh: the dryrun in a one-rank NCCL world
+    t0 = time.perf_counter()
+    lines = dryrun_multichip(1, backend="nccl", timeout_s=600)
+    took = time.perf_counter() - t0
+    for line in lines:
+        say("V", line)
+    results["mesh"] = {"lines": lines, "wall_s": took,
+                       "world": "1 rank, NCCL, mesh 1 x 1, GPipe S = 1"}
+    say("V", f"dryrun_multichip(1) over NCCL in {took:.1f} s (nothing "
+        "crosses a GPU on one card)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -3535,46 +3965,20 @@ def main(argv=None) -> int:
     # so the cloud probe answers as it does with no network
     from amira_rust_asr_server_tpu_torch.utils import platform
     platform.detect_cloud = lambda: platform.CloudInfo(provider="unknown")
-    if "B" in phases:
-        phase_b()
-    if "C" in phases:
-        phase_c(results)
-    if "D" in phases:
-        phase_d(results)
-    if "G" in phases:
-        phase_g(results)
-    if "E" in phases:
-        phase_e()
-    if "F" in phases:
-        phase_f(results)
-    if "H" in phases:
-        phase_h(results)
-    if "I" in phases:
-        phase_i(results)
-    if "J" in phases:
-        phase_j(results)
-    if "K" in phases:
-        phase_k(results)
-    if "L" in phases:
-        phase_l(results)
-    if "M" in phases:
-        phase_m(results)
-    if "N" in phases:
-        phase_n(results)
-    if "O" in phases:
-        phase_o(results)
-    if "P" in phases:
-        phase_p(results)
-    if "Q" in phases:
-        phase_q(results)
-    if "R" in phases:
-        phase_r(results)
-    if "S" in phases:
-        phase_s(results)
-    if "T" in phases:
-        phase_t(results)
-    if "U" in phases:
-        phase_u(results)
+    # in this order; each phase's wall is printed, for the run's budget
+    for letter, phase in (("B", phase_b), ("C", phase_c), ("D", phase_d),
+                          ("G", phase_g), ("E", phase_e), ("F", phase_f),
+                          ("H", phase_h), ("I", phase_i), ("J", phase_j),
+                          ("K", phase_k), ("L", phase_l), ("M", phase_m),
+                          ("N", phase_n), ("O", phase_o), ("P", phase_p),
+                          ("Q", phase_q), ("R", phase_r), ("S", phase_s),
+                          ("T", phase_t), ("U", phase_u), ("V", phase_v)):
+        if letter in phases:
+            t0 = time.perf_counter()
+            phase() if letter in "BE" else phase(results)
+            took = results.setdefault("phase_seconds", {})[letter] = \
+                time.perf_counter() - t0
+            say(letter, f"phase {letter} took {took:.1f} s")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     if phases != ALL_PHASES:
@@ -3596,6 +4000,8 @@ def main(argv=None) -> int:
                       "reload": results["reload"],
                       "tools": results["tools"],
                       "training": results["training"],
+                      "moe": results["moe"], "mesh": results["mesh"],
+                      "phase_seconds": results["phase_seconds"],
                       "programs": results["programs"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

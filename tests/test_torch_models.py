@@ -176,6 +176,13 @@ def test_same_padding_matches_xla(t, k, s):
 
 
 def test_moe_is_rejected():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transducer(dataclasses.replace(TORCH_LARGE, n_layers=1,
-                                       moe_experts=4))
+    """An MoE encoder is built now (tests/test_torch_moe.py holds it
+    against the reference); what it rejects is a dense model's weights,
+    strictly, naming the expert stacks they lack, and the reverse."""
+    moe = Transducer(dataclasses.replace(TORCH_LARGE, n_layers=1,
+                                         moe_experts=4))
+    dense = Transducer(dataclasses.replace(TORCH_LARGE, n_layers=1))
+    with pytest.raises(RuntimeError, match=r"ff2\.gate"):
+        moe.load_state_dict(dense.state_dict())
+    with pytest.raises(RuntimeError, match=r"ff2\.w1\.weight"):
+        dense.load_state_dict(moe.state_dict())

@@ -327,12 +327,25 @@ def test_pcm16_conversion_matches_reference():
 @pytest.mark.parametrize("overrides", [
     dict(model_family="aed"), dict(model_family="ctc")])
 def test_unported_options_are_refused(overrides, monkeypatch):
-    """The CTC and AED families are served (tests/test_torch_families.py);
-    what they still lack, an MoE encoder, is refused by name."""
+    """The CTC and AED families are served (tests/test_torch_families.py),
+    with MoE encoders too (tests/test_torch_moe.py); what the server still
+    lacks, a mesh of more than one device, is refused by name."""
     monkeypatch.setitem(presets.PRESETS, "tiny-moe",
                         dataclasses.replace(TINY, moe_experts=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_state(digits_config(checkpoint_path=None, **overrides),
+    state = build_state(digits_config(checkpoint_path=None, **overrides),
+                        preset="tiny-moe", warmup=False)
+    try:
+        assert state.pipeline.model.encoder.block0.ff2.top_k == 2
+        tr = state.pipeline.process_batch_samples(
+            np.zeros(8000, np.float32))
+        assert tr.encoded_length > 0 and all(
+            0 <= t < TINY.vocab_size for t in tr.tokens)
+    finally:
+        state.close()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
+                                                  "item 17"):
+        build_state(digits_config(checkpoint_path=None,
+                                  mesh_shape={"data": 2}, **overrides),
                     preset="tiny-moe", warmup=False)
 
 

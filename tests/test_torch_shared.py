@@ -166,6 +166,9 @@ def test_port_imports_nothing_of_the_jax_package():
         "       if m == ref or m.startswith(ref + '.')]\n"
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
+        "new = {'models.tp', 'parallel.mesh', 'parallel.pipeline',\n"
+        "       'parallel.launch', 'parallel.dryrun'}\n"
+        "assert {port.__name__ + '.' + m for m in new} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -44,7 +44,7 @@ from amira_rust_asr_server_tpu_torch import train as cli
 from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import (from_jax_params,
                                                      load_checkpoint,
-                                                     to_model)
+                                                     load_npz, to_model)
 from amira_rust_asr_server_tpu_torch.errors import DeviceError
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.models.aed import AEDModel
@@ -64,11 +64,11 @@ from amira_rust_asr_server_tpu_torch.parallel import (TrainBatch,
                                                       ctc_loss_fn,
                                                       init_training, loss_fn,
                                                       make_optimizer,
-                                                      make_seq_parallel_loss,
                                                       make_train_step)
 from amira_rust_asr_server_tpu_torch.parallel import data
 from amira_rust_asr_server_tpu_torch.parallel.train import \
     warmup_cosine_decay_schedule
+from amira_rust_asr_server_tpu_torch.runtime.pipeline import check_supported
 from amira_rust_asr_server_tpu_torch.runtime.reload import hot_swap
 from amira_rust_asr_server_tpu_torch.server import build_state
 from amira_rust_asr_server_tpu_torch.testing import (digit_batches,
@@ -380,15 +380,18 @@ def test_three_steps_match_jax(ref, jax_models, family):
 
 
 def test_refusals_name_the_parallelism_item():
+    """What of parallelism stays refused names its ROADMAP item (queue 1,
+    item 17: the server on more than one device); the sharded step and
+    FSDP refuse what they cannot place, by name."""
+    with pytest.raises(NotImplementedError, match="queue 1, item 17"):
+        check_supported(Config(mesh_shape={"data": 2, "model": 1}),
+                        torch.device("cpu"))
     model = Transducer(TINY)
     opt = make_optimizer()
-    for call in (lambda: make_train_step(model, opt, mesh=object()),
-                 lambda: init_training(model, torch.Generator(), opt,
-                                       fsdp=True),
-                 lambda: make_seq_parallel_loss(object())):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1, item 14"):
-            call()
+    with pytest.raises(ValueError, match="init_training"):
+        make_train_step(model, opt, mesh=object())
+    with pytest.raises(ValueError, match="fsdp"):
+        init_training(model, torch.Generator(), opt, fsdp=True)
 
 
 # -- remat --------------------------------------------------------------------
@@ -643,8 +646,24 @@ def test_cli_needs_a_card_unless_asked_for_the_cpu():
 
 
 def test_cli_refuses_a_mesh():
-    with pytest.raises(SystemExit, match="queue 1, item 14"):
+    """A mesh larger than the world is refused by name (one rank per
+    device: this process alone is a world of one)."""
+    with pytest.raises(ValueError, match="mesh needs 4 devices, have 1"):
         cli.main(["--backend", "cpu", "--mesh", "data=2,model=2"])
+
+
+def test_cli_trains_on_a_one_rank_mesh(tmp_path):
+    """``--mesh data=1,model=1`` without torchrun: a one-rank world on a
+    file store, the placed model's two steps equal the plain ones."""
+    args = ["--backend", "cpu", "--synthetic", "--steps", "2"]
+    assert cli.main([*args, "--mesh", "data=1,model=1", "--ckpt-out",
+                     str(tmp_path / "mesh.npz")]) == 0
+    assert cli.main([*args, "--ckpt-out", str(tmp_path / "one.npz")]) == 0
+    got, want = load_npz(tmp_path / "mesh.npz"), load_npz(tmp_path / "one.npz")
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=k)
 
 
 def test_cli_digits_saves_a_checkpoint_the_repository_serves(tmp_path,
