@@ -159,14 +159,17 @@ def stage_checkpoint(model: torch.nn.Module, path, lock
     difference), then each tensor cast to its parameter's type on its
     parameter's device, in new tensors. ``lock`` (the pipeline's
     ``device_lock``) is held around each tensor's copy, so other threads'
-    device work interleaves and no capture sees a copy."""
+    device work interleaves and no capture sees a copy. A model placed on
+    a mesh is read under the plain model's names and whole shapes, and
+    each tensor is staged whole."""
+    from .parallel.mesh import plain_state
     try:
         arrays = load_npz(path)
     except (OSError, ValueError, zipfile.BadZipFile) as e:
         raise CheckpointMismatchError(
             f"checkpoint {str(path)!r} is not a readable .npz state dict: "
             f"{e}") from e
-    want = model.state_dict()
+    want = plain_state(model)
     bad = ([f"missing {k}" for k in want if k not in arrays]
            + [f"unexpected {k}" for k in arrays if k not in want]
            + [f"{k}: {tuple(arrays[k].shape)} != {tuple(t.shape)}"

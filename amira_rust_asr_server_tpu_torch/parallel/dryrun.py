@@ -1,5 +1,5 @@
-"""The multi-device dryrun (port of the reference's ``dryrun_multichip``,
-without its multi-slice part).
+"""The multi-device dryruns (port of the reference's ``dryrun_multichip``
+and ``dryrun_multihost``).
 
 ``dryrun_multichip(n)`` starts a world of ``n`` ranks (``launch.
 spawn_world``; gloo on the CPU, NCCL with one rank per card) and, on the
@@ -16,19 +16,33 @@ spawn_world``; gloo on the CPU, NCCL with one rank per card) and, on the
 5. FSDP with the sequence-parallel loss: the step's loss equals the
    plain one's;
 6. the expert-parallel MoE encode (4 experts, top 2), equal to the
-   unsharded encoder.
+   unsharded encoder;
+7. on 4 or more ranks, an even count, the multi-slice mesh over 2
+   simulated slices (``parallel/multislice.py``): no model row leaves a
+   slice, the train step's loss equals the unsharded one, and the session
+   router places two sessions on the two slices.
 
 Every rank checks its results; rank 0's report lines come back.
 
+``dryrun_multihost(n_processes, local_devices)`` starts ``n_processes x
+local_devices`` OS processes with torchrun's environment, which meet over
+a TCP coordinator (``parallel/multihost.py``), and runs one sharded train
+step in each; every process must report the same loss.
+
     python -m amira_rust_asr_server_tpu_torch.parallel.dryrun 4
     python -m amira_rust_asr_server_tpu_torch.parallel.dryrun 4 --backend gloo
+    python -m amira_rust_asr_server_tpu_torch.parallel.dryrun 2 --hosts 2 --backend gloo
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
+import socket
+import subprocess
 import sys
+import tempfile
 import time
 from typing import List
 
@@ -194,6 +208,33 @@ def _rank(rank: int, world: int, backend: str) -> List[str]:
     _close(ep_moe, ref_moe, 1e-3, 2e-4, "expert-parallel MoE encode")
     lines.append(f"dryrun_multichip({world}): expert-parallel MoE encode "
                  f"matches OK (4 experts over the model axis)")
+
+    # -- 7. the multi-slice mesh: data across slices, tensor parallel
+    # within one; only the gradient all-reduce crosses a slice
+    if world >= 4 and world % 2 == 0:
+        from .multislice import (SliceRouter, assert_ici_contained,
+                                 make_multislice_mesh, slice_groups)
+        groups = slice_groups(n_slices=2)
+        ms_mesh = make_multislice_mesh(tp=world // 4 or 1, n_slices=2)
+        assert_ici_contained(ms_mesh, groups)
+        # the batch must divide the multi-slice data axis: repeated lanes
+        # leave the mean loss as it is
+        reps = ms_mesh.size(0) // batch.audio.shape[0]
+        ms_batch = TrainBatch(audio=batch.audio.repeat(reps, 1),
+                              audio_lens=batch.audio_lens.repeat(reps),
+                              labels=batch.labels.repeat(reps, 1),
+                              label_lens=batch.label_lens.repeat(reps))
+        ms_model = Transducer(TINY).to(dev)
+        ms_state = init_training(ms_model, 0, opt, ms_mesh)
+        loss_ms = make_train_step(ms_model, opt, ms_mesh)(ms_state,
+                                                          ms_batch)
+        _close(loss_ms, plain_loss, 2e-4, 0.0, "multi-slice train loss")
+        router = SliceRouter(n_slices=2, lanes_per_slice=4)
+        if {router.assign("s1"), router.assign("s2")} != {0, 1}:
+            raise AssertionError(f"router placed {router.to_dict()}")
+        lines.append(f"dryrun_multichip({world}): multislice mesh "
+                     f"{ms_mesh.size(0)}x{ms_mesh.size(1)} ICI-contained, "
+                     f"train loss matches OK ({float(loss_ms):.4f})")
     return lines
 
 
@@ -215,11 +256,94 @@ def dryrun_multichip(n_devices: int, backend: str = "nccl",
     return lines
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_multihost(n_processes: int = 2, local_devices: int = 1,
+                     backend: str = "nccl",
+                     timeout_s: float = TIMEOUT_S) -> float:
+    """Start ``n_processes`` "hosts" of ``local_devices`` ranks each, as
+    OS processes with torchrun's environment meeting at a TCP coordinator
+    on this machine, and run one sharded train step in each
+    (``multihost.run_multihost_smoke``; NCCL with one card per local rank,
+    or gloo on the CPU). Every process must print the same loss, which is
+    returned. Past ``timeout_s`` every process is killed and
+    :class:`TimeoutError` raised."""
+    world = n_processes * local_devices
+    if backend == "nccl" and torch.cuda.device_count() < local_devices:
+        raise DeviceError(
+            f"dryrun_multihost(.., {local_devices}) over NCCL needs "
+            f"{local_devices} CUDA devices per host, found "
+            f"{torch.cuda.device_count()}; backend='gloo' runs on the CPU")
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    port = _free_port()
+    procs, logs = [], []
+    deadline = time.monotonic() + timeout_s
+    try:
+        for rank in range(world):
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank % local_devices),
+                       LOCAL_WORLD_SIZE=str(local_devices),
+                       GROUP_RANK=str(rank // local_devices),
+                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       OMP_NUM_THREADS="1",
+                       PYTHONPATH=os.pathsep.join(
+                           p for p in (root, os.environ.get("PYTHONPATH"))
+                           if p))
+            logs.append(tempfile.TemporaryFile("w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "amira_rust_asr_server_tpu_torch.parallel.multihost",
+                 "--backend", backend], env=env, cwd=root,
+                stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+        for p in procs:
+            try:
+                p.wait(max(0.1, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"dryrun_multihost({n_processes}x"
+                                   f"{local_devices}) did not finish "
+                                   f"within {timeout_s:.0f} s") from None
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(5.0)
+        for log in logs:
+            log.close()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"multihost proc {rank} failed rc="
+                               f"{p.returncode}:\n{out[-3000:]}")
+    losses = {ln.split("loss=")[1].split()[0]
+              for out in outs for ln in out.splitlines()
+              if ln.startswith("multihost proc") and " OK" in ln}
+    if len(losses) != 1:
+        raise AssertionError(f"processes disagree on the loss: {losses}")
+    loss = losses.pop()
+    print(f"dryrun_multihost({n_processes}x{local_devices}): loss={loss} "
+          "OK", flush=True)
+    return float(loss)
+
+
 if __name__ == "__main__":
     import argparse
-    ap = argparse.ArgumentParser(description="the multi-device dryrun")
-    ap.add_argument("n_devices", type=int, nargs="?", default=2)
+    ap = argparse.ArgumentParser(description="the multi-device dryruns")
+    ap.add_argument("n_devices", type=int, nargs="?", default=2,
+                    help="ranks (with --hosts: ranks per host)")
+    ap.add_argument("--hosts", type=int, default=0,
+                    help="dryrun_multihost over this many simulated hosts")
     ap.add_argument("--backend", default="nccl", choices=("nccl", "gloo"),
                     help="nccl: one rank per card; gloo: ranks on the CPU")
     a = ap.parse_args()
-    dryrun_multichip(a.n_devices, a.backend)
+    if a.hosts:
+        dryrun_multihost(a.hosts, a.n_devices, a.backend)
+    else:
+        dryrun_multichip(a.n_devices, a.backend)

@@ -129,26 +129,48 @@ def make_param_shardings(mesh, model: nn.Module, fsdp: bool = False
                                                  fsdp).items()}
 
 
-def shard_params(mesh, model: nn.Module, fsdp: bool = False) -> nn.Module:
-    """Place ``model``'s parameters on ``mesh`` in place: each becomes a
-    DTensor with :func:`make_param_shardings`' placements, behind the
-    :class:`~models.tp.Gathered` parametrization, so code that reads it
-    gets the whole tensor and the split layers (``models/tp.py``) read the
-    shard. Every rank must hold the same weights (seeded alike, or
-    loaded from one checkpoint); ranks other than 0 take rank 0's."""
-    from torch.distributed.tensor import distribute_tensor
-    placements = make_param_shardings(mesh, model, fsdp)
+def place_each(model: nn.Module, placements: Dict[str, tuple],
+               make) -> nn.Module:
+    """Turn every parameter of ``model`` into the DTensor ``make(tensor,
+    its placements)`` in place, behind the :class:`~models.tp.Gathered`
+    parametrization, so code that reads it gets the whole tensor and the
+    split layers (``models/tp.py``) read the shard."""
     for mod_name, mod in list(model.named_modules()):
         for pname, p in list(mod._parameters.items()):
             if p is None:
                 continue
             full = f"{mod_name}.{pname}" if mod_name else pname
-            dt = distribute_tensor(p.detach(), mesh, placements[full])
             mod._parameters[pname] = nn.Parameter(
-                dt, requires_grad=p.requires_grad)
+                make(p.detach(), placements[full]),
+                requires_grad=p.requires_grad)
             parametrize.register_parametrization(mod, pname, Gathered(),
                                                  unsafe=True)
     return model
+
+
+def shard_params(mesh, model: nn.Module, fsdp: bool = False) -> nn.Module:
+    """Place ``model``'s parameters on ``mesh`` in place, each a DTensor
+    with :func:`make_param_shardings`' placements (:func:`place_each`).
+    Every rank must hold the same weights (seeded alike, or loaded from
+    one checkpoint); ranks other than 0 take rank 0's. ``parallel/
+    multihost.place_global`` places them without a collective."""
+    from torch.distributed.tensor import distribute_tensor
+    return place_each(model, make_param_shardings(mesh, model, fsdp),
+                      lambda t, pl: distribute_tensor(t, mesh, pl))
+
+
+def local_shard(full: torch.Tensor, mesh, placements: tuple
+                ) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``full`` under
+    ``placements`` (one per mesh dim), as a DTensor holds it: each
+    ``Shard(d)`` mesh dim in order takes its chunk of dim ``d`` (the
+    placements here shard only dims that divide, ``fit_spec``)."""
+    from torch.distributed.tensor import Shard
+    for dim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            full = full.chunk(mesh.size(dim), dim=pl.dim)[
+                mesh.get_local_rank(dim)]
+    return full
 
 
 def is_sharded(model: nn.Module) -> bool:
@@ -156,16 +178,26 @@ def is_sharded(model: nn.Module) -> bool:
     return any(parametrize.is_parametrized(m) for m in model.modules())
 
 
+def plain_name(name: str) -> str:
+    """A placed model's state-dict name under the plain model's name
+    (``a.parametrizations.w.original`` -> ``a.w``)."""
+    if ".parametrizations." not in name:
+        return name
+    head, _, rest = name.partition(".parametrizations.")
+    return f"{head}.{rest.rpartition('.original')[0]}"
+
+
+def plain_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` under the plain model's names: a placed
+    parameter is its DTensor (its global shape, its local shard)."""
+    return {plain_name(k): t for k, t in model.state_dict().items()}
+
+
 def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The whole weights of a model placed on a mesh, under the plain
     model's state-dict names (every rank gets them)."""
-    out = {}
-    for name, t in model.state_dict().items():
-        if ".parametrizations." in name:
-            head, _, rest = name.partition(".parametrizations.")
-            name = f"{head}.{rest.rpartition('.original')[0]}"
-        out[name] = t.full_tensor() if hasattr(t, "full_tensor") else t
-    return out
+    return {name: t.full_tensor() if hasattr(t, "full_tensor") else t
+            for name, t in plain_state(model).items()}
 
 
 def data_sharding(mesh) -> tuple:

@@ -28,7 +28,10 @@ decode cores are plain torch, as they are plain XLA in the reference.
 Both families are stateless: WebSocket streaming stays transducer-only
 (refused with 400 by the handler), and a carried stream state is refused
 here. Beam results reach the batcher as a transducer's do
-(``decode_beam_batch`` -> ``BeamResult`` -> ``beam_transcription``).
+(``decode_beam_batch`` -> ``BeamResult`` -> ``beam_transcription``). Their
+dispatches go through the transducer's device entries
+(``decode_samples_batch``, ``_run_beam_bucket``), which rank 0 of a
+serving world sends to the other ranks (``parallel/serve.py``).
 """
 
 from __future__ import annotations
@@ -290,10 +293,12 @@ def build_family_pipeline(family: str, preset: str, vocab: Vocabulary,
 
 
 def serving_pipeline(model: torch.nn.Module, vocab: Vocabulary, cfg: Config,
-                     device: Optional[torch.device] = None) -> AsrPipeline:
+                     device: Optional[torch.device] = None,
+                     mesh=None) -> AsrPipeline:
     """The pipeline that serves ``model`` of ``cfg.model_family``: the
-    transducer's :class:`AsrPipeline`, or the CTC or AED family's."""
+    transducer's :class:`AsrPipeline`, or the CTC or AED family's; on
+    ``mesh`` when given."""
     if cfg.model_family == "transducer":
-        return AsrPipeline(model, vocab, cfg, device)
+        return AsrPipeline(model, vocab, cfg, device, mesh)
     return build_family_pipeline(cfg.model_family, cfg.model_preset, vocab,
-                                 cfg, device, model=model)[1]
+                                 cfg, device, model=model, mesh=mesh)[1]

@@ -21,7 +21,11 @@ active. Every device operation runs under the pipeline's ``device_lock``.
 On a pipeline placed on a device mesh (``AsrPipeline(..., mesh=)``, the
 reference's ``StreamingLaneEngine(..., mesh=)``) the lane state stays whole
 on every rank, the chunk encoder's dense layers and convolutions split
-over ``model``, and the chunk step runs without capture.
+over ``model``, and the chunk step runs without capture. In a serving
+world every rank holds a replica of the engine, and the methods marked
+``mirrored`` (attach, feed, tick, detach, refresh, warm) are the entries
+rank 0 sends to the others (``parallel/serve.py``), so the replicas see
+the same calls in the same order.
 
 Lifecycle: ``attach() -> lane``, ``feed(lane, samples)``,
 ``tick() -> {lane: new tokens}``, ``detach(lane)``. The server drives
@@ -39,6 +43,7 @@ import torch
 
 from .. import constants as C
 from ..ops.streaming import encode_chunk, init_encoder_cache
+from ..parallel.serve import mirrored
 from .native_stream import StreamingFeaturizer, fresh_carry
 from .pipeline import StepLoop, take_carry
 from .programs import DeviceProgram, host_staging, stage
@@ -103,6 +108,8 @@ class LaneEngineStats:
 class StreamingLaneEngine:
     """``pipeline`` is the served AsrPipeline (model, device, working type,
     decode route)."""
+
+    mirror_name = "lanes"  # its name in a serving world's entries
 
     def __init__(self, pipeline, n_lanes: int = 64, chunk_frames: int = 64,
                  norm: str = "stream",
@@ -170,7 +177,14 @@ class StreamingLaneEngine:
         self.stats = LaneEngineStats()
         self.prometheus = None  # optional PrometheusMetrics (AppState)
 
+    @property
+    def mirror(self):
+        """The pipeline's serving-world mirror (None outside rank 0 of a
+        world)."""
+        return self.pipeline.mirror
+
     # ------------------------------------------------------------------
+    @mirrored
     def warm(self) -> float:
         """Make the chunk step ready before any stream is admitted: one
         eager step with every lane inactive, then (CUDA) its capture, and
@@ -194,6 +208,7 @@ class StreamingLaneEngine:
         self.warmed_up = True
         return time.perf_counter() - t0
 
+    @mirrored
     @torch.inference_mode()
     def refresh_(self) -> None:
         """After the pipeline's weights changed in place (a reload), the
@@ -210,6 +225,7 @@ class StreamingLaneEngine:
                 dst.copy_(src)
 
     # ------------------------------------------------------------------
+    @mirrored
     def attach(self) -> Optional[int]:
         """Claim a free lane; None when all lanes are busy."""
         for lane in range(self.n_lanes):
@@ -233,6 +249,7 @@ class StreamingLaneEngine:
     def live_lanes(self) -> int:
         return sum(1 for f in self.featurizers if f is not None)
 
+    @mirrored
     def detach(self, lane: int) -> None:
         self.featurizers[lane] = None
         self.finishing[lane] = False
@@ -250,6 +267,7 @@ class StreamingLaneEngine:
             self.last_token[lane] = self.cfg.blank_id
 
     # ------------------------------------------------------------------
+    @mirrored
     def feed(self, lane: int, samples: np.ndarray,
              final: bool = False) -> None:
         feat = self.featurizers[lane]
@@ -326,6 +344,7 @@ class StreamingLaneEngine:
                                           self.steps.finish(outs[0]))
             return prog.to_host(outs)
 
+    @mirrored
     def tick(self) -> Dict[int, List[int]]:
         """Advance every ready lane one chunk; new tokens per lane (empty
         when nothing is ready)."""

@@ -26,7 +26,6 @@ import torch
 
 from .. import constants as C
 from ..ops.mel import mel_filterbank, windowed_dft_basis
-from ..ops.streaming import init_encoder_cache
 from ..types import Transcription
 
 _PAD = C.N_FFT // 2  # 256
@@ -151,11 +150,8 @@ class NativeStreamSession:
         self.max_total = max_total
         self.eager = eager
         self.featurizer = StreamingFeaturizer(cfg.n_mels, norm)
-        dt, dev = pipeline.compute_dtype, pipeline.device
-        with pipeline.device_lock, torch.inference_mode():
-            self.enc_cache = init_encoder_cache(cfg, 1, dt, dev)
-            # h, c, pred_out, last token: the SOS carry
-            self.carry = fresh_carry(pipeline.model, 1, dt, dev)
+        # h, c, pred_out, last token: the SOS carry
+        self.enc_cache, self.carry = pipeline.fresh_solo()
         self.tokens: List[int] = []
         self.mel_backlog = np.zeros((0, cfg.n_mels), np.float32)
 

@@ -50,7 +50,9 @@ GSPMD gathers the inputs of a ``pallas_call``. The encoder's dense layers,
 convolutions and experts then split over ``model`` (``models/tp.py``),
 and the programs run their bodies without capture (``DeviceProgram(...,
 capture=False)``): the split layers call collectives from the host on
-every run. Every rank of the mesh serves the same requests.
+every run. Every rank of the mesh serves the same requests: the methods
+marked ``mirrored`` are the device entries that rank 0 of a serving world
+sends to the other ranks before it runs them (``parallel/serve.py``).
 
 Streaming state (prediction-net h/c, pred_out, last token) stays on the
 device between chunks in :class:`StreamState`. :meth:`AsrPipeline.
@@ -77,6 +79,7 @@ from ..errors import ConfigValidationError, InvalidAudioFormatError
 from ..reliability import get_logger
 from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
+from ..convert import stage_checkpoint
 from ..device import disable_tf32, resolve_device
 from ..models import Transducer
 from ..ops.beam import (BeamCarry, BeamResult, BeamTrace, TokenTrie,
@@ -90,6 +93,8 @@ from ..ops.kernels.beam_loop import beam_loop
 from ..ops.kernels.decode_loop import DecodeWeights, greedy_loop
 from ..ops.kernels.decode_step import JointWeights, make_fused_step_fn
 from ..ops.streaming import EncoderCache, encode_chunk, init_encoder_cache
+from ..parallel.mesh import local_shard, plain_state, shard_params
+from ..parallel.serve import mirrored
 from ..types import TokenInfo, Transcription
 from .native_stream import fresh_carry
 from .programs import DeviceProgram, host_staging, stage
@@ -98,17 +103,26 @@ log = get_logger("asr.pipeline")
 
 
 def check_supported(cfg: Config, device: torch.device,
-                    causal: bool = False) -> None:
-    """Reject, loudly, what this slice of the port does not serve yet;
-    ``causal``: the model preset is causal (native streaming, greedy or
-    beam, runs on it; a non-causal preset streams chunked)."""
+                    causal: bool = False,
+                    world_size: Optional[int] = None) -> None:
+    """Reject, loudly, what the port does not serve; ``causal``: the model
+    preset is causal (native streaming, greedy or beam, runs on it; a
+    non-causal preset streams chunked). ``world_size``: the ranks a server
+    runs on (1 outside a world), one process per device, which
+    ``mesh_shape`` must cover exactly (a library pipeline takes its mesh
+    as an argument and passes none)."""
+    n = int(np.prod(list(cfg.mesh_shape.values()) or [1]))
+    if world_size == 1 and n > 1:
+        raise ConfigValidationError(
+            f"mesh_shape={cfg.mesh_shape} covers {n} devices: the port runs "
+            f"one process per device, so start a world of {n}, e.g. "
+            f"torchrun --nproc-per-node {n} -m "
+            "amira_rust_asr_server_tpu_torch.server")
+    if world_size is not None and n != world_size:
+        raise ConfigValidationError(
+            f"mesh_shape={cfg.mesh_shape} covers {n} devices but the world "
+            f"has {world_size} ranks (one per device)")
     todo = []
-    if int(np.prod(list(cfg.mesh_shape.values()) or [1])) > 1:
-        # the library serves a mesh (AsrPipeline(..., mesh=)); the server
-        # needs one process per device with rank 0 answering HTTP
-        todo.append(f"mesh_shape={cfg.mesh_shape}: the server on more than "
-                    "one device (ROADMAP.md queue 1, item 17: multi-process "
-                    "serving)")
     if device.type == "cuda":
         # the kernels' wrappers choose the plain version by device alone, so
         # on the card the flags that would turn a kernel off are refused
@@ -208,7 +222,9 @@ class StreamState:
 
 
 class AsrPipeline:
-    """Bucketed end-to-end ASR on one device."""
+    """Bucketed end-to-end ASR on one device (one rank of a mesh)."""
+
+    mirror_name = "pipeline"  # its name in a serving world's entries
 
     def __init__(self, model: Transducer, vocab: Vocabulary,
                  config: Optional[Config] = None,
@@ -234,8 +250,11 @@ class AsrPipeline:
         self.mesh = mesh
         # a placed model's layers call collectives from the host: no capture
         self.capture = mesh is None
+        # rank 0 of a serving world: sends every device entry to the other
+        # ranks (parallel/serve.DispatchMirror; None: the entries run plain)
+        self.mirror = None
+        self._old_weights: Optional[Dict[str, torch.Tensor]] = None
         if mesh is not None:
-            from ..parallel.mesh import shard_params
             shard_params(mesh, self.model)
         if cfg.decoding_mode == "greedy" and isinstance(model, Transducer):
             log.info("greedy decode route: %s (%d-layer prediction net, %s)",
@@ -361,31 +380,79 @@ class AsrPipeline:
     # ------------------------------------------------------------------
     # new weights under the captured programs
     # ------------------------------------------------------------------
-    def swap_weights(self, staged: Dict[str, torch.Tensor]) -> None:
-        """Serve new weights: ``staged``, the model's state dict with each
-        tensor on the device in its parameter's type
-        (``convert.stage_checkpoint``), is copied into the parameters in
-        place, then every table derived from them is recomputed in place
-        (:meth:`refresh_tables`). No program is dropped or captured again:
-        the CUDA graphs read the parameters and the tables at addresses
-        that do not change, as the reference's programs take the params as
-        arguments. Holds :attr:`device_lock` and waits for the device
-        before it returns, so no run sees a half-copied set; the reload
-        runs it on the dispatch thread. A pipeline on a device mesh does not
-        reload (ROADMAP.md queue 1, item 17)."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "reloading weights under a device mesh is not ported yet "
-                "(ROADMAP.md queue 1, item 17: multi-process serving)")
-        with self.device_lock:
-            params = self.model.state_dict()
-            with torch.no_grad():
-                for name, tensor in staged.items():
-                    params[name].copy_(tensor)
-            self.refresh_tables()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+    @mirrored(follower_args=lambda staged, source=None, keep_old=False: (
+        (None if source else staged,),
+        {"source": source, "keep_old": keep_old}))
+    def swap_weights(self, staged: Optional[Dict[str, torch.Tensor]], *,
+                     source: Optional[str] = None,
+                     keep_old: bool = False) -> None:
+        """Serve new weights: ``staged``, the model's state dict under the
+        plain model's names with each tensor whole on the device in its
+        parameter's type (``convert.stage_checkpoint``), is copied into the
+        parameters in place, then every table derived from them is
+        recomputed in place (:meth:`refresh_tables`). No program is dropped
+        or captured again: the CUDA graphs read the parameters and the
+        tables at addresses that do not change, as the reference's programs
+        take the params as arguments. Holds :attr:`device_lock` and waits
+        for the device before it returns, so no run sees a half-copied set;
+        the reload runs it on the dispatch thread.
 
+        On a mesh each rank copies its own shard of each whole tensor
+        (``parallel/mesh.local_shard``, the rule of ``multihost.
+        place_global``). ``source``, the ``.npz`` the tensors were staged
+        from, is what the other ranks of a serving world get instead of
+        the tensors: each stages it itself (a filesystem every rank sees,
+        as the reference's identical host values assume), as ``staged=None``
+        does here. ``keep_old`` keeps this rank's old tensors for
+        :meth:`rollback_weights`."""
+        with self.device_lock:
+            if staged is None:
+                staged = stage_checkpoint(self.model, source,
+                                          self.device_lock)
+            params = plain_state(self.model)
+            with torch.no_grad():
+                if keep_old:
+                    self._old_weights = {k: self._local(t).clone()
+                                         for k, t in params.items()}
+                for name, tensor in staged.items():
+                    dst = params[name]
+                    if hasattr(dst, "placements"):  # this rank's shard
+                        tensor = local_shard(tensor, self.mesh,
+                                             dst.placements)
+                    self._local(dst).copy_(tensor)
+            self._refreshed()
+
+    @mirrored
+    def rollback_weights(self) -> None:
+        """Copy back the tensors :meth:`swap_weights` kept (``keep_old``),
+        each rank its own shards, and recompute the tables."""
+        with self.device_lock:
+            old, self._old_weights = self._old_weights, None
+            if old is None:
+                raise RuntimeError("no weights were kept to roll back to")
+            params = plain_state(self.model)
+            with torch.no_grad():
+                for name, tensor in old.items():
+                    self._local(params[name]).copy_(tensor)
+            self._refreshed()
+
+    @mirrored
+    def drop_old_weights(self) -> None:
+        """Free the tensors :meth:`swap_weights` kept."""
+        with self.device_lock:
+            self._old_weights = None
+
+    @staticmethod
+    def _local(t: torch.Tensor) -> torch.Tensor:
+        """The tensor this rank holds of a parameter (a placed one's shard)."""
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    def _refreshed(self) -> None:
+        self.refresh_tables()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @mirrored
     @torch.inference_mode()
     def refresh_tables(self) -> None:
         """Recompute every table derived from the weights into the tensors
@@ -705,6 +772,7 @@ class AsrPipeline:
                 log.exception("on_compile hook failed")
 
     # ------------------------------------------------------------------
+    @mirrored
     def decode_samples_batch(
             self, samples: Sequence[np.ndarray],
             stream_states: Optional[Sequence[Optional[StreamState]]] = None,
@@ -897,6 +965,7 @@ class AsrPipeline:
         host = self._run_beam_bucket(samples, bias, g, eager)
         return BeamTrace(*host[:-2]), host[-2], host[-1]
 
+    @mirrored
     def _run_beam_bucket(self, samples: Sequence[np.ndarray], bias,
                          graph: Optional[TokenTrie], eager: bool):
         """Pack ``samples`` into their beam bucket, stage the audio, the
@@ -981,6 +1050,7 @@ class AsrPipeline:
                          bias=bias, vocab_size=mcfg.vocab_size, graph=graph,
                          init_beam=carry, return_carry=True)
 
+    @mirrored
     def fresh_beam(self, beam_width: int) -> Tuple[EncoderCache, BeamCarry]:
         """A new stream's encoder cache and beam carry (its own tensors):
         the carry is the one hypothesis live at SOS, made once per beam
@@ -1016,6 +1086,15 @@ class AsrPipeline:
         return beam_carry_init(self.model.predict_step,
                                self.model.init_state(1, dt, dev),
                                mcfg.blank_id, 1, beam_width)
+
+    @mirrored
+    def fresh_solo(self) -> Tuple[EncoderCache, Tuple[torch.Tensor, ...]]:
+        """A new solo native stream's encoder cache and decode carry (its
+        own tensors; h, c, pred_out, last token at SOS)."""
+        mcfg, dt, dev = self.model.config, self.compute_dtype, self.device
+        with self.device_lock, torch.inference_mode():
+            return (init_encoder_cache(mcfg, 1, dt, dev),
+                    fresh_carry(self.model, 1, dt, dev))
 
     def _beam_chunk_program(self, chunk_frames: int, beam_width: int,
                             max_expansions: int, cap: int) -> DeviceProgram:
@@ -1064,6 +1143,7 @@ class AsrPipeline:
         self.beam_chunk_programs[key] = prog
         return prog
 
+    @mirrored
     def beam_chunk(self, cache: EncoderCache, carry: BeamCarry,
                    feats: np.ndarray, n_enc: int, *, beam_width: int,
                    max_expansions: int = C.BEAM_MAX_EXPANSIONS, bias=None,
@@ -1111,6 +1191,7 @@ class AsrPipeline:
              self.graph_capacity(graph)))
         return prog is not None and prog.warm
 
+    @mirrored
     def warm_beam_chunk(self, chunk_frames: int, beam_width: int,
                         max_expansions: int = C.BEAM_MAX_EXPANSIONS,
                         graph: Optional[TokenTrie] = None) -> float:
@@ -1189,6 +1270,7 @@ class AsrPipeline:
         self.solo_chunk_programs[key] = prog
         return prog
 
+    @mirrored
     def solo_chunk(self, cache: EncoderCache, carry: Sequence[torch.Tensor],
                    feats: np.ndarray, n_enc: int, *, max_symbols: int,
                    max_total: int, eager: bool = False
@@ -1233,6 +1315,7 @@ class AsrPipeline:
                                              max_total))
         return prog is not None and prog.warm
 
+    @mirrored
     def warm_solo_chunk(self, chunk_frames: int, max_symbols: int,
                         max_total: int) -> float:
         """Make the solo chunk program ready before a stream needs it (on
@@ -1290,6 +1373,7 @@ class AsrPipeline:
                                            stream_state)
 
     # ------------------------------------------------------------------
+    @mirrored
     def warmup(self, batch_sizes: Optional[Sequence[int]] = None,
                secs: Optional[Sequence[float]] = None) -> int:
         """Warm bucket programs on silence (on CUDA: the kernels' build,
@@ -1304,6 +1388,7 @@ class AsrPipeline:
         self.warmed_up = True
         return n
 
+    @mirrored
     def _warm_one(self, b: int, n_samples: int) -> None:
         """Warm one (batch, length) bucket's program in the configured mode
         on silence of ``n_samples`` in every lane and fresh carries. Beam

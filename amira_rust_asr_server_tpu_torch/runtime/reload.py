@@ -48,10 +48,9 @@ import contextlib
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Optional
 
 import numpy as np
-import torch
 
 from ..convert import CheckpointMismatchError, stage_checkpoint
 from ..errors import AppError
@@ -223,20 +222,21 @@ def repository_index(repo_dir: str, loaded: Optional[dict] = None) -> list:
 # ---------------------------------------------------------------------------
 # the swap
 # ---------------------------------------------------------------------------
-def _swap(state, tensors: Dict[str, torch.Tensor],
+def _swap(state, install: Callable[[], None],
           refuse_live: bool = True) -> float:
-    """Runs ON the dispatch thread: ``tensors`` into the pipeline's
-    parameters and every derived table in place, behind the lane lock (no
-    stream attaches meanwhile) and the device lock; a live lane refuses it
-    (409) unless ``refuse_live`` is off (the rollback). Returns the
-    seconds the dispatch thread spent."""
+    """Runs ON the dispatch thread: ``install()`` (the pipeline's
+    ``swap_weights`` or ``rollback_weights``: new tensors into its
+    parameters and every derived table in place), then the lane engine's
+    refresh, behind the lane lock (no stream attaches meanwhile); a live
+    lane refuses it (409) unless ``refuse_live`` is off (the rollback).
+    Returns the seconds the dispatch thread spent."""
     t0 = time.perf_counter()
     eng = state.lane_engine
     with (state.lane_lock if eng is not None else contextlib.nullcontext()):
         if refuse_live and eng is not None and eng.live_lanes > 0:
             raise ReloadConflictError(
                 "stream attached during reload; drain and retry")
-        state.pipeline.swap_weights(tensors)
+        install()
         if eng is not None:
             eng.refresh_()
     return time.perf_counter() - t0
@@ -263,6 +263,11 @@ def hot_swap(state, name: str, validate: bool = False) -> dict:
     4. with ``validate``, a 0.25 s tone canary; on any failure the old
        tensors, kept until then, are copied back and the error is a 422.
 
+    In a serving world (``parallel/serve.py``) the swap, the canary and
+    the rollback are device entries every rank runs: each rank stages the
+    checkpoint from the same path itself, copies its own shards, and
+    keeps its own old shards for the rollback.
+
     In-flight batch requests finish on whichever weights their dispatch
     picked up, as a Triton reload gives. The phases' ms (prepare, swap,
     canary) go to the metrics (``last_reload_ms``)."""
@@ -284,30 +289,26 @@ def hot_swap(state, name: str, validate: bool = False) -> dict:
                 f"streams before reloading")
         pipe = state.pipeline
         staged = stage_checkpoint(pipe.model, ckpt, pipe.device_lock)
-        old = None
-        if validate:
-            with pipe.device_lock, torch.inference_mode():
-                old = {k: v.clone() for k, v in
-                       pipe.model.state_dict().items()}
         t1 = time.perf_counter()
-        stall = state.inference_executor.submit(_swap, state,
-                                                staged).result()
+        stall = state.inference_executor.submit(
+            _swap, state, lambda: pipe.swap_weights(
+                staged, source=os.path.abspath(ckpt),
+                keep_old=validate)).result()
         del staged
         t2 = time.perf_counter()
         if validate:
             # the canary: one decode on the new weights; on ANY failure the
-            # old tensors go back in and the error surfaces (Triton offers
-            # nothing equivalent)
+            # old tensors, kept by the swap, go back in and the error
+            # surfaces (Triton offers nothing equivalent)
             try:
                 state.inference_executor.submit(_smoke_decode, pipe).result()
             except Exception as e:
-                state.inference_executor.submit(_swap, state, old,
-                                                False).result()
+                state.inference_executor.submit(
+                    _swap, state, pipe.rollback_weights, False).result()
                 raise CheckpointMismatchError(
                     f"validation decode failed on {name!r}; rolled back "
                     f"to previous weights: {e}") from e
-            finally:
-                del old
+            state.inference_executor.submit(pipe.drop_old_weights).result()
         t3 = time.perf_counter()
         info = {"name": name, "checkpoint": ckpt,
                 "swap_ms": round((t3 - t0) * 1e3, 1), "ts": time.time(),

@@ -27,7 +27,10 @@ endpoint only (streaming and lattices answer 400 for them).
 Entry point: ``python -m amira_rust_asr_server_tpu_torch.server --preset
 large`` (``AMIRA_STREAMING_MODE=native`` with ``--preset large-streaming``
 for native streaming, and ``AMIRA_DECODING_MODE=beam`` beside them for
-streaming beam).
+streaming beam). Over a device mesh, one process per device:
+``torchrun --nproc-per-node N -m amira_rust_asr_server_tpu_torch.server``;
+rank 0 serves HTTP and the other ranks follow its device dispatches
+(``parallel/serve.py``).
 """
 
 from __future__ import annotations
@@ -36,10 +39,13 @@ import asyncio
 import base64
 import dataclasses
 import json
+import logging
+import os
 import time
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 from aiohttp import web
 
 from .. import constants as C
@@ -52,6 +58,9 @@ from ..audio import pcm16_bytes_to_f32
 from ..device import resolve_device
 from ..models.presets import get_preset
 from ..ops.lattice import decode_beam_lattice
+from ..parallel import multihost
+from ..parallel.mesh import make_mesh
+from ..parallel.serve import follow, join_serving_world
 from ..runtime.family_pipeline import family_model, serving_pipeline
 from ..runtime.pipeline import check_supported
 from ..runtime.reload import hot_swap, repository_index
@@ -303,7 +312,13 @@ async def health_check(request: web.Request) -> web.Response:
     payload = {"status": "healthy", "service": "amira-asr-tpu-server",
                "version": "1.0.0"}
     if request.query.get("deep"):
-        # device-liveness probe: a tiny op must complete within 2 s
+        if state.mirror is not None:
+            payload["world"] = state.mirror.health()
+            if state.mirror.degraded:
+                payload["status"] = "degraded"
+                return web.json_response(payload, status=503)
+        # device-liveness probe: a tiny op must complete within 2 s (on
+        # rank 0's device alone: no collective)
         device = state.pipeline.device
 
         def probe():
@@ -339,6 +354,8 @@ async def metrics_handler(request: web.Request) -> web.Response:
             eng.live_lanes, eng.n_lanes, eng.warmed_up)
     if state.config.decoding_mode == "beam":
         payload["beam_decode_paths"] = dict(state.pipeline.decode_path_counts)
+    if state.mirror is not None:
+        payload["world"] = state.mirror.to_json()
     return web.json_response(payload)
 
 
@@ -445,17 +462,47 @@ def load_model(cfg: Config, preset: Optional[str] = None) -> torch.nn.Module:
                         seed=INIT_SEED)
 
 
+def _join_world(cfg: Config, timeout_s: float) -> bool:
+    """Join torchrun's world (its environment) unless this process is in
+    one already: NCCL on this rank's card, gloo for
+    ``inference_backend="cpu"``. True when this call joined it."""
+    env = multihost.from_env()
+    if env is None or dist.is_initialized():
+        return False
+    return multihost.init_distributed(
+        env.coordinator, env.world_size, env.rank,
+        device="cpu" if cfg.inference_backend == "cpu" else "cuda",
+        local_rank=env.local_rank, timeout_s=timeout_s)
+
+
 def build_state(config: Optional[Config] = None,
                 preset: Optional[str] = None,
-                warmup: Optional[bool] = None) -> AppState:
-    """Wire config -> model -> pipeline -> state (ref: src/main.rs:23-112)."""
+                warmup: Optional[bool] = None,
+                world_timeout_s: float = multihost.WORLD_TIMEOUT_S
+                ) -> AppState:
+    """Wire config -> model -> pipeline -> state (ref: src/main.rs:23-112).
+
+    Under a world of ranks (one process per device: torchrun's
+    environment, or a process group made by the caller) every rank
+    builds the same state on the mesh ``cfg.mesh_shape`` (by default every
+    rank on ``data``), as the reference serves over its mesh; rank 0's
+    state sends each device entry to the others (``parallel/serve.py``)
+    and warms up, the others' (:attr:`AppState.follower`) only follow
+    (:func:`~parallel.serve.follow`). ``world_timeout_s`` bounds every
+    wait of the world."""
     cfg = config or Config.load()
+    owned = _join_world(cfg, world_timeout_s)
     if cfg.enable_platform_optimizations:
         # probed and validated before the device is chosen, so the
         # effective config picks it (the reference serves it too)
         cfg = initialize_platform(cfg).effective_config
     device = resolve_device(cfg.inference_backend)
-    check_supported(cfg, device, get_preset(preset or cfg.model_preset).causal)
+    in_world = dist.is_initialized()
+    if in_world and not cfg.mesh_shape:
+        cfg = dataclasses.replace(cfg, mesh_shape={
+            "data": dist.get_world_size(), "model": 1})
+    check_supported(cfg, device, get_preset(preset or cfg.model_preset).causal,
+                    world_size=dist.get_world_size() if in_world else 1)
     try:
         vocab = Vocabulary.load(cfg.vocabulary_path)
     except FileNotFoundError:
@@ -466,8 +513,14 @@ def build_state(config: Optional[Config] = None,
     if cfg.checkpoint_path:
         log.info("loaded %s checkpoint from %s", cfg.model_family,
                  cfg.checkpoint_path)
-    pipeline = serving_pipeline(model, vocab, cfg, device)
-    state = AppState(pipeline, vocab, cfg)
+    world = mesh = None
+    if in_world:
+        mesh = make_mesh(cfg.mesh_shape)
+        world = join_serving_world(world_timeout_s, owned)
+    pipeline = serving_pipeline(model, vocab, cfg, device, mesh)
+    state = AppState(pipeline, vocab, cfg, world)
+    if state.follower:
+        return state  # its warm-ups come from rank 0
     if warmup if warmup is not None else cfg.warmup_on_start:
         t0 = time.time()
         n = pipeline.warmup()
@@ -538,6 +591,18 @@ def main(argv=None) -> None:
     init_tracing(otel_endpoint=cfg.otel_endpoint)
     state = build_state(cfg, preset=args.preset,
                         warmup=False if args.no_warmup else None)
+    if state.follower:
+        # a rank above 0 of a world: no server, rank 0's dispatches
+        try:
+            code = follow(state)
+        finally:
+            state.close()
+        if code:
+            # a failed world: leave at once, which closes this rank's
+            # connections, so no other rank waits on it past this moment
+            logging.shutdown()
+            os._exit(code)
+        raise SystemExit(0)
     asyncio.run(run_server(state, args.host, args.port))
 
 

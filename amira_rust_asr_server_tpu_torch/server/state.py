@@ -14,6 +14,11 @@ the lane ticker's chunk steps and the sessions' lane resets all run their
 device work under the pipeline's ``device_lock`` (``runtime/programs.py``):
 a CUDA-graph capture on one thread must see no device call from another,
 and their cooperative kernel grids never run at once.
+
+In a serving world (``parallel/serve.py``) every rank builds its own
+state; rank 0's runs the server and holds the mirror that sends each
+device entry to the other ranks, whose states start no thread and only
+follow. :meth:`AppState.close` on rank 0 stops them.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from ..errors import CapacityExceededError
 from ..reliability import CircuitBreaker, GracefulShutdown, get_logger
 from ..vocab import Vocabulary
 from ..runtime import AsrPipeline, ContinuousBatcher
+from ..parallel.multihost import leave_world
+from ..parallel.serve import DispatchMirror, ServingWorld
 from ..runtime.lane_engine import StreamingLaneEngine
 from ..utils.affinity import AffinityPlan, ThreadType, make_initializer
 from .metrics import PrometheusMetrics, ServiceMetrics
@@ -58,11 +65,20 @@ class TryAcquireSemaphore:
 
 
 class AppState:
+    """``world``: this rank's side of a serving world (None outside one);
+    rank 0 attaches the mirror (:attr:`mirror`), the other ranks' states
+    start no thread."""
+
     def __init__(self, pipeline: AsrPipeline, vocab: Vocabulary,
-                 config: Optional[Config] = None):
+                 config: Optional[Config] = None,
+                 world: Optional[ServingWorld] = None):
         self.config = config or pipeline.config
         self.pipeline = pipeline
         self.vocab = vocab
+        self.world = world
+        self.mirror: Optional[DispatchMirror] = None
+        if world is not None and world.rank == 0:
+            self.mirror = pipeline.mirror = DispatchMirror(world, pipeline)
         self.metrics = ServiceMetrics(self.config.max_concurrent_streams,
                                       self.config.max_concurrent_batches)
         self.prometheus: Optional[PrometheusMetrics] = None
@@ -135,11 +151,19 @@ class AppState:
             # one ticker thread advances the engine whenever a lane has a
             # chunk; session threads only feed and read transcripts, so
             # every tick batches all ready lanes (session threads ticking
-            # under the lock would form a convoy of one-lane ticks)
-            self._lane_ticker_stop = threading.Event()
-            self.lane_ticker = threading.Thread(
-                target=self._tick_loop, name="lane-ticker", daemon=True)
-            self.lane_ticker.start()
+            # under the lock would form a convoy of one-lane ticks). A
+            # follower's engine ticks when rank 0's does.
+            if not self.follower:
+                self._lane_ticker_stop = threading.Event()
+                self.lane_ticker = threading.Thread(
+                    target=self._tick_loop, name="lane-ticker",
+                    daemon=True)
+                self.lane_ticker.start()
+
+    @property
+    def follower(self) -> bool:
+        """A rank above 0 of a serving world."""
+        return self.world is not None and self.world.rank > 0
 
     def _tick_loop(self) -> None:
         eng = self.lane_engine
@@ -152,11 +176,15 @@ class AppState:
                 with self.lane_lock:
                     try:
                         did = bool(eng.tick())
-                    except Exception:  # noqa: BLE001 — the ticker lives on
+                    except Exception as e:  # noqa: BLE001 — lives on
                         # tick() failed the step's lanes: their streams end
                         # with an error frame, the others go on
                         log.exception("lane tick failed")
                         self.metrics.record_error()
+                        if self.mirror is not None and self.mirror.degraded:
+                            # no tick will run again: every stream ends
+                            for lane in eng.pending():
+                                eng.errors[lane] = f"lane tick failed: {e}"
             if not did:
                 self._lane_ticker_stop.wait(0.005)
 
@@ -220,3 +248,7 @@ class AppState:
         self.pipeline.stop_background_warmup()
         self.inference_executor.shutdown(wait=False, cancel_futures=True)
         self.session_executor.shutdown(wait=False, cancel_futures=True)
+        if self.mirror is not None:
+            self.mirror.close()  # the followers exit
+        if self.world is not None and self.world.owned:
+            leave_world()

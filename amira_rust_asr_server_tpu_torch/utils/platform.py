@@ -6,11 +6,15 @@ derives the effective settings and validates them at startup, with the
 reference's names. What differs:
 
 - ``detect_devices`` reads torch: the CUDA devices (name, memory, SM count),
-  or one CPU device when CUDA is absent.
+  or one CPU device when CUDA is absent, and the world of processes
+  (``world_of``: the default process group, else torchrun's environment).
+- ``initialize_platform`` sizes the default mesh by that world, not by the
+  local device count: the port runs one process per device, so its data
+  axis spans the ranks (``torchrun --nproc-per-node N`` on N cards), and
+  one process on a machine of many cards serves on its one card.
 - ``detect_cloud`` keeps the reference's environment checks and its one
   short metadata attempt; with no network the provider is ``"unknown"``.
-- ``initialize_platform`` keeps the mesh adjustment and ``validate()`` but
-  not the reference's "no TPU visible -> ``inference_backend="cpu"``"
+- ``initialize_platform`` keeps ``validate()`` but not the reference's "no TPU visible -> ``inference_backend="cpu"``"
   rewrite: that fallback would hide a missing device. The port's device
   rule (``device.resolve_device``) raises ``DeviceError`` instead.
 """
@@ -20,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import platform as _platform
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -93,20 +97,32 @@ def detect_host() -> HostInfo:
     )
 
 
+def world_of() -> Tuple[int, int]:
+    """(processes, this process's index) of the world this process is in:
+    the default process group's when one exists, else torchrun's
+    ``WORLD_SIZE`` and ``RANK``, else (1, 0)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return (int(os.environ.get("WORLD_SIZE", 1)),
+            int(os.environ.get("RANK", 0)))
+
+
 def detect_devices() -> DeviceTopology:
     """The CUDA devices (count, names, memory, SM count of device 0), or one
-    CPU device when CUDA is absent."""
+    CPU device when CUDA is absent, and the world (:func:`world_of`)."""
+    n_processes, index = world_of()
     if not torch.cuda.is_available():
         return DeviceTopology(platform="cpu", n_devices=1,
                               device_kinds=[_platform.machine() or "cpu"],
-                              n_processes=1, process_index=0, coords=None,
-                              memory_per_device_gb=None)
+                              n_processes=n_processes, process_index=index,
+                              coords=None, memory_per_device_gb=None)
     n = torch.cuda.device_count()
     props = [torch.cuda.get_device_properties(i) for i in range(n)]
     return DeviceTopology(
         platform="cuda", n_devices=n,
         device_kinds=sorted({p.name for p in props}),
-        n_processes=1, process_index=0, coords=None,
+        n_processes=n_processes, process_index=index, coords=None,
         memory_per_device_gb=round(props[0].total_memory / 1024 ** 3, 1),
         sm_count=props[0].multi_processor_count)
 
@@ -130,14 +146,16 @@ def detect_cloud(timeout_s: float = 0.3) -> CloudInfo:
 
 def initialize_platform(config: Optional[Config] = None) -> PlatformInit:
     """Startup orchestration (ref: platform/init.rs:28-536): probe, adjust
-    the mesh, validate, log one structured summary."""
+    the mesh, validate, log one structured summary. The default mesh puts
+    every process of the world on ``data``, one device each (the
+    reference's puts every local chip of its one process there)."""
     cfg = config or Config()
     host = detect_host()
     devices = detect_devices()
     cloud = detect_cloud()
-    if not cfg.mesh_shape and devices.n_devices > 1:
+    if not cfg.mesh_shape and devices.n_processes > 1:
         cfg = dataclasses.replace(
-            cfg, mesh_shape={"data": devices.n_devices, "model": 1})
+            cfg, mesh_shape={"data": devices.n_processes, "model": 1})
     cfg.validate()
     log.info("platform initialized", extra={"fields": {
         "host": dataclasses.asdict(host),

@@ -164,6 +164,19 @@ their plain PyTorch versions:
      share, MFU); and the reference's dryrun_multichip in a one-rank NCCL
      world (mesh 1 x 1, GPipe S = 1, tiny): sharded equals unsharded for
      tokens, the encoders and the losses
+  W  serving over a world (parallel/serve.py): a one-rank NCCL world
+     joined through multihost.init_distributed on a free TCP port, then
+     build_state(preset=large) under it, f32, mesh 1 x 1, behind the HTTP
+     server, every device entry sent through the mirror (to no follower):
+     2 s and 30 s greedy requests, a 2 s beam request and a 2 s
+     quantization="int8" (+ int8 decode weights) greedy request return
+     200/COMPLETE with tokens identical to the same seeded weights served
+     without a world, and the log-mel, greedy, beam, W8A8 and int8 greedy
+     kernels' counters rise; a reload over /v2/repository/.../load of a
+     seeded .npz, then a 2 s request whose tokens equal a pipeline's built
+     afresh on those weights (the swap ms and the mirror's ms per entry
+     printed); then dryrun_multihost(1, 1) over NCCL with a TCP
+     coordinator; the group is destroyed at the end
 
 Any failure raises and exits non-zero. Each phase prints its wall as it
 ends (``phase_seconds`` in the result line). The line before the last
@@ -173,7 +186,8 @@ lines then): ``--phases GH`` runs the beam phases alone, ``--phases IJKL``
 the int8 and per-step phases, ``--phases ABMN`` the streaming phases,
 ``--phases ABO`` the bucket programs, ``--phases ABPQ`` streaming beam and
 the per-step route's device loop, ``--phases ABR`` the model families,
-``--phases ABU`` training, ``--phases ABV`` MoE and the mesh.
+``--phases ABU`` training, ``--phases ABV`` MoE and the mesh, ``--phases
+ABW`` serving over a world.
 """
 
 from __future__ import annotations
@@ -192,7 +206,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMNOPQRSTUV"
+ALL_PHASES = "ABCDEFGHIJKLMNOPQRSTUVW"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -3954,6 +3968,182 @@ def phase_v(results):
         "crosses a GPU on one card)")
 
 
+async def _world_serve(state, port: int, steps):
+    """Serve ``state`` and run ``steps`` in order: ``("post", pcm)`` a
+    batch request, ``("load", name)`` a repository load, ``("metrics",)``.
+    Returns per step (status, body, wall s, the kernels' launches during
+    it)."""
+    import aiohttp
+
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.server.app import run_server
+    server = asyncio.create_task(run_server(state, "127.0.0.1", port))
+    url = f"http://127.0.0.1:{port}"
+    out = []
+    try:
+        async with aiohttp.ClientSession() as session:
+            for _ in range(600):
+                try:
+                    async with session.get(f"{url}/health") as r:
+                        if r.status == 200:
+                            break
+                except aiohttp.ClientConnectionError:
+                    pass
+                await asyncio.sleep(0.1)
+            for step in steps:
+                kw = {}
+                if step[0] == "post":
+                    method, path = "POST", "/v2/decode/batch/default"
+                    kw = {"json": {"audio_buffer": list(step[1])}}
+                elif step[0] == "load":
+                    method = "POST"
+                    path = f"/v2/repository/models/{step[1]}/load"
+                else:
+                    method, path = "GET", "/metrics"
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                async with session.request(method, url + path, **kw) as r:
+                    status, body = r.status, await r.json()
+                out.append((status, body, time.perf_counter() - t0,
+                            kernels.launch_counts()))
+    finally:
+        state.shutdown.trigger()
+        await server
+    return out
+
+
+def phase_w(results):
+    """Serving over a world of one NCCL rank: the mirror on every entry,
+    the tokens against the same weights served without a world, the
+    kernels launched, a reload under the mesh, then dryrun_multihost."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from amira_rust_asr_server_tpu_torch.audio import pcm16_bytes_to_f32
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.models import Transducer
+    from amira_rust_asr_server_tpu_torch.models.presets import get_preset
+    from amira_rust_asr_server_tpu_torch.parallel import multihost
+    from amira_rust_asr_server_tpu_torch.parallel.dryrun import \
+        dryrun_multihost
+    from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
+        serving_pipeline
+    from amira_rust_asr_server_tpu_torch.server import app as app_mod
+    from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+    out = results["world"] = {"world": "1 rank, NCCL, mesh 1 x 1"}
+    walls = out["wall_s"] = {}
+    launches: dict = {}
+    t0 = time.perf_counter()
+    multihost.init_distributed(f"127.0.0.1:{free_port()}", 1, 0)
+    tmp = tempfile.mkdtemp(prefix="world-repo-")
+    base = dict(vocabulary_path="model-repo/vocab.txt",
+                inference_backend="tpu", compute_dtype="float32",
+                audio_sec_buckets=[2.0, 30.0], batch_buckets=[1],
+                model_repo_path=tmp)
+    # the seeded large weights, made once: every server and pipeline here
+    # takes a copy (load_model's seed gives these same weights)
+    model0 = app_mod.load_model(Config(**base), "large")
+    load_model = app_mod.load_model
+    app_mod.load_model = lambda cfg, preset=None: copy.deepcopy(model0)
+    rng = np.random.default_rng(5)
+    pcm = {secs: (rng.standard_normal(int(secs * 16000)) * 3000).astype(
+        "<i2").tobytes() for secs in (2.0, 30.0)}
+    new = seeded_npz(os.path.join(tmp, "large-s9.npz"), "transducer",
+                     "large", seed=9)
+    walls["setup"] = time.perf_counter() - t0
+
+    def plain_tokens(cfg: Config, model, secs_list):
+        """Each request's tokens from ``model`` served without a world."""
+        pipe = serving_pipeline(model, Vocabulary.load(cfg.vocabulary_path),
+                                cfg, torch.device("cuda"))
+        return [pipe.process_batch_samples(pcm16_bytes_to_f32(
+            pcm[secs])).tokens for secs in secs_list]
+
+    cases = [("greedy", {}, [2.0, 30.0]),
+             ("beam", {"decoding_mode": "beam"}, [2.0]),
+             ("int8", {"quantization": "int8", "int8_decode_weights": True},
+              [2.0])]
+    try:
+        for name, extra, secs_list in cases:
+            t1 = time.perf_counter()
+            cfg = Config(**base, **extra, mesh_shape={"data": 1, "model": 1})
+            state = app_mod.build_state(cfg, preset="large")
+            if state.world is None or state.mirror is None:
+                raise AssertionError("[W] build_state served no world")
+            steps = [("post", pcm[s]) for s in secs_list]
+            if name == "greedy":
+                steps += [("load", "large-s9"), ("post", pcm[2.0])]
+            steps.append(("metrics",))
+            got = asyncio.run(_world_serve(state, free_port(), steps))
+            wants = plain_tokens(Config(**base, **extra),
+                                 copy.deepcopy(model0), secs_list)
+            for (status, body, wall, counts), secs, want in zip(
+                    got, secs_list, wants):
+                toks = body.get("metadata", {}).get("tokens")
+                say("W", f"{name} {secs:.0f} s: HTTP {status} "
+                    f"{body.get('status')} {len(toks or [])} tokens, wall "
+                    f"{wall * 1e3:.1f} ms, launches {counts}")
+                if status != 200 or body.get("status") != "COMPLETE":
+                    raise AssertionError(f"[W] {name} {secs} s: {body}")
+                if toks != want:
+                    raise AssertionError(f"[W] {name} {secs} s tokens "
+                                         f"differ from the unsharded "
+                                         f"pipeline's: {toks} vs {want}")
+                out[f"{name}_{secs:.0f}s_ms"] = wall * 1e3
+                for k, n in counts.items():
+                    launches[k] = launches.get(k, 0) + n
+            if name == "greedy":
+                (ls, lbody, lwall, _), (ps, pbody, pwall, pcounts) = \
+                    got[2], got[3]
+                fresh = Transducer(get_preset("large"))
+                fresh.load_state_dict(new.state_dict())
+                want = plain_tokens(Config(**base), fresh, [2.0])[0]
+                toks = pbody.get("metadata", {}).get("tokens")
+                say("W", f"reload under the mesh: HTTP {ls} swap_ms "
+                    f"{lbody.get('swap_ms')} (wall {lwall * 1e3:.1f} ms); "
+                    f"then 2 s: HTTP {ps} {len(toks or [])} tokens")
+                if ls != 200 or toks != want:
+                    raise AssertionError(f"[W] the reload under the mesh: "
+                                         f"{lbody} / {toks} vs {want}")
+                out["reload_swap_ms"] = lbody.get("swap_ms")
+                for k, n in pcounts.items():
+                    launches[k] = launches.get(k, 0) + n
+            per = got[-1][1]["world"]["per_entry"]
+            out[f"{name}_mirror"] = per
+            if name == "greedy":
+                phases = got[-1][1]["last_reload_ms"]
+                out["reload_phases_ms"] = phases
+                say("W", "the reload's phases (ms; swap: the dispatch "
+                    f"thread's stall): {phases}")
+            say("W", f"{name}: mirror ms per entry (header + tensors, then "
+                "the outcome exchange): " + ", ".join(
+                    f"{k} x{v['count']} {v['mirror_ms']:.3f} + "
+                    f"{v['outcome_ms']:.3f}" for k, v in per.items()))
+            walls[name] = time.perf_counter() - t1
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        app_mod.load_model = load_model
+        multihost.leave_world()
+    out["launches"] = launches
+    say("W", f"kernel launches of phase W's requests: {launches}")
+    for k in ("log_mel", "greedy_loop", "beam_loop", "quant_matmul",
+              "greedy_loop_int8"):
+        if not launches.get(k):
+            raise AssertionError(f"[W] kernel {k} never launched")
+        results.setdefault(k, {})
+        results[k]["launches"] = results[k].get("launches", 0) + launches[k]
+
+    t1 = time.perf_counter()
+    loss = dryrun_multihost(1, 1, backend="nccl", timeout_s=300)
+    walls["dryrun_multihost"] = time.perf_counter() - t1
+    out["dryrun_multihost_loss"] = loss
+    say("W", f"dryrun_multihost(1x1) over NCCL: loss {loss} in "
+        f"{walls['dryrun_multihost']:.1f} s; walls {walls}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -3972,7 +4162,8 @@ def main(argv=None) -> int:
                           ("K", phase_k), ("L", phase_l), ("M", phase_m),
                           ("N", phase_n), ("O", phase_o), ("P", phase_p),
                           ("Q", phase_q), ("R", phase_r), ("S", phase_s),
-                          ("T", phase_t), ("U", phase_u), ("V", phase_v)):
+                          ("T", phase_t), ("U", phase_u), ("V", phase_v),
+                          ("W", phase_w)):
         if letter in phases:
             t0 = time.perf_counter()
             phase() if letter in "BE" else phase(results)
@@ -4001,6 +4192,7 @@ def main(argv=None) -> int:
                       "tools": results["tools"],
                       "training": results["training"],
                       "moe": results["moe"], "mesh": results["mesh"],
+                      "world": results["world"],
                       "phase_seconds": results["phase_seconds"],
                       "programs": results["programs"]}))
     print(smi)

@@ -221,12 +221,13 @@ def test_moe_expert_stacks_shard_over_model(world):
 def test_tp_serving_tokens_equal_unsharded(world, oracle):
     """Token for token; a pipeline on a mesh runs its bucket programs
     eager (its split layers call collectives from the host), chosen by the
-    mesh argument alone, and refuses a reload naming its ROADMAP item."""
-    (want, plain_captures, _), (got, captures, reload) = (
+    mesh argument alone, and reloads whole weights, each rank copying its
+    own shards, to the unsharded pipeline's tokens on them."""
+    (want, plain_captures, want_reloaded), (got, captures, reloaded) = (
         oracle[3]["tokens"], world[0]["tokens"])
     assert all(want) and got == want
     assert plain_captures and not captures
-    assert "ROADMAP.md queue 1, item 17" in reload
+    assert reloaded == want_reloaded and want_reloaded != want
     assert all(r["tokens"] == world[0]["tokens"] for r in world[1])
 
 

@@ -32,10 +32,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("n", [2, 4])
 def test_dryrun_multichip(n):
     """Six checks on an n-rank world: DP x TP step, TP serving, the TP
-    lane engine, GPipe, FSDP + sequence parallelism, expert parallelism;
-    every line of rank 0's report says it matched."""
+    lane engine, GPipe, FSDP + sequence parallelism, expert parallelism,
+    and on 4 ranks a seventh, the multi-slice mesh; every line of rank 0's
+    report says it matched."""
     lines = dryrun_multichip(n, backend="gloo")
-    assert len(lines) == 6
+    assert len(lines) == 6 + (n >= 4)
+    assert ("multislice mesh" in lines[-1]) == (n >= 4)
     assert all(line.startswith(f"dryrun_multichip({n}): ")
                and " OK" in line for line in lines)
 

@@ -40,7 +40,8 @@ from amira_rust_asr_server_tpu_torch.audio import pcm16_bytes_to_f32
 from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import from_jax_params, load_npz
 from amira_rust_asr_server_tpu_torch.device import resolve_device
-from amira_rust_asr_server_tpu_torch.errors import DeviceError
+from amira_rust_asr_server_tpu_torch.errors import (ConfigValidationError,
+                                                    DeviceError)
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.models import presets
 from amira_rust_asr_server_tpu_torch.models.presets import TINY
@@ -328,8 +329,10 @@ def test_pcm16_conversion_matches_reference():
     dict(model_family="aed"), dict(model_family="ctc")])
 def test_unported_options_are_refused(overrides, monkeypatch):
     """The CTC and AED families are served (tests/test_torch_families.py),
-    with MoE encoders too (tests/test_torch_moe.py); what the server still
-    lacks, a mesh of more than one device, is refused by name."""
+    with MoE encoders too (tests/test_torch_moe.py); a mesh of more than
+    one device in one process, which the port serves only as a world of
+    one process per device (tests/test_torch_world_server.py), is refused
+    naming the launcher that starts one."""
     monkeypatch.setitem(presets.PRESETS, "tiny-moe",
                         dataclasses.replace(TINY, moe_experts=2))
     state = build_state(digits_config(checkpoint_path=None, **overrides),
@@ -342,8 +345,8 @@ def test_unported_options_are_refused(overrides, monkeypatch):
             0 <= t < TINY.vocab_size for t in tr.tokens)
     finally:
         state.close()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
-                                                  "item 17"):
+    with pytest.raises(ConfigValidationError,
+                       match="torchrun --nproc-per-node 2"):
         build_state(digits_config(checkpoint_path=None,
                                   mesh_shape={"data": 2}, **overrides),
                     preset="tiny-moe", warmup=False)

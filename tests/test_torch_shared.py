@@ -167,7 +167,8 @@ def test_port_imports_nothing_of_the_jax_package():
         "assert not bad, bad\n"
         "assert 'jax' not in sys.modules and 'flax' not in sys.modules\n"
         "new = {'models.tp', 'parallel.mesh', 'parallel.pipeline',\n"
-        "       'parallel.launch', 'parallel.dryrun'}\n"
+        "       'parallel.launch', 'parallel.dryrun', 'parallel.multihost',\n"
+        "       'parallel.multislice', 'parallel.serve'}\n"
         "assert {port.__name__ + '.' + m for m in new} <= set(names)\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -206,9 +207,17 @@ def test_platform_effective_config_matches_jax(no_cloud_request):
 
 def test_platform_mesh_rule_follows_the_device_count(no_cloud_request,
                                                      monkeypatch):
+    """The reference's rule puts every device its one process sees on
+    ``data``; the port runs one process per device, so its rule reads the
+    world's processes: 4 cards and one process serve on one card, a world
+    of 4 processes spans 4 (the deviation of ROADMAP queue 3)."""
     four = dataclasses.replace(platform.detect_devices(), platform="cuda",
-                               n_devices=4)
+                               n_devices=4, n_processes=1)
     monkeypatch.setattr(platform, "detect_devices", lambda: four)
+    cfg = platform.initialize_platform(Config()).effective_config
+    assert cfg.mesh_shape == {}
+    world = dataclasses.replace(four, n_processes=4, process_index=1)
+    monkeypatch.setattr(platform, "detect_devices", lambda: world)
     cfg = platform.initialize_platform(Config()).effective_config
     assert cfg.mesh_shape == {"data": 4, "model": 1}
     kept = platform.initialize_platform(

@@ -45,7 +45,8 @@ from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import (from_jax_params,
                                                      load_checkpoint,
                                                      load_npz, to_model)
-from amira_rust_asr_server_tpu_torch.errors import DeviceError
+from amira_rust_asr_server_tpu_torch.errors import (ConfigValidationError,
+                                                    DeviceError)
 from amira_rust_asr_server_tpu_torch.models import Transducer
 from amira_rust_asr_server_tpu_torch.models.aed import AEDModel
 from amira_rust_asr_server_tpu_torch.models.ctc import CTCModel
@@ -380,12 +381,18 @@ def test_three_steps_match_jax(ref, jax_models, family):
 
 
 def test_refusals_name_the_parallelism_item():
-    """What of parallelism stays refused names its ROADMAP item (queue 1,
-    item 17: the server on more than one device); the sharded step and
-    FSDP refuse what they cannot place, by name."""
-    with pytest.raises(NotImplementedError, match="queue 1, item 17"):
-        check_supported(Config(mesh_shape={"data": 2, "model": 1}),
-                        torch.device("cpu"))
+    """A server's mesh of more than one device outside a world of one
+    process per device is refused naming the launcher that starts one,
+    and one that does not cover the world naming both sizes; the sharded
+    step and FSDP refuse what they cannot place, by name."""
+    mesh = Config(mesh_shape={"data": 2, "model": 1})
+    with pytest.raises(ConfigValidationError,
+                       match="torchrun --nproc-per-node 2"):
+        check_supported(mesh, torch.device("cpu"), world_size=1)
+    with pytest.raises(ConfigValidationError, match="covers 2 devices but "
+                                                    "the world has 4"):
+        check_supported(mesh, torch.device("cpu"), world_size=4)
+    check_supported(mesh, torch.device("cpu"), world_size=2)
     model = Transducer(TINY)
     opt = make_optimizer()
     with pytest.raises(ValueError, match="init_training"):
