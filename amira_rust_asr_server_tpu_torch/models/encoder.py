@@ -28,8 +28,10 @@ With ``ModelConfig.moe_experts > 0`` each block's second feed-forward is
 computes it with plain einsums.
 
 On a device mesh (``parallel/mesh.py``) the dense layers, convolutions and
-expert stacks split their work over the ``model`` axis (``models/tp.py``);
-everything else reads its parameters whole.
+expert stacks split their work over the ``model`` axis, and attention its
+heads (``models/tp.py``); everything else reads its parameters whole. In
+the sequence-parallel loss the blocks also run on time shards
+(``tp.TimeShards``).
 """
 
 from __future__ import annotations
@@ -113,12 +115,15 @@ class ChannelLastConv(nn.Module):
         self.k, self.stride, self.groups = k, stride, groups
         self.causal_pad = causal_pad  # >= 0: left-only pad of this width
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def pads(self, t: int) -> Tuple[int, int]:
+        """The (left, right) pads of a ``t``-frame input."""
         if self.causal_pad >= 0:
-            lo, hi = self.causal_pad, 0
-        else:
-            lo, hi = _same_pad(x.shape[1], self.k, self.stride)
-        return self.conv(F.pad(x.transpose(1, 2), (lo, hi))).transpose(1, 2)
+            return self.causal_pad, 0
+        return _same_pad(t, self.k, self.stride)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x.transpose(1, 2),
+                               self.pads(x.shape[1]))).transpose(1, 2)
 
     def conv(self, x: torch.Tensor) -> torch.Tensor:
         """The convolution of an already padded ``[B, C, T]`` input."""
@@ -173,7 +178,10 @@ class QLinear(Linear):
 
 
 class MHSA(nn.Module):
-    """Multi-head self-attention with RoPE and padding/band masks."""
+    """Multi-head self-attention with RoPE and padding/band masks. On a
+    mesh each rank computes its share of the heads (``models/tp.Heads``);
+    under ``seq`` the input is this rank's time block, and the
+    projections gather and scatter time."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -182,12 +190,13 @@ class MHSA(nn.Module):
         self.qkv = QLinear(d, 3 * d, cfg.quant_int8)
         self.out = QLinear(d, d, cfg.quant_int8)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                seq: Optional[tp.TimeShards] = None) -> torch.Tensor:
         cfg = self.cfg
-        b, t, d = x.shape
-        h = cfg.n_heads
-        dh = d // h
-        q, k, v = self.qkv(x).split(d, dim=-1)
+        heads = tp.Heads(self, seq)
+        h, dh = heads.n, heads.dh
+        q, k, v = heads.project(x)
+        b, t, _ = q.shape
         q = q.reshape(b, t, h, dh).transpose(1, 2)
         k = k.reshape(b, t, h, dh).transpose(1, 2)
         v = v.reshape(b, t, h, dh).transpose(1, 2)
@@ -212,8 +221,8 @@ class MHSA(nn.Module):
 
         scores = torch.where(mask, scores, scalar(MASK_FILL, scores))
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(b, t, d)
-        return self.out(out)
+        out = (attn @ v).transpose(1, 2).reshape(b, t, h * dh)
+        return heads.combine(out)
 
 
 class ConvModule(nn.Module):
@@ -229,12 +238,40 @@ class ConvModule(nn.Module):
         self.norm = LayerNorm(d)
         self.pw2 = QLinear(d, d, cfg.quant_int8)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                seq: Optional[tp.TimeShards] = None) -> torch.Tensor:
+        if seq is not None:
+            return self._time_sharded(x, pad_mask, seq)
         x = F.glu(self.pw1(x), dim=-1)
         x = torch.where(pad_mask[:, :, None], x, torch.zeros((), dtype=x.dtype,
                                                              device=x.device))
         x = self.dw(x)
         return self.pw2(F.silu(self.norm(x)))
+
+    def _time_sharded(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                      seq: tp.TimeShards) -> torch.Tensor:
+        """The module on this rank's time block ``x``: the pointwise-GLU
+        over every frame for this rank's channel block (the value rows and
+        their gate rows, so GLU's pairs stay on one rank), the depthwise
+        convolution on those channels over every frame (no halo), then
+        back to time blocks for the LayerNorm over channels, and the last
+        pointwise layer over every frame for this rank's output block."""
+        d = x.shape[-1]
+        c = d // seq.size
+        rows = torch.arange(seq.rank * c, (seq.rank + 1) * c, device=x.device)
+        rows = torch.cat([rows, rows + d])
+        g = F.glu(seq.gather_linear(
+            x, tp.split_read(self.pw1, "weight").index_select(0, rows),
+            tp.split_read(self.pw1, "bias").index_select(0, rows)), dim=-1)
+        g = torch.where(pad_mask[:, :, None], g,
+                        torch.zeros((), dtype=g.dtype, device=g.device))
+        y = F.conv1d(F.pad(g.transpose(1, 2), self.dw.pads(g.shape[1])),
+                     seq.block(self.dw, "weight"), seq.block(self.dw, "bias"),
+                     groups=c).transpose(1, 2)
+        y = F.silu(seq.layer_norm(self.norm, seq.to_time(y)))
+        z = seq.gather_linear(y, seq.block(self.pw2, "weight"),
+                              seq.block(self.pw2, "bias"))
+        return seq.to_time(z)
 
 
 class FeedForward(nn.Module):
@@ -244,8 +281,16 @@ class FeedForward(nn.Module):
         self.w1 = QLinear(d, cfg.ff_expansion * d, cfg.quant_int8)
         self.w2 = QLinear(cfg.ff_expansion * d, d, cfg.quant_int8)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(x)))
+    def forward(self, x: torch.Tensor,
+                seq: Optional[tp.TimeShards] = None) -> torch.Tensor:
+        if seq is None:
+            return self.w2(F.silu(self.w1(x)))
+        # Megatron-SP: the time blocks gathered into this rank's hidden
+        # features, its partial products reduce-scattered back over time
+        h = F.silu(seq.gather_linear(x, seq.block(self.w1, "weight"),
+                                     seq.block(self.w1, "bias")))
+        y = F.linear(h, seq.block(self.w2, "weight", dim=1))
+        return seq.scatter(y) + tp.split_read(self.w2, "bias")
 
 
 class MoEFeedForward(nn.Module):
@@ -272,10 +317,16 @@ class MoEFeedForward(nn.Module):
         self.w2 = nn.Parameter(torch.zeros(e, f, d))
         self.b2 = nn.Parameter(torch.zeros(e, d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                seq: Optional[tp.TimeShards] = None) -> torch.Tensor:
         w1, b1, w2, b2, first, group = tp.experts(self)
         gate = self.gate
-        if group is not None:
+        if seq is not None:
+            # every frame through this rank's experts, the partial sums
+            # reduce-scattered back over time (the experts divide over the
+            # group, tp.TimeShards.over)
+            x, gate = seq.gather(x), tp.split_read(self, "gate")
+        elif group is not None:
             # each rank sums its own experts only, so the gradients that
             # reach the input and the gate are its share: summed over ranks
             x, gate = tp.copy_to(x, group), tp.copy_to(gate, group)
@@ -288,6 +339,8 @@ class MoEFeedForward(nn.Module):
         y = torch.einsum("ebtf,efd->ebtd", h, w2) + b2[:, None, None]
         out = torch.einsum("ebtd,bte->btd", y,
                            combine[..., first:first + w1.shape[0]])
+        if seq is not None:
+            return seq.scatter(out)
         return out if group is None else tp.reduce_over(out, group)
 
 
@@ -312,17 +365,27 @@ class ConformerBlock(nn.Module):
                     f"ls_{name}",
                     nn.Parameter(torch.full((d,), cfg.layerscale)))
 
-    def _add(self, x, branch, name):
+    def _add(self, x, branch, name, seq: Optional[tp.TimeShards] = None):
         if self.layerscale:
-            branch = getattr(self, f"ls_{name}") * branch
+            gain = (getattr(self, f"ls_{name}") if seq is None
+                    else tp.split_read(self, f"ls_{name}"))
+            branch = gain * branch
         return x + branch
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        x = self._add(x, 0.5 * self.ff1(self.ln_ff1(x)), "ff1")
-        x = self._add(x, self.mhsa(self.ln_mhsa(x), pad_mask), "mhsa")
-        x = self._add(x, self.conv(self.ln_conv(x), pad_mask), "conv")
-        x = self._add(x, 0.5 * self.ff2(self.ln_ff2(x)), "ff2")
-        return self.ln_out(x)
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                seq: Optional[tp.TimeShards] = None) -> torch.Tensor:
+        """``x [B, T, d]``, ``pad_mask [B, T]``; under ``seq`` (the
+        sequence-parallel loss) ``x`` is this rank's time block and
+        ``pad_mask`` the whole padded mask."""
+        def ln(name, x):
+            return tp.layer_norm(getattr(self, f"ln_{name}"), x, seq)
+        x = self._add(x, 0.5 * self.ff1(ln("ff1", x), seq), "ff1", seq)
+        x = self._add(x, self.mhsa(ln("mhsa", x), pad_mask, seq), "mhsa",
+                      seq)
+        x = self._add(x, self.conv(ln("conv", x), pad_mask, seq), "conv",
+                      seq)
+        x = self._add(x, 0.5 * self.ff2(ln("ff2", x), seq), "ff2", seq)
+        return ln("out", x)
 
 
 def _stage_lens(lens: torch.Tensor) -> torch.Tensor:
@@ -392,10 +455,18 @@ class ConformerEncoder(nn.Module):
         return torch.where(pad_mask[:, :, None], x,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def forward(self, features: torch.Tensor, lengths: torch.Tensor
+    def forward(self, features: torch.Tensor, lengths: torch.Tensor,
+                seq: Optional[tp.TimeShards] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``seq``: the blocks run on time blocks over a mesh's ``model``
+        axis (``models/tp.TimeShards``, the sequence-parallel loss); the
+        subsampler before them and the output projection after them run on
+        the whole sequence."""
         cfg = self.cfg
         x, enc_lens, pad_mask = self.prologue(features, lengths)
+        t = x.shape[1]
+        if seq is not None:
+            x, pad_mask = seq.split(x, pad_mask)
         # remat: each block's activations are recomputed in the backward
         # pass instead of saved; only while autograd records, so serving
         # (inference mode) never sees it
@@ -403,10 +474,12 @@ class ConformerEncoder(nn.Module):
         for i in range(cfg.n_layers):
             block = getattr(self, f"block{i}")
             if remat:
-                x = checkpoint(block, x, pad_mask, use_reentrant=False,
+                x = checkpoint(block, x, pad_mask, seq, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = block(x, pad_mask)
+                x = block(x, pad_mask, seq)
+        if seq is not None:
+            x, pad_mask = seq.join(x, t), pad_mask[:, :t]
         return self.epilogue(x, pad_mask), enc_lens
 
 
@@ -455,10 +528,12 @@ class EncoderModel(nn.Module):
         self.encoder.freeze_int8()
         return self
 
-    def encode(self, features: torch.Tensor, feat_lens: torch.Tensor
+    def encode(self, features: torch.Tensor, feat_lens: torch.Tensor,
+               seq: Optional[tp.TimeShards] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, n_mels, T] -> ([B, T', d_enc], [B] int32)."""
-        return self.encoder(features, feat_lens)
+        """[B, n_mels, T] -> ([B, T', d_enc], [B] int32); ``seq``: the
+        blocks on time shards (:meth:`ConformerEncoder.forward`)."""
+        return self.encoder(features, feat_lens, seq)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

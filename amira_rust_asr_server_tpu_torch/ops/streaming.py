@@ -18,8 +18,8 @@ chunk encoder reads the unquantized kernels, so ``quantization="int8"``
 (the batch encoder's W8A8) does not reach this path there either. A
 mixture-of-experts ``ff2`` runs its module, which is stateless per frame,
 so chunked still equals batch. On a device mesh the dense layers and
-convolutions split over ``model`` as the batch encoder's do
-(``models/tp.py``); the cache stays whole on every rank.
+convolutions split over ``model`` as the batch encoder's do, and attention
+over its heads (``models/tp.py``); the cache stays whole on every rank.
 
 The cache keeps each per-layer field stacked over the layers
 (``[n_layers, B, ...]``, where the reference keeps lists), so the lane
@@ -116,17 +116,19 @@ def _mhsa(mhsa, cfg: ModelConfig, x_ln: torch.Tensor, k_cache: torch.Tensor,
           v_cache: torch.Tensor, pos: torch.Tensor):
     """Attention over [cache | chunk] keys. x_ln [B, t, d]; k/v_cache
     [B, H, L, dh]; pos [B] = each lane's absolute index of the chunk's first
-    frame. Returns (out, the new k/v caches)."""
-    b, t, d = x_ln.shape
-    h = cfg.n_heads
-    dh = d // h
+    frame. Returns (out, the new k/v caches). On a mesh each rank computes
+    its share of the heads (``models/tp.Heads``, as the batch attention),
+    and the new caches are gathered whole over the heads."""
+    b, t, _ = x_ln.shape
+    heads = tp.Heads(mhsa, working_type=True)
+    h, dh, h0 = heads.n, heads.dh, heads.h0
     left = cfg.att_context[0]
-    q, k, v = _dense(mhsa.qkv, x_ln).split(d, dim=-1)
+    q, k, v = heads.project(x_ln)
     q = rope(q.reshape(b, t, h, dh).transpose(1, 2), pos)
     k = rope(k.reshape(b, t, h, dh).transpose(1, 2), pos)
     v = v.reshape(b, t, h, dh).transpose(1, 2)
-    keys = torch.cat([k_cache, k], dim=2)                # [B, H, L + t, dh]
-    vals = torch.cat([v_cache, v], dim=2)
+    keys = torch.cat([k_cache[:, h0:h0 + h], k], dim=2)  # [B, h, L + t, dh]
+    vals = torch.cat([v_cache[:, h0:h0 + h], v], dim=2)
 
     # scores in the activation dtype, as the batch encoder's attention
     scores = q @ keys.transpose(-1, -2)
@@ -138,9 +140,10 @@ def _mhsa(mhsa, cfg: ModelConfig, x_ln: torch.Tensor, k_cache: torch.Tensor,
     mask = (k_pos >= 0) & (k_pos <= q_pos) & (q_pos - k_pos <= left)
     scores = torch.where(mask[:, None], scores, scalar(MASK_FILL, scores))
     attn = torch.softmax(scores, dim=-1).to(x_ln.dtype)
-    out = (attn @ vals).transpose(1, 2).reshape(b, t, d)
+    out = (attn @ vals).transpose(1, 2).reshape(b, t, h * dh)
     n = keys.shape[2]
-    return _dense(mhsa.out, out), keys[:, :, n - left:], vals[:, :, n - left:]
+    return (heads.combine(out), heads.whole(keys[:, :, n - left:], 1),
+            heads.whole(vals[:, :, n - left:], 1))
 
 
 def _conv(conv, cfg: ModelConfig, x_ln: torch.Tensor, tail: torch.Tensor):

@@ -17,7 +17,8 @@ step splits the batch over ``data``: each rank's loss is its share of the
 global per-label loss, DTensor's backward reduces every gradient into its
 parameter's placement, ``clip_grad_norm_`` takes the global norm over the
 DTensor gradients, and the loss comes back replicated.
-:func:`make_seq_parallel_loss` also shards the time axis over ``model``.
+:func:`make_seq_parallel_loss` also shards the time axis over ``model``,
+through the encoder's blocks.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch.nn.utils import parametrize
 
 from ..device import disable_tf32
 from ..models.reference_init import init_reference_weights
+from ..models.tp import TimeShards
 from ..ops.ctc import ctc_loss
 from ..ops.kernels.mel import log_mel_features
 from ..ops.rnnt_loss import transducer_loss
@@ -163,9 +165,10 @@ aed_loss_fn.count = _token_count
 
 def _time_sharded(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` laid out with ``dim`` sharded over ``model`` (each model rank
-    keeps its slice), then gathered whole for the next consumer: the
-    reference's ``with_sharding_constraint``, which GSPMD follows with the
-    gathers attention and the loss need."""
+    keeps its slice), then gathered whole for the next consumer (the
+    subsampler): the reference's ``with_sharding_constraint`` on the
+    features, which GSPMD follows with the gather its convolutions
+    need."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     sub = mesh[MODEL_AXIS]
     t = DTensor.from_local(x, sub, [Replicate()], run_check=False)
@@ -175,18 +178,24 @@ def _time_sharded(mesh, x: torch.Tensor, dim: int) -> torch.Tensor:
 def make_seq_parallel_loss(mesh, base: str = "rnnt"):
     """The RNN-T (``base="rnnt"``) or CTC loss with sequence-parallel
     layouts (Megatron-SP): the features ``[B, n_mels, T]`` sharded on
-    time over ``model`` and the encoder output ``[B, T', d]`` likewise,
+    time over ``model`` (the subsampler then runs on the gathered
+    sequence), the encoder's blocks on time shards ``[B, T' / m, d]``
+    (``models/tp.TimeShards``: norms, residuals, gains and feed-forwards
+    on each rank's frames, the sequence gathered into attention's
+    projections, split by heads, and the conv module's; each rank saves
+    about 1/m of the blocks' activations for the backward), the encoder
+    output leaving the blocks laid out on time and gathered for the loss,
     the batch over ``data`` (the step's split). Equal to the plain loss.
-    The encoder itself computes on the gathered sequence: its blocks do
-    not yet run on time shards (ROADMAP.md queue 1)."""
+    Where the model's widths, heads or experts do not divide over
+    ``model``, the blocks run on the whole sequence."""
     if base not in ("rnnt", "ctc"):
         raise ValueError(f"unknown base loss {base!r}")
 
     def f(model, batch: TrainBatch) -> torch.Tensor:
         feats, feat_lens = _features(model, batch)
+        seq = TimeShards.over(mesh, model.config)
         enc, enc_lens = model.encode(_time_sharded(mesh, feats, 2),
-                                     feat_lens)
-        enc = _time_sharded(mesh, enc, 1)
+                                     feat_lens, seq)
         if base == "ctc":
             losses = ctc_loss(model.log_probs(enc), enc_lens, batch.labels,
                               batch.label_lens, model.config.blank_id)

@@ -7,7 +7,8 @@ the transcription assembly are the transducer's. Each (mode, batch, length)
 bucket is one :class:`~runtime.programs.DeviceProgram`, captured on CUDA as
 one CUDA graph at its warm-up and replayed by every dispatch:
 
-* **CTC**: log-mel (the mel kernel's wrapper, ``csrc/mel.cu`` on CUDA) ->
+* **CTC**: log-mel (the mel kernel's wrapper, ``csrc/mel.cu`` on CUDA, or
+  the plain log-mel with ``use_pallas_mel=False``: ``AsrPipeline._features``) ->
   encoder (its block dense layers through ``csrc/quant_matmul.cu`` under
   ``quantization="int8"``) -> the head's log-softmax in f32 -> the best-path
   collapse with frames and confidences (``ops/ctc.py``), ``counts``
@@ -52,7 +53,6 @@ from ..ops.beam import BeamResult, TokenTrie
 from ..ops.ctc import ctc_greedy_decode_timed
 from ..ops.ctc_beam import ctc_beam_decode
 from ..ops.greedy import GreedyResult
-from ..ops.kernels import mel as mel_kernel
 from ..reliability import get_logger
 from ..vocab import Vocabulary
 from .pipeline import AsrPipeline
@@ -84,12 +84,6 @@ class CTCPipeline(AsrPipeline):
 
     def _decode_tables(self):
         return None, None  # no prediction net, no loop kernels
-
-    def _features(self, audio: torch.Tensor, lens: torch.Tensor):
-        """log-mel through the mel kernel's wrapper, in the compute dtype."""
-        feats, feat_lens = mel_kernel.log_mel_features(
-            audio, lens, n_mels=self.model.config.n_mels)
-        return feats.to(self.compute_dtype), feat_lens
 
     # -- bucket bodies ------------------------------------------------------
     def _greedy_body(self, x: dict) -> Tuple[torch.Tensor, ...]:

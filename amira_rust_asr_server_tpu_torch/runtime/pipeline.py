@@ -20,34 +20,40 @@ carry out of graph memory. All device work of the pipeline's threads (the
 dispatch thread, the background warm-up, the lane ticker, stream sessions)
 runs behind one lock, :attr:`AsrPipeline.device_lock`.
 
-The log-mel and the greedy decode always go through the kernels' wrappers
+The log-mel and the greedy decode go through the kernels' wrappers
 (``ops/kernels``): on CUDA they launch the hand-written kernels, on the CPU
 they run their plain PyTorch versions. The greedy decode is the whole-loop
 kernel, captured inside the bucket's graph, or, with
-``use_pallas_decode_loop=False`` and ``use_pallas_decode_step`` or for a
-prediction net that is not 2 layers deep, the per-step route (see
-:meth:`AsrPipeline._greedy_route`): ``ops.greedy``'s steps with the
-joint-argmax kernel, the first :data:`STEPS_PER_RUN` inside the bucket's
-graph and the rest as replays of a captured program of as many steps
-(:class:`StepLoop`), the host reading one device flag per replay.
-``quantization="int8"`` runs the encoder's block dense layers W8A8 (the
-int8 matmul kernel), and ``int8_decode_weights`` the int8 branch of both
-loop kernels. Unlike the reference, which applies the last two flags and
-``use_pallas_decode_step`` on its TPU only, the port applies them on every
-device (the CPU through the plain versions), so the CPU tests reach the
-same wiring. Beam search
-(``decoding_mode="beam"``) shares the log-mel and encoder (the reference's
-beam path calls the plain log-mel; the two agree to 1.9e-6) and runs the
-beam kernel on CUDA, or the plain scan ``ops.beam.beam_decode`` where the
-reference runs its XLA scan (see :meth:`AsrPipeline.beam_decode_path`),
-inside the bucket's graph; the host backtrace follows the replay.
+``use_pallas_decode_loop=False`` or a prediction net that is not 2 layers
+deep, the per-step route (see :meth:`AsrPipeline._greedy_route`):
+``ops.greedy``'s steps with the joint-argmax kernel
+(``use_pallas_decode_step``) or, with that flag off too, with the model's
+own joint (the "plain" route), the first :data:`STEPS_PER_RUN` inside the
+bucket's graph and the rest as replays of a captured program of as many
+steps (:class:`StepLoop`), the host reading one device flag per replay.
+``use_pallas_mel=False`` runs the plain log-mel (``ops.features``) and
+``use_pallas_beam_loop=False`` the plain beam scan, each inside the same
+captured programs: the flag chooses the route, on every device, as the
+reference's flags choose its plain XLA paths; no route is taken because a
+kernel failed. ``quantization="int8"`` runs the encoder's block dense
+layers W8A8 (the int8 matmul kernel), and ``int8_decode_weights`` the int8
+branch of both loop kernels. Unlike the reference, which applies the last
+two flags and ``use_pallas_decode_step`` on its TPU only, the port applies
+them on every device (the CPU through the plain versions), so the CPU
+tests reach the same wiring. Beam search (``decoding_mode="beam"``) shares
+the log-mel and encoder (the reference's beam path calls the plain
+log-mel; the two agree to 1.9e-6) and runs the beam kernel on CUDA, or the
+plain scan ``ops.beam.beam_decode`` where the reference runs its XLA scan
+(see :meth:`AsrPipeline.beam_decode_path`), inside the bucket's graph; the
+host backtrace follows the replay.
 
 On a device mesh (``mesh=``, ``parallel/mesh.py``) the parameters are
 placed as the reference places them (tensor-parallel over ``model``) after
 the kernels' tables are made from the whole weights: the loop kernels, the
 step kernel and the int8 encoder's W8A8 kernel take plain tensors, as
 GSPMD gathers the inputs of a ``pallas_call``. The encoder's dense layers,
-convolutions and experts then split over ``model`` (``models/tp.py``),
+convolutions and experts then split over ``model``, and attention over
+its heads (``models/tp.py``),
 and the programs run their bodies without capture (``DeviceProgram(...,
 capture=False)``): the split layers call collectives from the host on
 every run. Every rank of the mesh serves the same requests: the methods
@@ -85,6 +91,7 @@ from ..models import Transducer
 from ..ops.beam import (BeamCarry, BeamResult, BeamTrace, TokenTrie,
                         backtrace, beam_carry_init, beam_decode, beam_scan,
                         finish_trace)
+from ..ops.features import log_mel_features
 from ..ops.greedy import (GreedyLoop, GreedyResult, greedy_active,
                           greedy_decode, greedy_init, greedy_result,
                           greedy_step)
@@ -105,12 +112,13 @@ log = get_logger("asr.pipeline")
 def check_supported(cfg: Config, device: torch.device,
                     causal: bool = False,
                     world_size: Optional[int] = None) -> None:
-    """Reject, loudly, what the port does not serve; ``causal``: the model
-    preset is causal (native streaming, greedy or beam, runs on it; a
-    non-causal preset streams chunked). ``world_size``: the ranks a server
-    runs on (1 outside a world), one process per device, which
-    ``mesh_shape`` must cover exactly (a library pipeline takes its mesh
-    as an argument and passes none)."""
+    """Reject, loudly, a configuration the port cannot serve as given;
+    ``causal``: the model preset is causal (native streaming, greedy or
+    beam, runs on it; a non-causal preset streams chunked). Every kernel
+    flag is served on every device: a flag that is off runs its plain
+    route. ``world_size``: the ranks a server runs on (1 outside a world),
+    one process per device, which ``mesh_shape`` must cover exactly (a
+    library pipeline takes its mesh as an argument and passes none)."""
     n = int(np.prod(list(cfg.mesh_shape.values()) or [1]))
     if world_size == 1 and n > 1:
         raise ConfigValidationError(
@@ -122,27 +130,6 @@ def check_supported(cfg: Config, device: torch.device,
         raise ConfigValidationError(
             f"mesh_shape={cfg.mesh_shape} covers {n} devices but the world "
             f"has {world_size} ranks (one per device)")
-    todo = []
-    if device.type == "cuda":
-        # the kernels' wrappers choose the plain version by device alone, so
-        # on the card the flags that would turn a kernel off are refused
-        # (the decode flags only where they choose a kernel: the CTC and
-        # AED families decode in plain torch, as the reference does)
-        if not cfg.use_pallas_mel:
-            todo.append("use_pallas_mel=False: the CUDA path always runs "
-                        "csrc/mel.cu")
-    if device.type == "cuda" and cfg.model_family == "transducer":
-        if not (cfg.use_pallas_decode_loop or cfg.use_pallas_decode_step):
-            todo.append("use_pallas_decode_loop=False with use_pallas_"
-                        "decode_step=False: the CUDA greedy path runs "
-                        "csrc/decode_loop.cu or csrc/decode_step.cu")
-        if not cfg.use_pallas_beam_loop:
-            todo.append("use_pallas_beam_loop=False: the CUDA beam path "
-                        "always runs csrc/beam_loop.cu (ROADMAP.md queue 2 "
-                        "item 5)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to PyTorch/CUDA yet: " + "; ".join(todo))
 
 
 # the per-step route's steps per captured run (N): a run of N steps after
@@ -356,26 +343,17 @@ class AsrPipeline:
 
     def _greedy_route(self) -> str:
         """The greedy decode's program, chosen once from the flags and the
-        prediction net's depth: "loop" (the whole-loop kernel,
-        csrc/decode_loop.cu, 2-layer nets), "step" (ops.greedy's steps
-        with the joint + argmax kernel, csrc/decode_step.cu, run by the
-        programs' :class:`StepLoop`: use_pallas_decode_loop=False, or a
-        net of another depth) or "plain" (the same steps with the model's
-        own joint, as the reference runs off its TPU; the CPU only)."""
+        prediction net's depth, in the reference's order: "loop" (the
+        whole-loop kernel, csrc/decode_loop.cu: use_pallas_decode_loop and
+        a 2-layer net), else "step" (ops.greedy's steps with the joint +
+        argmax kernel, csrc/decode_step.cu: use_pallas_decode_step), else
+        "plain" (the same steps with the model's own joint, the reference's
+        plain ``greedy_decode``). The step and plain routes run inside the
+        same captured programs (:class:`StepLoop`)."""
         cfg = self.config
-        layers = self.model.config.pred_layers
-        if layers == 2 and (cfg.use_pallas_decode_loop
-                            or not cfg.use_pallas_decode_step):
+        if cfg.use_pallas_decode_loop and self.model.config.pred_layers == 2:
             return "loop"
-        if cfg.use_pallas_decode_step:
-            return "step"
-        if self.device.type == "cuda":
-            raise NotImplementedError(
-                f"use_pallas_decode_step=False with a {layers}-layer "
-                "prediction net: on CUDA such a net decodes greedy only "
-                "through csrc/decode_step.cu (the whole-loop kernel takes "
-                "2-layer nets)")
-        return "plain"
+        return "step" if cfg.use_pallas_decode_step else "plain"
 
     # ------------------------------------------------------------------
     # new weights under the captured programs
@@ -478,14 +456,21 @@ class AsrPipeline:
                     dst.copy_(src)
 
     # ------------------------------------------------------------------
+    def _features(self, audio: torch.Tensor, lens: torch.Tensor):
+        """log-mel in the compute dtype: through the mel kernel's wrapper,
+        or with ``use_pallas_mel=False`` the plain log-mel
+        (``ops.features``), as the reference chooses."""
+        log_mel = (mel_kernel.log_mel_features if self.config.use_pallas_mel
+                   else log_mel_features)
+        feats, feat_lens = log_mel(audio, lens,
+                                   n_mels=self.model.config.n_mels)
+        return feats.to(self.compute_dtype), feat_lens
+
     def _encode(self, audio, audio_lens):
-        """log-mel (through the mel kernel's wrapper) -> encoder -> the
-        joint's encoder projection."""
-        mcfg = self.model.config
-        feats, feat_lens = mel_kernel.log_mel_features(audio, audio_lens,
-                                                       n_mels=mcfg.n_mels)
-        enc, enc_lens = self.model.encode(feats.to(self.compute_dtype),
-                                          feat_lens)
+        """log-mel (:meth:`_features`) -> encoder -> the joint's encoder
+        projection."""
+        feats, feat_lens = self._features(audio, audio_lens)
+        enc, enc_lens = self.model.encode(feats, feat_lens)
         return self.model.joint_precompute_enc(enc).contiguous(), \
             feat_lens, enc_lens
 

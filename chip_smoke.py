@@ -177,6 +177,23 @@ their plain PyTorch versions:
      afresh on those weights (the swap ms and the mirror's ms per entry
      printed); then dryrun_multihost(1, 1) over NCCL with a TCP
      coordinator; the group is destroyed at the end
+  X  the kernel-off flags on their plain routes: large (seeded, f32,
+     buckets 2 and 8 s x batch 1 and 4, every bucket and step loop
+     captured) with use_pallas_mel=False (features within 1e-3 of the
+     mel kernel's, the mel counter at 0 and the loop kernel's moving),
+     with both decode flags off (the plain greedy steps: replay = eager
+     body = the loop kernel on the same features, f32 tokens, frames and
+     counts identical; the loop and step counters at 0) and with
+     use_pallas_beam_loop=False (the plain scan with phase G's bias: best
+     tokens identical to the beam kernel's on the same features,
+     decode_path "xla_scan", the beam counter at 0), each with its
+     request wall (median of 3 at 2 and 8 s), capture seconds and
+     launches; a 4 s native stream of large-streaming on the plain route
+     through the lane engine's captured tick, tokens equal to an eager
+     solo session's; a 3 s streaming-beam session in 64-frame chunks on
+     the carried plain scan, best tokens equal to the carried kernel's,
+     the beam counter at 0; the tiny-digits golden over HTTP, greedy and
+     beam, every kernel flag off and no kernel launched
 
 Any failure raises and exits non-zero. Each phase prints its wall as it
 ends (``phase_seconds`` in the result line). The line before the last
@@ -187,7 +204,7 @@ the int8 and per-step phases, ``--phases ABMN`` the streaming phases,
 ``--phases ABO`` the bucket programs, ``--phases ABPQ`` streaming beam and
 the per-step route's device loop, ``--phases ABR`` the model families,
 ``--phases ABU`` training, ``--phases ABV`` MoE and the mesh, ``--phases
-ABW`` serving over a world.
+ABW`` serving over a world, ``--phases ABX`` the kernel-off routes.
 """
 
 from __future__ import annotations
@@ -206,7 +223,7 @@ import time
 
 import numpy as np
 
-ALL_PHASES = "ABCDEFGHIJKLMNOPQRSTUVW"
+ALL_PHASES = "ABCDEFGHIJKLMNOPQRSTUVWX"
 REPLACES = {
     "log_mel": ("amira_rust_asr_server_tpu_torch/csrc/mel.cu",
                 "amira_rust_asr_server_tpu/ops/pallas/mel_kernel.py:76"),
@@ -4144,6 +4161,315 @@ def phase_w(results):
         f"{walls['dryrun_multihost']:.1f} s; walls {walls}")
 
 
+async def _post_pcm(state, port: int, pcm: bytes):
+    """Serve ``state`` on ``port``, post ``pcm`` to the batch route and
+    return (status, body) and the kernels' launch counts during the
+    request."""
+    import aiohttp
+
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.server.app import run_server
+    server = asyncio.create_task(run_server(state, "127.0.0.1", port))
+    url = f"http://127.0.0.1:{port}"
+    try:
+        async with aiohttp.ClientSession() as session:
+            for _ in range(600):
+                try:
+                    async with session.get(f"{url}/health") as r:
+                        if r.status == 200:
+                            break
+                except aiohttp.ClientConnectionError:
+                    pass
+                await asyncio.sleep(0.1)
+            kernels.reset_launch_counts()
+            async with session.post(f"{url}/v2/decode/batch/default",
+                                    json={"audio_buffer": list(pcm)}) as r:
+                status, body = r.status, await r.json()
+            counts = kernels.launch_counts()
+    finally:
+        state.shutdown.trigger()
+        await server
+    return status, body, counts
+
+
+def phase_x(results):
+    """The kernel-off routes: large (seeded, f32, buckets 2 and 8 s x
+    batch 1 and 4, every bucket captured) with use_pallas_mel=False, with
+    both decode flags off and with use_pallas_beam_loop=False, each route
+    held against its kernel's on the same inputs with its counter at 0;
+    a native stream of large-streaming on the plain greedy route through
+    the lane engine's captured tick; a streaming-beam session on the
+    carried plain scan against the carried kernel; the tiny-digits golden
+    over HTTP with every flag off."""
+    import torch
+
+    from amira_rust_asr_server_tpu_torch import constants as C
+    from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.ops import kernels
+    from amira_rust_asr_server_tpu_torch.ops.beam import TokenTrie, backtrace
+    from amira_rust_asr_server_tpu_torch.ops.kernels import mel as mel_kernel
+    from amira_rust_asr_server_tpu_torch.ops.kernels.decode_loop import \
+        greedy_loop
+    from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.runtime.beam_stream import \
+        StreamingBeamSession
+    from amira_rust_asr_server_tpu_torch.runtime.lane_engine import \
+        StreamingLaneEngine
+    from amira_rust_asr_server_tpu_torch.runtime.native_stream import \
+        NativeStreamSession
+    from amira_rust_asr_server_tpu_torch.server.app import (build_state,
+                                                            load_model)
+    from amira_rust_asr_server_tpu_torch.testing import (TINY_DIGITS_NPZ,
+                                                         TINY_DIGITS_VOCAB,
+                                                         pcm16_digits)
+    dev = torch.device("cuda")
+    out = results["kernel_off"] = {}
+    launches: dict = {}
+    base = dict(vocabulary_path="model-repo/vocab.txt",
+                inference_backend="tpu", compute_dtype="float32",
+                audio_sec_buckets=[2.0, 8.0], batch_buckets=[1, 4])
+    t0 = time.perf_counter()
+    # the seeded large weights, moved to the card once and shared by the
+    # pipelines (f32 serving changes no weight)
+    model = load_model(Config(**base), "large")
+    vocab = load_vocab(Config(**base))
+    mcfg = model.config
+    audio = {s: digits_audio(1, s, seed=90 + int(s))[0] for s in (2.0, 8.0)}
+    batch = list(digits_audio(4, 8.0, seed=95))
+    bias = beam_bias_and_graph(mcfg)[0]
+    say("X", f"large, {model.param_count()} params, seeded, f32, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def served(label: str, request, **flags):
+        """A pipeline with ``flags``, every bucket captured (its step
+        loops too), then three requests per length: the median wall,
+        the capture seconds and the kernels' launches during the
+        requests."""
+        t1 = time.perf_counter()
+        pipe = AsrPipeline(model, vocab, Config(**base, **flags), dev)
+        pipe.warmup(batch_sizes=[1, 4])
+        progs = list(pipe.programs.values())
+        progs += [p.steps.program for p in progs
+                  if getattr(p, "steps", None) is not None]
+        if len(pipe.programs) != 4 or any(p.graph is None for p in progs):
+            raise AssertionError(f"[X] {label}: not every program captured")
+        capture_s = sum(p.capture_seconds for p in progs)
+        kernels.reset_launch_counts()
+        walls, got = {}, {}
+        for secs, a in audio.items():
+            w = []
+            for _ in range(3):
+                t2 = time.perf_counter()
+                got[secs] = request(pipe, a)
+                w.append((time.perf_counter() - t2) * 1e3)
+            walls[f"{secs:.0f}s"] = float(np.median(w))
+        counts = kernels.launch_counts()
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        out[label] = {"request_ms": walls, "capture_s": capture_s,
+                      "programs": len(progs), "launches": counts}
+        say("X", f"{label}: route {pipe.greedy_route}/"
+            f"{pipe.beam_decode_path()}, built and {len(progs)} programs "
+            f"captured in {time.perf_counter() - t1:.1f} s (captures "
+            f"{capture_s:.2f} s); request wall (median of 3) {walls}; "
+            f"launches during the requests {counts}")
+        return pipe, counts, got
+
+    def greedy(pipe, a):
+        return pipe.process_batch_samples(a).tokens
+
+    def beam(pipe, a):
+        res, _, _ = pipe.decode_samples_beam(a, bias=bias)
+        return [int(t) for t in res.tokens[0, :int(res.counts[0])]]
+
+    a4 = torch.from_numpy(np.stack(batch)).to(dev)
+    lens4 = torch.full((4,), a4.shape[1], dtype=torch.int32, device=dev)
+
+    # 1. the plain log-mel
+    pipe, counts, _ = served("mel off", greedy, use_pallas_mel=False)
+    with torch.inference_mode():
+        plain, _ = pipe._features(a4, lens4)
+        kern, _ = mel_kernel.log_mel_features(a4, lens4, mcfg.n_mels)
+    err = float((plain - kern).abs().max())
+    say("X", f"mel off: features vs the mel kernel's on 4 x 8 s: max abs "
+        f"{err:.3e} (phase C's bound 1e-3)")
+    if err > 1e-3 or counts["log_mel"] or not counts["greedy_loop"]:
+        raise AssertionError(f"[X] mel off: err {err}, launches {counts}")
+    out["mel off"]["max_abs_err"] = err
+    del pipe
+    torch.cuda.empty_cache()
+
+    # 2. the plain greedy route: replay = eager body = the loop kernel
+    pipe, counts, _ = served("decode off", greedy,
+                             use_pallas_decode_loop=False,
+                             use_pallas_decode_step=False)
+    got = pipe.decode_samples_batch(batch)[0]
+    want = pipe._decode_batch(batch, eager=True)[0]
+    with torch.inference_mode():
+        enc_pre, _, enc_lens = pipe._encode(a4, lens4)
+        fresh_out, (h, c) = pipe._fresh_carry()
+        loop = greedy_loop(
+            enc_pre, enc_lens, h.expand(-1, 4, -1).contiguous(),
+            c.expand(-1, 4, -1).contiguous(),
+            fresh_out.expand(4, -1).contiguous(),
+            torch.full((4,), mcfg.blank_id, dtype=torch.int32, device=dev),
+            torch.zeros((4,), dtype=torch.int32, device=dev),
+            pipe.decode_weights, blank_id=mcfg.blank_id,
+            max_symbols=pipe.config.max_symbols_per_step,
+            max_total=pipe.config.max_total_tokens,
+            lookahead=pipe.config.greedy_lookahead)
+    def lanes(res):
+        """Each lane's (tokens, frames), cut at its count."""
+        t, n, f = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                   for x in (res.tokens, res.counts, res.frame_idx))
+        return [(t[i, :n[i]].tolist(), f[i, :n[i]].tolist())
+                for i in range(4)]
+    same_eager = lanes(got) == lanes(want)
+    same_loop = lanes(got) == lanes(loop)
+    say("X", f"decode off: route {pipe.greedy_route}, 4 x 8 s replay = "
+        f"eager body {same_eager}, = the loop kernel on the same features "
+        f"{same_loop} (counts {got.counts.tolist()})")
+    if (pipe.greedy_route != "plain" or not (same_eager and same_loop)
+            or counts["greedy_loop"] or counts["joint_argmax"]
+            or not counts["log_mel"]):
+        raise AssertionError(f"[X] decode off: {counts}")
+    out["decode off"]["tokens"] = int(got.counts.sum())
+    del pipe
+    torch.cuda.empty_cache()
+
+    # 3. the plain beam scan against the beam kernel, with a bias
+    pipe, counts, toks = served("beam off", beam, decoding_mode="beam",
+                                use_pallas_beam_loop=False)
+    with torch.inference_mode():
+        a1 = torch.from_numpy(audio[8.0][None]).to(dev)
+        enc_pre, _, enc_lens = pipe._encode(
+            a1, torch.tensor([a1.shape[1]], dtype=torch.int32, device=dev))
+        trace = pipe._beam_trace_via_kernel(
+            enc_pre, enc_lens, torch.from_numpy(bias).to(dev),
+            beam_width=pipe.config.beam_width,
+            max_expansions=C.BEAM_MAX_EXPANSIONS)
+    res = backtrace(trace, enc_lens, max_total=pipe.config.max_total_tokens)
+    kern_toks = [int(t) for t in res.tokens[0, :int(res.counts[0])]]
+    say("X", f"beam off: decode_path {pipe.last_decode_path}, 8 s best "
+        f"tokens ({len(toks[8.0])}) = the beam kernel's on the same "
+        f"features {toks[8.0] == kern_toks}")
+    if (pipe.last_decode_path != "xla_scan" or toks[8.0] != kern_toks
+            or not kern_toks or counts["beam_loop"]
+            or not counts["log_mel"]):
+        raise AssertionError(f"[X] beam off: {counts}, {toks[8.0]} vs "
+                             f"{kern_toks}")
+    out["beam off"]["tokens"] = len(kern_toks)
+    del pipe, model
+    torch.cuda.empty_cache()
+
+    # 4. one native stream of large-streaming on the plain greedy route
+    cfg_s = dict(base, audio_sec_buckets=[2.0], batch_buckets=[1],
+                 streaming_mode="native")
+    model_s = load_model(Config(**cfg_s), "large-streaming")
+    pipe = AsrPipeline(model_s, vocab, Config(
+        **cfg_s, use_pallas_decode_loop=False, use_pallas_decode_step=False),
+        dev)
+    kw = dict(chunk_frames=64, norm="none", max_symbols=30, max_total=200)
+    eng = StreamingLaneEngine(pipe, n_lanes=4, **kw)
+    eng.warm()
+    if eng.program.graph is None or eng.steps.program.graph is None:
+        raise AssertionError("[X] the lane engine's tick was not captured")
+    wave = digits_audio(1, 4.0, seed=97)[0]
+    lane = eng.attach()
+    kernels.reset_launch_counts()
+    ticks = []
+    for i in range(0, wave.shape[0], 10240):
+        eng.feed(lane, wave[i:i + 10240])
+        t1 = time.perf_counter()
+        eng.tick()
+        ticks.append((time.perf_counter() - t1) * 1e3)
+    eng.feed(lane, np.zeros(0, np.float32), final=True)
+    while eng.pending():
+        eng.tick()
+    counts = kernels.launch_counts()
+    sess = NativeStreamSession(pipe, eager=True, **kw)
+    sess.feed(wave)
+    solo = sess.end().tokens
+    same = eng.tokens[lane] == solo
+    out["native plain"] = {"tick_ms": float(np.median(ticks)),
+                           "capture_s": eng.program.capture_seconds
+                           + eng.steps.program.capture_seconds,
+                           "launches": counts,
+                           "tokens": len(eng.tokens[lane])}
+    say("X", f"native stream, plain route, 4 lanes: tick {eng.program.name}"
+        f" captured ({out['native plain']['capture_s']:.3f} s), 4 s stream "
+        f"{len(eng.tokens[lane])} tokens = the eager solo session's {same}; "
+        f"tick wall median {out['native plain']['tick_ms']:.2f} ms; "
+        f"launches {counts}")
+    if not same or counts["greedy_loop"] or counts["joint_argmax"]:
+        raise AssertionError(f"[X] native plain: {counts}")
+    del eng, sess, pipe
+    torch.cuda.empty_cache()
+
+    # 5. a streaming-beam session: the carried plain scan vs the kernel
+    rng = np.random.default_rng(70)
+    words = rng.choice(mcfg.blank_id, 60, replace=False)
+    graph = TokenTrie.from_token_seqs(
+        [[int(t)] for t in words], mcfg.vocab_size,
+        weights=(4.0 + rng.standard_normal(60)).tolist()).to(dev)
+    wave = digits_audio(1, 3.0, seed=98)[0]
+    beams = {}
+    for label, on in (("kernel", True), ("plain", False)):
+        pipe = AsrPipeline(model_s, vocab, Config(
+            **cfg_s, decoding_mode="beam", use_pallas_beam_loop=on), dev)
+        t1 = time.perf_counter()
+        pipe.warm_beam_chunk(64, 10, graph=graph)
+        kernels.reset_launch_counts()
+        sess = StreamingBeamSession(pipe, chunk_frames=64, norm="none",
+                                    beam_width=10, graph=graph)
+        sess.feed(wave)
+        tr = sess.end()
+        prog = next(iter(pipe.beam_chunk_programs.values()))
+        beams[label] = (tr.tokens, kernels.launch_counts(), sess.chunks,
+                        pipe.beam_decode_path(graph), prog.capture_seconds,
+                        time.perf_counter() - t1)
+        del sess, pipe
+    (kt, kc, n_chunks, kp, _, _), (pt, pc, _, pp, cap, wall) = (
+        beams["kernel"], beams["plain"])
+    out["beam stream plain"] = {"chunks": n_chunks, "capture_s": cap,
+                                "wall_s": wall, "launches": pc,
+                                "tokens": len(pt)}
+    say("X", f"streaming beam, {n_chunks} chunks of 64 frames: the carried "
+        f"plain scan ({pp}, captured in {cap:.3f} s) gives {len(pt)} "
+        f"tokens = the carried kernel's ({kp}) {pt == kt}; launches "
+        f"plain {pc}, kernel {kc}")
+    if (pt != kt or not pt or pp != "xla_scan" or pc["beam_loop"]
+            or not kc["beam_loop"]):
+        raise AssertionError("[X] the streaming beam's plain scan differs")
+    del model_s
+    torch.cuda.empty_cache()
+
+    # 6. the tiny-digits golden over HTTP with every kernel flag off
+    for mode in ("greedy", "beam"):
+        state = build_state(Config(
+            audio_sec_buckets=[2.0], batch_buckets=[1, 2],
+            checkpoint_path=str(TINY_DIGITS_NPZ),
+            vocabulary_path=str(TINY_DIGITS_VOCAB), inference_backend="tpu",
+            decoding_mode=mode, use_pallas_mel=False,
+            use_pallas_decode_loop=False, use_pallas_decode_step=False,
+            use_pallas_beam_loop=False), preset="tiny")
+        status, body, counts = asyncio.run(_post_pcm(
+            state, free_port(), pcm16_digits(["two", "five", "nine"])))
+        md = body.get("metadata", {})
+        say("X", f"tiny-digits {mode}, every kernel flag off, over HTTP: "
+            f"{status} {body.get('transcription')!r} tokens "
+            f"{md.get('tokens')} {md.get('decode_path', '')}; launches "
+            f"{counts}")
+        if (status != 200 or body.get("transcription") != "two five nine"
+                or md.get("tokens") != [3, 6, 10] or any(counts.values())):
+            raise AssertionError(f"[X] tiny-digits {mode}: {body}")
+    out["launches"] = launches
+    for k, n in launches.items():
+        if n:
+            results.setdefault(k, {})
+            results[k]["launches"] = results[k].get("launches", 0) + n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=ALL_PHASES)
@@ -4163,7 +4489,7 @@ def main(argv=None) -> int:
                           ("N", phase_n), ("O", phase_o), ("P", phase_p),
                           ("Q", phase_q), ("R", phase_r), ("S", phase_s),
                           ("T", phase_t), ("U", phase_u), ("V", phase_v),
-                          ("W", phase_w)):
+                          ("W", phase_w), ("X", phase_x)):
         if letter in phases:
             t0 = time.perf_counter()
             phase() if letter in "BE" else phase(results)
@@ -4193,6 +4519,7 @@ def main(argv=None) -> int:
                       "training": results["training"],
                       "moe": results["moe"], "mesh": results["mesh"],
                       "world": results["world"],
+                      "kernel_off": results["kernel_off"],
                       "phase_seconds": results["phase_seconds"],
                       "programs": results["programs"]}))
     print(smi)

@@ -15,11 +15,16 @@ import torch
 from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import MODELS
 from amira_rust_asr_server_tpu_torch.models.presets import TINY
+from amira_rust_asr_server_tpu_torch.models.tp import TimeShards
 from amira_rust_asr_server_tpu_torch.parallel import (
     TrainBatch, make_mesh, make_optimizer, make_pp_mesh,
     make_seq_parallel_loss, make_train_step, pipeline_encode, shard_params)
-from amira_rust_asr_server_tpu_torch.parallel.mesh import full_state_dict
-from amira_rust_asr_server_tpu_torch.parallel.train import ctc_loss_fn
+from amira_rust_asr_server_tpu_torch.ops.streaming import _mhsa
+from amira_rust_asr_server_tpu_torch.parallel.mesh import (data_slice,
+                                                           full_state_dict)
+from amira_rust_asr_server_tpu_torch.parallel.memory import saved_in_blocks
+from amira_rust_asr_server_tpu_torch.parallel.train import (ctc_loss_fn,
+                                                            loss_fn)
 from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
 from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
     build_family_pipeline
@@ -134,6 +139,85 @@ def ctc_tokens(model, waves, mesh=None):
             for i in range(len(waves))]
 
 
+def attention_heads(storages):
+    """The head counts of the saved attention scores and probabilities
+    (float ``[B, h, T, T]``) among what a loss's blocks saved."""
+    return sorted({s[1] for _, s, dt in storages.values()
+                   if len(s) == 4 and dt.is_floating_point and s[2] == s[3]})
+
+
+def saved_bytes(data, mesh=None):
+    """What the encoder's blocks of ``tiny`` save for the backward during
+    one loss forward on this rank's share of the batch, and the head
+    counts of the saved attention tensors: the plain model with the plain
+    loss, and, with ``mesh``, the placed model (FSDP) with the
+    sequence-parallel loss (``seq``) and with the plain loss under tensor
+    parallelism (``tp``)."""
+    batch = batch_of(data)
+    if mesh is not None:
+        batch = TrainBatch(*(data_slice(mesh, x) for x in batch))
+    runs = {"plain": (load(data, "tiny"), loss_fn)}
+    if mesh is not None:
+        runs["seq"] = (shard_params(mesh, load(data, "tiny"), True),
+                       make_seq_parallel_loss(mesh))
+        runs["tp"] = (shard_params(mesh, load(data, "tiny")), loss_fn)
+    out = {}
+    for kind, (model, loss) in runs.items():
+        with saved_in_blocks(model.encoder) as saved:
+            value = loss(model, batch)
+        value.backward()
+        out[kind] = (saved["bytes"], attention_heads(saved["storages"]))
+    return out
+
+
+def seq_encode(data, name, mesh=None, remat=False):
+    """The encoder of ``name`` on 60 feature frames (T' = 15, which the
+    time shards pad) and the gradients of a probe loss on its output:
+    plain, or with ``mesh`` on this rank's share of the batch over
+    ``data`` with its blocks on time shards over ``model``
+    (``models/tp.TimeShards``). Returns (the share's first row, its
+    output, the gradients by name, summed over the batch)."""
+    model = load(data, name)
+    if remat:
+        model.config = dataclasses.replace(model.config, remat=True)
+        model.encoder.cfg = model.config
+    seq = None
+    if mesh is not None:
+        shard_params(mesh, model)
+        seq = TimeShards.over(mesh, model.config)
+        assert seq is not None
+    feats = torch.from_numpy(data["feats"][:, :, :60])
+    lens = torch.from_numpy(np.minimum(data["feat_lens"], 60))
+    first = 0
+    if mesh is not None:  # this rank's share of the batch over data
+        feats, lens = data_slice(mesh, feats), data_slice(mesh, lens)
+        first = mesh.get_local_rank("data") * feats.shape[0]
+    out, _ = model.encode(feats, lens, seq)
+    w = torch.from_numpy(data["probe"])
+    (out * w[:out.shape[1]]).sum().backward()
+    return first, out.detach().numpy(), grads(model.encoder)
+
+
+def stream_attention(data, mesh=None):
+    """``ops/streaming._mhsa`` of the causal model's first block on seeded
+    inputs and a filled cache: (out, new k cache, new v cache)."""
+    model = load(data, "stream")
+    if mesh is not None:
+        shard_params(mesh, model)
+    cfg = model.config
+    rng = np.random.default_rng(7)
+    left, dh = cfg.att_context[0], cfg.d_model // cfg.n_heads
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    x, k, v = (arr(2, 4, cfg.d_model), arr(2, cfg.n_heads, left, dh),
+               arr(2, cfg.n_heads, left, dh))
+    with torch.inference_mode():
+        got = _mhsa(model.encoder.block0.mhsa, cfg, x, k, v,
+                    torch.tensor([8, 3], dtype=torch.int32))
+    return [t.numpy().copy() for t in got]
+
+
 def gpipe(data, name, n_stages, n_micro, batch=""):
     """The pipelined encode of ``name`` on the inputs ``feats<batch>`` and
     the gradient of a loss on it, beside the plain ones: (output, plain
@@ -190,6 +274,12 @@ def results(data, mesh=None, world=1):
         for name in ("tiny", "moe"):
             out[f"enc/{name}"] = placed(load(data, name)).encode(
                 feats, lens)[0].numpy()
+    out["saved"] = saved_bytes(data, mesh)
+    if mesh is None or mesh.size(1) > 1:
+        for name, remat in (("tiny", False), ("tiny", True), ("moe", False)):
+            out[f"seq_encode/{name}/{remat}"] = seq_encode(data, name, mesh,
+                                                           remat)
+    out["stream_mhsa"] = stream_attention(data, mesh)
     out["tokens"] = serve_tokens(load(data, "tiny"), waves, mesh)
     out["stream"] = stream_tokens(load(data, "stream"), data["wave2"], mesh)
     out["ctc"] = ctc_tokens(load(data, "ctc"), waves, mesh)

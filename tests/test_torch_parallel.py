@@ -231,6 +231,59 @@ def test_tp_serving_tokens_equal_unsharded(world, oracle):
     assert all(r["tokens"] == world[0]["tokens"] for r in world[1])
 
 
+def test_seq_parallel_blocks_save_a_share_per_rank(world):
+    """One sequence-parallel loss forward of ``tiny``: what the encoder's
+    blocks save for the backward on each rank (every storage once,
+    weights included) against the plain model on the same rank's share
+    of the batch: at most 0.65 of it over ``model = 2``, and the saved
+    attention scores and probabilities over ``n_heads / model`` heads;
+    the same heads under tensor parallelism alone."""
+    data, model = world[2]
+    heads = ranks.CONFIGS["tiny"][1].n_heads
+    for res in world[1]:
+        saved = res["saved"]
+        plain_bytes, plain_heads = saved["plain"]
+        assert plain_heads == [heads]
+        for kind in ("seq", "tp"):
+            assert saved[kind][1] == [heads // model], kind
+        if model == 2:
+            assert saved["seq"][0] <= 0.65 * plain_bytes, saved
+
+
+@pytest.mark.parametrize("case", ["tiny/False", "tiny/True", "moe/False"])
+def test_time_sharded_blocks_equal_unsharded(world, oracle, case):
+    """The encoder's blocks on time shards over ``model`` (a T' of 15
+    padded to the group with masked frames; with remat; the MoE encoder's
+    experts over every frame): the output and every gradient of a probe
+    loss on it equal the plain encoder's (the encoder's atol 2e-4 / rtol
+    1e-3; the probe's gradients atol 1e-4, as the pipelined encoder's,
+    rtol 1e-4), on every rank, each with its share of the batch over
+    ``data``. A 2 x 1 mesh has no time shards."""
+    if world[2][1] == 1:
+        assert f"seq_encode/{case}" not in world[0]
+        return
+    _, want, want_grads = oracle[3][f"seq_encode/{case}"]
+    for res in world[1]:
+        first, got, got_grads = res[f"seq_encode/{case}"]
+        np.testing.assert_allclose(got, want[first:first + got.shape[0]],
+                                   atol=2e-4, rtol=1e-3)
+        assert set(got_grads) == set(want_grads)
+        for k, g in got_grads.items():
+            np.testing.assert_allclose(g, want_grads[k], atol=1e-4,
+                                       rtol=1e-4, err_msg=k)
+
+
+def test_tp_streaming_attention_equals_unsharded(world, oracle):
+    """The streaming chunk's attention split by heads over ``model``: its
+    output and the new caches, gathered whole over the heads, equal the
+    unsharded ones (atol 2e-4 / rtol 1e-3, the encoder's), on every
+    rank."""
+    for res in world[1]:
+        for got, want in zip(res["stream_mhsa"], oracle[3]["stream_mhsa"]):
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+
+
 def test_tp_lane_engine_tokens_equal_unsharded(world, oracle):
     res = world[0]
     assert oracle[3]["stream"]

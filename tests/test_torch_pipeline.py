@@ -8,8 +8,8 @@
 - the committed weights asset equals a fresh conversion of the orbax tree;
 - the port imports without jax (in a subprocess: this test process has jax
   loaded already by tests/conftest.py);
-- what the port does not serve yet is refused loudly, and what it serves
-  is accepted on the card (CTC and AED: tests/test_torch_families.py;
+- what the port does not serve yet is refused loudly, the kernel-off flags
+  take their plain routes, and what it serves is accepted on the card (CTC and AED: tests/test_torch_families.py;
   beam search: tests/test_torch_beam_pipeline.py;
   int8: tests/test_torch_quant.py; the per-step greedy route:
   tests/test_torch_decode_step.py).
@@ -352,34 +352,48 @@ def test_unported_options_are_refused(overrides, monkeypatch):
                     preset="tiny-moe", warmup=False)
 
 
-@pytest.mark.parametrize("overrides, reason", [
-    (dict(use_pallas_mel=False), "csrc/mel.cu"),
+@pytest.mark.parametrize("overrides, route", [
+    (dict(use_pallas_mel=False), "plain mel"),
     (dict(use_pallas_decode_loop=False, use_pallas_decode_step=False),
-     "csrc/decode_loop.cu"),
-    (dict(use_pallas_beam_loop=False, decoding_mode="beam"),
-     "csrc/beam_loop.cu .ROADMAP.md queue 2 item 5"),
-    (dict(use_pallas_decode_step=False, pred_layers=3),
-     "3-layer prediction net")])
-def test_kernel_off_flags_are_refused_on_cuda(overrides, reason):
-    """On the card the kernels always run: a flag that would turn one off
-    is refused, on the CPU it changes nothing (the wrappers choose the
-    plain version by device). A net that is not 2 layers deep decodes
-    greedy only through the step kernel on the card, so turning that off
-    is refused when the pipeline is built, before any device work."""
+     "plain"),
+    (dict(use_pallas_beam_loop=False, decoding_mode="beam"), "xla_scan"),
+    (dict(use_pallas_decode_step=False, pred_layers=3), "plain")])
+def test_kernel_off_flags_route_to_plain_paths(overrides, route,
+                                               monkeypatch):
+    """A flag that turns a kernel off is served on the card as the
+    reference serves it, through its plain route, chosen by the flag and
+    not by the device: the plain log-mel (``ops.features``), the greedy
+    steps with the model's own joint (also for a net that is not 2 layers
+    deep), the plain beam scan."""
+    from amira_rust_asr_server_tpu_torch.ops import features
+    from amira_rust_asr_server_tpu_torch.ops.kernels import mel
     overrides = dict(overrides)
     layers = overrides.pop("pred_layers", 2)
-    cfg = digits_config(**overrides)
-    if layers == 2:
-        with pytest.raises(NotImplementedError, match=reason):
-            check_supported(cfg, torch.device("cuda"))
-        check_supported(cfg, torch.device("cpu"))
-        return
+    cfg = digits_config(compute_dtype="float32", **overrides)
+    check_supported(cfg, torch.device("cuda"))
+    check_supported(cfg, torch.device("cpu"))
     _, _, model = depth_pair(layers, seed=0)
-    with pytest.raises(NotImplementedError, match=reason):
-        AsrPipeline(model, Vocabulary.from_map(WORDS), cfg,
-                    torch.device("cuda"))
-    assert AsrPipeline(model, Vocabulary.from_map(WORDS),
-                       cfg).greedy_route == "plain"
+    pipe = AsrPipeline(model, Vocabulary.from_map(WORDS), cfg)
+    if route == "plain mel":
+        def refuse(*args, **kwargs):
+            raise AssertionError("the mel kernel's wrapper was called")
+        monkeypatch.setattr(mel, "log_mel_features", refuse)
+        audio = torch.from_numpy(synth_digits(["two"])[None])
+        lens = torch.tensor([audio.shape[1]], dtype=torch.int32)
+        got, got_lens = pipe._features(audio, lens)
+        want, want_lens = features.log_mel_features(audio, lens,
+                                                    n_mels=TINY.n_mels)
+        assert torch.equal(got, want) and torch.equal(got_lens, want_lens)
+    elif route == "xla_scan":
+        pipe.device = torch.device("cuda")  # the routing rule alone
+        try:
+            assert pipe.beam_decode_path() == "xla_scan"
+            pipe.config = dataclasses.replace(cfg, use_pallas_beam_loop=True)
+            assert pipe.beam_decode_path() == "pallas_kernel"
+        finally:
+            pipe.device, pipe.config = torch.device("cpu"), cfg
+    else:
+        assert pipe.greedy_route == "plain" and pipe.step_weights is None
 
 
 @pytest.mark.parametrize("overrides", [

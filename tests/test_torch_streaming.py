@@ -104,6 +104,29 @@ def test_encode_chunk_matches_jax(layerscale):
     np.testing.assert_array_equal(cache.pos.numpy(), np.asarray(jcache.pos))
 
 
+def test_int8_model_chunks_in_the_working_type():
+    """With the int8 serving path frozen (``quantization="int8"``), the
+    chunk encoder still reads every dense layer's unquantized weights,
+    attention's too, as the reference's chunk encoder does: its steps
+    equal JAX's ``encode_chunk`` on the same params within 1e-5."""
+    jm, params, model = model_pair(seed=1)
+    model.freeze_int8()
+    assert model.encoder.block0.mhsa.qkv.quant
+    f = feats(2, 1, 32)
+    cache = init_encoder_cache(model.config, 1)
+    jcache = jax_init_cache(jm.config, batch=1)
+    with torch.no_grad():
+        for i in range(0, 32, 16):
+            got, cache = encode_chunk(model.encoder,
+                                      torch.from_numpy(f[:, :, i:i + 16]),
+                                      cache)
+            want, jcache = jax_encode_chunk(params["encoder"], jm.config,
+                                            jnp.asarray(f[:, :, i:i + 16]),
+                                            jcache)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-5, rtol=0)
+
+
 def test_chunked_equals_full(pair):
     _, _, model = pair
     f = feats(0, 1, 64)
