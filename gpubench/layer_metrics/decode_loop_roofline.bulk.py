@@ -1,0 +1,8 @@
+"""csrc/decode_loop.cu's share of its roofline (%) in the traced
+dispatches."""
+
+from gpubench import readers
+
+
+def read(ctx):
+    return readers.kernel_roofline(ctx, "dispatch", "greedy_loop")
