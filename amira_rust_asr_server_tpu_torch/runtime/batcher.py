@@ -15,6 +15,14 @@ have a queue of ``inference_queue_size``; a full queue rejects with 503,
 and each dispatch takes from both round-robin, so neither class starves the
 other. Stream windows carry their decoder state per lane, so both classes
 share dispatches.
+
+Each queue entry carries its request's id (the root span of the
+``request_span`` it was submitted from, if any) and its enqueue time. The
+batcher records the spans ``batcher.window`` (the straggler wait),
+``batcher.handoff`` (the executor's start of a device call) and
+``batcher.fanout`` (the results set), names each dispatch's requests to the
+pipeline's ``dispatch`` span (``tracing.serving``), and counts each lane's
+queue wait, from its enqueue to the start of its device call.
 """
 
 from __future__ import annotations
@@ -28,23 +36,44 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..errors import CapacityExceededError
+from ..reliability import tracing
 from ..types import Transcription
 from ..utils.async_patterns import ErrorRecoveryManager
 from .pipeline import AsrPipeline, StreamState
 
 
 class BatcherStats:
+    """Cumulative counters, served at /metrics: a reader differences them
+    over a window. ``queued_total`` counts the lanes whose device call
+    started and ``queue_wait_s_total`` their waits from enqueue to that
+    start; ``tokens_total`` the tokens of the transcripts delivered."""
+
     def __init__(self):
         self._lock = threading.Lock()
         self.dispatches = 0
         self.lanes_total = 0
         self.max_lanes_seen = 0
+        self.queued_total = 0
+        self.queue_wait_s_total = 0.0
+        self.tokens_total = 0
 
     def record(self, lanes: int) -> None:
         with self._lock:
             self.dispatches += 1
             self.lanes_total += lanes
             self.max_lanes_seen = max(self.max_lanes_seen, lanes)
+
+    def record_queued(self, started: float, enqueued: List[float]) -> None:
+        """Lanes enqueued at ``enqueued`` whose device call started at
+        ``started`` (``time.monotonic``)."""
+        wait = sum(started - t for t in enqueued)
+        with self._lock:
+            self.queued_total += len(enqueued)
+            self.queue_wait_s_total += wait
+
+    def record_tokens(self, tokens: int) -> None:
+        with self._lock:
+            self.tokens_total += tokens
 
     def to_json(self) -> dict:
         with self._lock:
@@ -54,6 +83,9 @@ class BatcherStats:
                 "mean_lanes": (self.lanes_total / self.dispatches
                                if self.dispatches else 0.0),
                 "max_lanes": self.max_lanes_seen,
+                "queued_total": self.queued_total,
+                "queue_wait_s_total": self.queue_wait_s_total,
+                "tokens_total": self.tokens_total,
             }
 
 
@@ -112,7 +144,8 @@ class ContinuousBatcher:
         if len(q) >= self._maxsize:
             raise CapacityExceededError(f"{kind} inference queue is full")
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
-        q.append((samples, stream_state, fut))
+        q.append((samples, stream_state, fut, tracing.current_request(),
+                  time.monotonic()))
         self._work.set()
         return await fut
 
@@ -151,6 +184,7 @@ class ContinuousBatcher:
             while not self.queue_depth():
                 self._work.clear()
                 await self._work.wait()
+            window = tracing.span("batcher.window")
             deadline = loop.time() + self.window_s
             while self.queue_depth() < self.max_lanes:
                 remaining = deadline - loop.time()
@@ -162,7 +196,10 @@ class ContinuousBatcher:
                                            timeout=remaining)
                 except asyncio.TimeoutError:
                     break
-            await self._dispatch(self._take_fair())
+            batch = self._take_fair()
+            window.set("lanes", len(batch))
+            window.end()
+            await self._dispatch(batch)
 
     def _group_by_bucket(self, batch, mode: str = "greedy") -> List[list]:
         """Group by length bucket; cap each group at the largest warm batch
@@ -198,27 +235,35 @@ class ContinuousBatcher:
         try:
             groups = self._group_by_bucket(batch, mode)
         except Exception as e:  # noqa: BLE001 — malformed submission
-            for *_, fut in batch:
-                if not fut.done():
-                    fut.set_exception(e)
+            for item in batch:
+                if not item[2].done():
+                    item[2].set_exception(e)
             return
         n_best = self.pipeline.config.beam_n_best
         for group in groups:
             samples = [item[0] for item in group]
             states = [item[1] for item in group]
             futures = [item[2] for item in group]
+            requests = tuple(item[3] for item in group
+                             if item[3] is not None)
+            enqueued = [item[4] for item in group]
             # timed inside the executor, per attempt: device-dispatch
             # latency, not queueing or retry backoff; None = never ran
             dev_s = [None]
+            handoff = tracing.span("batcher.handoff",
+                                   attrs=(("lanes", len(group)),))
 
             def call():
+                if handoff.t1 is None:  # the first attempt
+                    self.stats.record_queued(handoff.end(), enqueued)
                 ta = time.perf_counter()
                 try:
-                    if beam:
-                        return self.pipeline.decode_beam_batch(
-                            samples, n_best=n_best)
-                    return self.pipeline.decode_samples_batch(samples,
-                                                              states)
+                    with tracing.serving(requests):
+                        if beam:
+                            return self.pipeline.decode_beam_batch(
+                                samples, n_best=n_best)
+                        return self.pipeline.decode_samples_batch(samples,
+                                                                  states)
                 finally:
                     dev_s[0] = time.perf_counter() - ta
 
@@ -234,16 +279,23 @@ class ContinuousBatcher:
                         fut.set_exception(e)
                 continue
             self._record_dispatch(mode, len(group), dev_s[0], ok=True)
+            fanout = tracing.span("batcher.fanout",
+                                  attrs=(("lanes", len(group)),))
+            tokens = 0
             for i, fut in enumerate(futures):
                 if fut.done():
                     continue
                 if beam:
                     res, feat_lens, enc_lens = out
-                    fut.set_result((self.pipeline.beam_transcription(
+                    tr, state = self.pipeline.beam_transcription(
                         res, i, samples[i].shape[0], feat_lens[i],
-                        enc_lens[i]), None))
+                        enc_lens[i]), None
                 else:
                     res, feat_lens, enc_lens, new_states = out
-                    fut.set_result((self.pipeline._to_transcription(
+                    tr, state = self.pipeline._to_transcription(
                         res, i, samples[i].shape[0], int(feat_lens[i]),
-                        int(enc_lens[i])), new_states[i]))
+                        int(enc_lens[i])), new_states[i]
+                tokens += len(tr.tokens)
+                fut.set_result((tr, state))
+            self.stats.record_tokens(tokens)
+            fanout.end()

@@ -60,18 +60,14 @@ class LaneEngineStats:
         self.attaches = 0
         self.sheds = 0              # attach() found no free lane
         self.failed_ticks = 0       # chunk steps that raised
-        self.last_tick_ms = 0.0
-        self.tick_ms_ewma = 0.0
+        self.tick_s_total = 0.0     # summed tick walls: difference it
 
     def record_tick(self, lanes: int, dur_s: float) -> None:
-        ms = dur_s * 1e3
         with self._lock:
             self.ticks += 1
             self.lanes_stepped_total += lanes
             self.max_lanes_per_tick = max(self.max_lanes_per_tick, lanes)
-            self.last_tick_ms = ms
-            self.tick_ms_ewma = (ms if self.ticks == 1
-                                 else 0.9 * self.tick_ms_ewma + 0.1 * ms)
+            self.tick_s_total += dur_s
 
     def record_failure(self) -> None:
         with self._lock:
@@ -100,8 +96,7 @@ class LaneEngineStats:
                 "attaches": self.attaches,
                 "sheds": self.sheds,
                 "failed_ticks": self.failed_ticks,
-                "last_tick_ms": round(self.last_tick_ms, 2),
-                "tick_ms_ewma": round(self.tick_ms_ewma, 2),
+                "tick_s_total": self.tick_s_total,
             }
 
 

@@ -18,7 +18,13 @@ pinned host buffer without blocking, carried stream states gathered on the
 device), replays, copies the tokens to the host in one wait and clones the
 carry out of graph memory. All device work of the pipeline's threads (the
 dispatch thread, the background warm-up, the lane ticker, stream sessions)
-runs behind one lock, :attr:`AsrPipeline.device_lock`.
+runs behind one lock, :attr:`AsrPipeline.device_lock`. A greedy batch
+dispatch is recorded (``reliability/tracing.py``) as the span ``dispatch``,
+naming its lanes, buckets and the requests the batcher put in them, with
+the children ``dispatch.lock`` (the wait for the lock), ``dispatch.stage``
+(audio and carry into the static inputs), ``dispatch.run`` (the replay),
+``dispatch.readback`` (the results to the host, the carry cloned out) and,
+when a dispatch makes its bucket's program, ``dispatch.capture``.
 
 The log-mel and the greedy decode go through the kernels' wrappers
 (``ops/kernels``): on CUDA they launch the hand-written kernels, on the CPU
@@ -82,7 +88,7 @@ import torch
 from .. import constants as C
 from ..config import Config
 from ..errors import ConfigValidationError, InvalidAudioFormatError
-from ..reliability import get_logger
+from ..reliability import get_logger, tracing
 from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
 from ..convert import stage_checkpoint
@@ -569,18 +575,25 @@ class AsrPipeline:
         return out.float(), (h.float(), c.float())
 
     def _bucket_program(self, mode: str, b: int, n: int,
-                        graph: Optional[TokenTrie] = None) -> DeviceProgram:
+                        graph: Optional[TokenTrie] = None,
+                        dispatch: Optional[tracing.Span] = None
+                        ) -> DeviceProgram:
         """The program of a (mode, batch, length) bucket, made on first
         use (not yet warm); beam programs are per decoding-graph capacity
         too (:meth:`graph_capacity`), and a dispatch stages its graph into
-        their static tables. Called under :attr:`device_lock`."""
+        their static tables. Called under :attr:`device_lock`; making one
+        inside a served ``dispatch`` span records ``dispatch.capture``."""
         key = ((mode, b, n) if mode == "greedy"
                else (mode, b, n, self.graph_capacity(graph)))
         prog = self.programs.get(key)
         if prog is None:
+            made = (tracing.span("dispatch.capture", dispatch)
+                    if dispatch is not None else None)
             prog = self.programs[key] = (
                 self._greedy_program(b, n) if mode == "greedy"
                 else self._beam_program(b, n, key[3]))
+            if made is not None:
+                made.end()
         return prog
 
     def _audio_inputs(self, b: int, n: int) -> dict:
@@ -783,27 +796,38 @@ class AsrPipeline:
         b = self._bucket_batch_warm(b_real, n, "greedy")
         if stream_states is None:
             stream_states = [None] * b_real
-        with self.device_lock:
-            prog = self._bucket_program("greedy", b, n)
-            self._stage_audio(prog, samples)
-            self._stage_carry(prog, stream_states)
-            res, feat_lens, enc_lens = self._greedy_run(prog, eager)
-            host = prog.to_host((res.tokens, res.counts, res.frame_idx,
-                                 res.confidence, feat_lens, enc_lens))
-            with torch.inference_mode():
-                h, c, pred, last = (x.clone() for x in (
-                    *res.state, res.pred_out, res.last_token))
-        if not eager:
-            self._mark_compiled("greedy", b, n)
-        res = GreedyResult(tokens=host[0], counts=host[1], frame_idx=host[2],
-                           confidence=host[3], state=(h, c), pred_out=pred,
-                           last_token=last)
-        new_states = [StreamState(
-            state=(h[:, i:i + 1], c[:, i:i + 1]), pred_out=pred[i:i + 1],
-            last_token=last[i:i + 1],
-            tokens_emitted=(prior.tokens_emitted if prior else 0)
-            + int(res.counts[i]))
-            for i, prior in enumerate(stream_states)]
+        with tracing.span("dispatch", attrs=(
+                ("lanes", b_real), ("batch", b), ("length", n),
+                ("requests", tracing.served_requests()))) as top:
+            with tracing.span("dispatch.lock", top):
+                self.device_lock.acquire()
+            try:
+                prog = self._bucket_program("greedy", b, n, dispatch=top)
+                with tracing.span("dispatch.stage", top):
+                    self._stage_audio(prog, samples)
+                    self._stage_carry(prog, stream_states)
+                with tracing.span("dispatch.run", top):
+                    res, feat_lens, enc_lens = self._greedy_run(prog, eager)
+                with tracing.span("dispatch.readback", top):
+                    host = prog.to_host((res.tokens, res.counts,
+                                         res.frame_idx, res.confidence,
+                                         feat_lens, enc_lens))
+                    with torch.inference_mode():
+                        h, c, pred, last = (x.clone() for x in (
+                            *res.state, res.pred_out, res.last_token))
+            finally:
+                self.device_lock.release()
+            if not eager:
+                self._mark_compiled("greedy", b, n)
+            res = GreedyResult(tokens=host[0], counts=host[1],
+                               frame_idx=host[2], confidence=host[3],
+                               state=(h, c), pred_out=pred, last_token=last)
+            new_states = [StreamState(
+                state=(h[:, i:i + 1], c[:, i:i + 1]), pred_out=pred[i:i + 1],
+                last_token=last[i:i + 1],
+                tokens_emitted=(prior.tokens_emitted if prior else 0)
+                + int(res.counts[i]))
+                for i, prior in enumerate(stream_states)]
         return res, host[4], host[5], new_states
 
     # ------------------------------------------------------------------

@@ -52,7 +52,7 @@ from .. import constants as C
 from ..config import Config
 from ..errors import (AppError, CapacityExceededError, CircuitOpenError,
                       RequestValidationError)
-from ..reliability import get_logger, init_tracing, request_span
+from ..reliability import get_logger, init_tracing, request_span, tracing
 from ..vocab import Vocabulary
 from ..audio import pcm16_bytes_to_f32
 from ..device import resolve_device
@@ -125,6 +125,16 @@ def error_response(err: Exception) -> web.Response:
 
 
 async def handle_batch(request: web.Request) -> web.Response:
+    """One batch request, recorded as the root span ``http.batch`` with the
+    children ``http.read`` (the body received), ``http.decode`` (the
+    synchronous body work on the event loop: JSON, validation and base64,
+    PCM), ``http.wait`` (the decode awaited) and ``http.respond``."""
+    with request_span("http.batch",
+                      model=request.match_info.get("model")) as root:
+        return await _batch(request, root)
+
+
+async def _batch(request: web.Request, root) -> web.Response:
     state: AppState = request.app["state"]
     if state.shutdown.is_shutting_down:
         return web.json_response(
@@ -137,39 +147,44 @@ async def handle_batch(request: web.Request) -> web.Response:
     state.metrics.increment_batch()
     t0 = time.perf_counter()
     try:
-        try:
-            body = await request.json()
-        except ValueError:
-            raise RequestValidationError("invalid JSON body") from None
-        if not isinstance(body, dict):
-            raise RequestValidationError("request body must be an object")
-        audio, opaque = parse_batch_request(
-            body, state.config.max_batch_audio_length_secs)
-        want_lattice = bool(body.get("lattice", False))
-        if want_lattice and state.config.decoding_mode != "beam":
-            raise RequestValidationError(
-                "lattice output requires decoding_mode=beam")
-        if want_lattice and state.config.model_family != "transducer":
-            raise RequestValidationError(
-                "lattice output requires the transducer model family")
-        lattice_n_best = body.get("n_best", state.config.beam_width)
-        if want_lattice:
+        with tracing.span("http.read", root):
+            raw = await request.read()
+        root.set("bytes", len(raw))
+        with tracing.span("http.decode", root):
             try:
-                lattice_n_best = max(1, int(lattice_n_best))
-            except (TypeError, ValueError):
+                body = json.loads(raw)
+            except ValueError:
+                raise RequestValidationError("invalid JSON body") from None
+            if not isinstance(body, dict):
                 raise RequestValidationError(
-                    "n_best must be an integer") from None
-        with request_span("batch", model=request.match_info.get("model")):
+                    "request body must be an object")
+            audio, opaque = parse_batch_request(
+                body, state.config.max_batch_audio_length_secs)
+            want_lattice = bool(body.get("lattice", False))
+            if want_lattice and state.config.decoding_mode != "beam":
+                raise RequestValidationError(
+                    "lattice output requires decoding_mode=beam")
+            if want_lattice and state.config.model_family != "transducer":
+                raise RequestValidationError(
+                    "lattice output requires the transducer model family")
+            lattice_n_best = body.get("n_best", state.config.beam_width)
+            if want_lattice:
+                try:
+                    lattice_n_best = max(1, int(lattice_n_best))
+                except (TypeError, ValueError):
+                    raise RequestValidationError(
+                        "n_best must be an integer") from None
+            tc = time.perf_counter()
+            samples = pcm16_bytes_to_f32(audio)
+            if state.prometheus:
+                state.prometheus.audio_conversion.observe(
+                    time.perf_counter() - tc)
+                state.prometheus.audio_chunk_bytes.observe(len(audio))
+        with tracing.span("http.wait", root):
             warm = state.pipeline.is_warm(1, len(audio) // 2)
             budget = (state.config.inference_timeout_secs * 6 if warm
                       else state.config.cold_bucket_timeout_secs)
             async with state.shutdown.guard():
-                tc = time.perf_counter()
-                samples = pcm16_bytes_to_f32(audio)
-                if state.prometheus:
-                    state.prometheus.audio_conversion.observe(
-                        time.perf_counter() - tc)
-                    state.prometheus.audio_chunk_bytes.observe(len(audio))
                 if want_lattice:
                     # lattices need the trace, which the batcher's results
                     # do not carry: the request bypasses it but runs on the
@@ -191,38 +206,42 @@ async def handle_batch(request: web.Request) -> web.Response:
                         asyncio.wait_for(state.batcher.submit(samples),
                                          budget))
 
-        metadata = {
-            "audio_length_samples": tr.audio_length_samples,
-            "features_length": tr.features_length,
-            "encoded_length": tr.encoded_length,
-            "tokens": tr.tokens,
-        }
-        if tr.token_details:
-            metadata["token_details"] = [
-                {"id": d.id, "time_s": d.time_s,
-                 "confidence": d.confidence} for d in tr.token_details]
-            metadata["words"] = state.vocab.decode_words(tr.token_details)
-        if tr.n_best:
-            metadata["n_best"] = tr.n_best
-        if tr.decode_path:
-            # kernel-vs-scan routing (a grammar past the kernel's state cap
-            # runs the slower plain scan)
-            metadata["decode_path"] = tr.decode_path
-        if want_lattice:
-            sec_per_frame = (C.HOP_LENGTH
-                             * state.pipeline.model.config.subsampling_factor
-                             / C.SAMPLE_RATE)
-            metadata["lattice"] = lattices[0].to_dict(
-                vocab=state.vocab, sec_per_frame=sec_per_frame)
-        response = AsrResponse(transcription=tr.text,
-                               status=StreamStatus.COMPLETE,
-                               metadata=metadata, opaque=opaque)
-        if state.prometheus:
-            state.prometheus.observe_request(
-                "batch", "ok", time.perf_counter() - t0,
-                len(audio) / (2 * C.SAMPLE_RATE))
-        return web.json_response(response.to_json())
+        with tracing.span("http.respond", root):
+            metadata = {
+                "audio_length_samples": tr.audio_length_samples,
+                "features_length": tr.features_length,
+                "encoded_length": tr.encoded_length,
+                "tokens": tr.tokens,
+            }
+            if tr.token_details:
+                metadata["token_details"] = [
+                    {"id": d.id, "time_s": d.time_s,
+                     "confidence": d.confidence} for d in tr.token_details]
+                metadata["words"] = state.vocab.decode_words(
+                    tr.token_details)
+            if tr.n_best:
+                metadata["n_best"] = tr.n_best
+            if tr.decode_path:
+                # kernel-vs-scan routing (a grammar past the kernel's state
+                # cap runs the slower plain scan)
+                metadata["decode_path"] = tr.decode_path
+            if want_lattice:
+                sec_per_frame = (
+                    C.HOP_LENGTH
+                    * state.pipeline.model.config.subsampling_factor
+                    / C.SAMPLE_RATE)
+                metadata["lattice"] = lattices[0].to_dict(
+                    vocab=state.vocab, sec_per_frame=sec_per_frame)
+            response = AsrResponse(transcription=tr.text,
+                                   status=StreamStatus.COMPLETE,
+                                   metadata=metadata, opaque=opaque)
+            if state.prometheus:
+                state.prometheus.observe_request(
+                    "batch", "ok", time.perf_counter() - t0,
+                    len(audio) / (2 * C.SAMPLE_RATE))
+            return web.json_response(response.to_json())
     except asyncio.TimeoutError:
+        root.set("error", "inference_timeout")
         state.metrics.record_error()
         if state.prometheus:
             state.prometheus.observe_request("batch", "error",
@@ -231,6 +250,7 @@ async def handle_batch(request: web.Request) -> web.Response:
             {"error": "inference_timeout", "message": "inference timed out"},
             status=504)
     except Exception as e:  # noqa: BLE001 — boundary: report, keep serving
+        root.set("error", type(e).__name__)
         if not isinstance(e, AppError):
             log.exception("batch handler error")
         state.metrics.record_error()
