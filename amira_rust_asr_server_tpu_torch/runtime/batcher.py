@@ -46,7 +46,11 @@ class BatcherStats:
     """Cumulative counters, served at /metrics: a reader differences them
     over a window. ``queued_total`` counts the lanes whose device call
     started and ``queue_wait_s_total`` their waits from enqueue to that
-    start; ``tokens_total`` the tokens of the transcripts delivered."""
+    start; ``tokens_total`` the tokens of the transcripts delivered.
+    ``body_native_total`` and ``body_fallback_total`` count the batch
+    route's bodies by how they were decoded (``server/app.py``: the native
+    decoder, or the Python path for every body it declines); they are kept
+    here so that one read of the batch route's counters holds them all."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -56,6 +60,8 @@ class BatcherStats:
         self.queued_total = 0
         self.queue_wait_s_total = 0.0
         self.tokens_total = 0
+        self.body_native_total = 0
+        self.body_fallback_total = 0
 
     def record(self, lanes: int) -> None:
         with self._lock:
@@ -75,6 +81,13 @@ class BatcherStats:
         with self._lock:
             self.tokens_total += tokens
 
+    def record_body(self, native: bool) -> None:
+        with self._lock:
+            if native:
+                self.body_native_total += 1
+            else:
+                self.body_fallback_total += 1
+
     def to_json(self) -> dict:
         with self._lock:
             return {
@@ -86,6 +99,8 @@ class BatcherStats:
                 "queued_total": self.queued_total,
                 "queue_wait_s_total": self.queue_wait_s_total,
                 "tokens_total": self.tokens_total,
+                "body_native_total": self.body_native_total,
+                "body_fallback_total": self.body_fallback_total,
             }
 
 

@@ -44,6 +44,7 @@ import os
 import time
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from aiohttp import web
@@ -67,6 +68,7 @@ from ..runtime.reload import hot_swap, repository_index
 from ..types import AsrResponse, StreamStatus
 from ..utils.affinity import ThreadType, set_thread_affinity
 from ..utils.platform import initialize_platform
+from . import body as body_codec
 from .state import AppState
 from .stream import StreamProcessor
 
@@ -111,10 +113,62 @@ def parse_batch_request(body: dict,
     if secs > max_secs:
         raise RequestValidationError(
             f"Audio too long: {secs:.1f}s (max: {max_secs:.0f}s)")
+    return audio, batch_opaque(body)
+
+
+def batch_opaque(body: dict) -> Any:
+    """The body's ``opaque``, checked for size."""
     opaque = body.get("opaque")
     if opaque is not None and len(json.dumps(opaque)) > C.MAX_OPAQUE_BYTES:
         raise RequestValidationError("Opaque data too large (max: 10KB)")
-    return audio, opaque
+    return opaque
+
+
+def _json_object(raw: bytes) -> dict:
+    try:
+        body = json.loads(raw)
+    except ValueError:
+        raise RequestValidationError("invalid JSON body") from None
+    if not isinstance(body, dict):
+        raise RequestValidationError("request body must be an object")
+    return body
+
+
+async def decode_batch_body(state: AppState, raw: bytes,
+                            parent: Optional[tracing.Span] = None
+                            ) -> tuple[dict, np.ndarray, Any]:
+    """(body, samples, opaque) of a batch request's raw bytes. The native
+    decoder (``server/body.py``) takes a base64 ``audio_buffer`` on the body
+    pool, off the event loop and without the interpreter lock, and the rest
+    of the body (the audio's string token emptied) is parsed here; any body
+    it declines is parsed in Python, so both paths give the same samples,
+    values and error answers. On the pool the call is the span
+    ``http.decode.native`` (a child of ``parent``): the rest of the
+    awaited decode is the hand-off to the pool's thread and back."""
+    max_secs = state.config.max_batch_audio_length_secs
+    if state.body_lib is not None:
+        def native():
+            with tracing.span("http.decode.native", parent) as sp:
+                got = body_codec.decode(state.body_lib, raw, max_secs)
+            return got, sp.t1 - sp.t0
+
+        loop = asyncio.get_running_loop()
+        got, took = await loop.run_in_executor(state.body_pool, native)
+        if got is not None:
+            samples, start, end = got
+            state.batcher.stats.record_body(native=True)
+            if state.prometheus:
+                state.prometheus.audio_conversion.observe(took)
+            body = _json_object(raw[:start] + b'""' + raw[end:])
+            return body, samples, batch_opaque(body)
+    state.batcher.stats.record_body(native=False)
+    body = _json_object(raw)
+    audio, opaque = parse_batch_request(body, max_secs)
+    tc = time.perf_counter()
+    samples = pcm16_bytes_to_f32(audio)
+    if state.prometheus:
+        state.prometheus.audio_conversion.observe(time.perf_counter() - tc)
+    return body, samples, opaque
 
 
 def error_response(err: Exception) -> web.Response:
@@ -127,8 +181,9 @@ def error_response(err: Exception) -> web.Response:
 async def handle_batch(request: web.Request) -> web.Response:
     """One batch request, recorded as the root span ``http.batch`` with the
     children ``http.read`` (the body received), ``http.decode`` (the
-    synchronous body work on the event loop: JSON, validation and base64,
-    PCM), ``http.wait`` (the decode awaited) and ``http.respond``."""
+    body's decode, awaited on the loop, run on the body pool: JSON,
+    validation and base64, PCM; :func:`decode_batch_body`), ``http.wait``
+    (the decode awaited) and ``http.respond``."""
     with request_span("http.batch",
                       model=request.match_info.get("model")) as root:
         return await _batch(request, root)
@@ -150,16 +205,9 @@ async def _batch(request: web.Request, root) -> web.Response:
         with tracing.span("http.read", root):
             raw = await request.read()
         root.set("bytes", len(raw))
-        with tracing.span("http.decode", root):
-            try:
-                body = json.loads(raw)
-            except ValueError:
-                raise RequestValidationError("invalid JSON body") from None
-            if not isinstance(body, dict):
-                raise RequestValidationError(
-                    "request body must be an object")
-            audio, opaque = parse_batch_request(
-                body, state.config.max_batch_audio_length_secs)
+        with tracing.span("http.decode", root) as decode:
+            body, samples, opaque = await decode_batch_body(state, raw,
+                                                            decode)
             want_lattice = bool(body.get("lattice", False))
             if want_lattice and state.config.decoding_mode != "beam":
                 raise RequestValidationError(
@@ -174,14 +222,11 @@ async def _batch(request: web.Request, root) -> web.Response:
                 except (TypeError, ValueError):
                     raise RequestValidationError(
                         "n_best must be an integer") from None
-            tc = time.perf_counter()
-            samples = pcm16_bytes_to_f32(audio)
             if state.prometheus:
-                state.prometheus.audio_conversion.observe(
-                    time.perf_counter() - tc)
-                state.prometheus.audio_chunk_bytes.observe(len(audio))
+                state.prometheus.audio_chunk_bytes.observe(
+                    2 * samples.shape[0])
         with tracing.span("http.wait", root):
-            warm = state.pipeline.is_warm(1, len(audio) // 2)
+            warm = state.pipeline.is_warm(1, samples.shape[0])
             budget = (state.config.inference_timeout_secs * 6 if warm
                       else state.config.cold_bucket_timeout_secs)
             async with state.shutdown.guard():
@@ -238,7 +283,7 @@ async def _batch(request: web.Request, root) -> web.Response:
             if state.prometheus:
                 state.prometheus.observe_request(
                     "batch", "ok", time.perf_counter() - t0,
-                    len(audio) / (2 * C.SAMPLE_RATE))
+                    samples.shape[0] / C.SAMPLE_RATE)
             return web.json_response(response.to_json())
     except asyncio.TimeoutError:
         root.set("error", "inference_timeout")

@@ -37,9 +37,17 @@ from ..parallel.multihost import leave_world
 from ..parallel.serve import DispatchMirror, ServingWorld
 from ..runtime.lane_engine import StreamingLaneEngine
 from ..utils.affinity import AffinityPlan, ThreadType, make_initializer
+from . import body
 from .metrics import PrometheusMetrics, ServiceMetrics
 
 log = get_logger("asr.state")
+
+# batch bodies decode on this many threads: a 30 s body is one native call
+# of about 1.1 ms on an H100 host's CPU, so two keep up with several hundred
+# requests a second, and the second takes a body that arrives while the
+# first is busy; more threads would only add contenders for the interpreter
+# lock when their calls return
+BODY_WORKERS = 2
 
 
 class TryAcquireSemaphore:
@@ -121,6 +129,18 @@ class AppState:
             max_workers=self.config.max_concurrent_streams + 2,
             thread_name_prefix="stream-session",
             initializer=make_initializer(plan, ThreadType.SESSION))
+        # batch bodies: the native decoder (built and loaded here, so no
+        # request pays the build) runs on its own threads without the
+        # interpreter lock; the event loop only awaits it
+        self.body_lib = None
+        try:
+            self.body_lib = body.library()
+        except (OSError, RuntimeError) as e:
+            log.warning("native body decoder unavailable, batch bodies "
+                        "decode in Python: %s", e)
+        self.body_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=BODY_WORKERS, thread_name_prefix="body-decode",
+            initializer=make_initializer(plan, ThreadType.BACKGROUND))
         self.batcher = ContinuousBatcher(pipeline, self.inference_executor)
         if self.prometheus:
             self.batcher.prometheus = self.prometheus
@@ -248,6 +268,7 @@ class AppState:
         self.pipeline.stop_background_warmup()
         self.inference_executor.shutdown(wait=False, cancel_futures=True)
         self.session_executor.shutdown(wait=False, cancel_futures=True)
+        self.body_pool.shutdown(wait=False, cancel_futures=True)
         if self.mirror is not None:
             self.mirror.close()  # the followers exit
         if self.world is not None and self.world.owned:

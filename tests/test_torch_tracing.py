@@ -401,10 +401,14 @@ def test_otlp_spans_of_a_request_share_one_trace(state, collector):
     got = spans()
     root = next(s for s in got if s["name"] == "http.batch")
     trace = [s for s in got if s["traceId"] == root["traceId"]]
-    assert {s["name"] for s in trace} == {"http.batch"} | HTTP_CHILDREN
+    assert {s["name"] for s in trace} == {"http.batch", "http.decode.native"
+                                          } | HTTP_CHILDREN
     assert "parentSpanId" not in root and root["kind"] == 2
+    decode = next(s for s in trace if s["name"] == "http.decode")
     for s in trace:
-        if s is not root:
+        if s["name"] == "http.decode.native":  # on the body pool's thread
+            assert s["parentSpanId"] == decode["spanId"]
+        elif s is not root:
             assert s["parentSpanId"] == root["spanId"]
         assert int(s["startTimeUnixNano"]) <= int(s["endTimeUnixNano"])
     # about now on the wall clock, not on the monotonic one
