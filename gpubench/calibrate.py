@@ -5,18 +5,18 @@ the cell's own size and load:
         --seeds 11,12,13 [--control 3] [--fault 3]
 
 One set-up; per seed new weights are copied into the captured programs'
-parameters, the blank bias is bisected again and a short window runs at
+parameters, the emission bias is bisected again and a short window runs at
 the cell's load. The seeded sample of served transcripts is then judged:
 ``program`` is the mean gap of the program's decisions below the float32
-reference's best logit (the number a run compares with its limit,
-``reference/judge.py``); ``control``, on the
-first ``--control`` seeds, is the same reading for the reference computed
-with float8 operands (the next precision below the configuration's
-bfloat16) at the same positions. The widest single gaps are printed
-beside them (``program_widest``, ``control_widest``). On the first
-``--fault`` seeds each item is judged once more with one token altered
-(``harness.altered``): ``fault_least`` is the smallest widest gap that a
-single wrong token gives, the reading the widest gap's limit stays below.
+reference's best logit (the number a run compares with its limit, the
+family's ``judge_one``); ``control``, on the first ``--control`` seeds, is
+the same reading for the reference computed with float8 operands (the next
+precision below the configuration's bfloat16) at the same positions. The
+widest single gaps are printed beside them (``program_widest``,
+``control_widest``). On the first ``--fault`` seeds each item is judged
+once more with one token altered (the family's ``altered``):
+``fault_least`` is the smallest widest gap that a single wrong token gives,
+the reading the widest gap's limit stays below.
 The mean's limit goes above every ``program`` reading and below every
 ``control`` one; the widest gap's above every ``program_widest`` and below
 every ``fault_least``.
@@ -33,7 +33,8 @@ async def calibrate(args):
     cell, m, serving, spec, override, device = harness.prepare(args)
     config = cell["config"]
     args.seed = args.seeds[0]
-    system = await harness.build(args, m, serving, spec, device)
+    system = await harness.build(args, m, serving, spec, device,
+                                 cell["family"])
     try:
         for i, seed in enumerate(args.seeds):
             if i:
@@ -53,10 +54,7 @@ async def calibrate(args):
             t = time.monotonic()
             readings = harness.judge_sample(
                 w["records"], spec, cell["check"], m, seed, device,
-                system.dtype,
-                system.blank_bias, system.bucket_len,
-                system.config.max_total_tokens,
-                system.config.max_symbols_per_step,
+                cell["family"], system.judge_args(),
                 control=i < args.control, fault=i < args.fault)
             row = {"seed": seed, **bias,
                    "program": judge.mean_gap(readings),

@@ -6,15 +6,17 @@ traffic file, and:
 
 1. starts the load generator process (``gpubench/loadgen.py``), which
    makes its bodies or frames from the seed meanwhile;
-2. builds the port's server on the card (``sut.System``) with the seed's
-   weights, warms the programs the traffic uses, sets the blank bias by
+2. builds the port's server on the card (``sut.System``) for the model
+   family the configuration names (``families/``) with the seed's weights,
+   warms the programs the traffic uses, sets the family's emission bias by
    bisection and serves on an ephemeral local port: all of it ``setup_s``,
    counted from the process's start;
 3. opens the window; the generator drives the traffic for ``S`` seconds
    and waits for what is outstanding; with ``--trace 1`` the benchmark's
-   spans are on and the profiler traces a few seconds in its middle;
+   spans are on and the profiler traces a few seconds in its middle (under
+   a deadline: a profiler that does not stop fails the run);
 4. reads the peak device memory, frees the program, and judges a seeded
-   sample of the served transcripts against the plain reference
+   sample of the served transcripts against the family's plain reference
    (``reference/``): the mean and the widest gap, each against its limit
    in ``checks/<cell>.json``;
 5. prints the generator's lateness and what the host used in the window
@@ -24,8 +26,9 @@ traffic file, and:
    ``breakdown`` (traced runs) and ``checks`` (each compared number with
    its limit, also the last lines on standard error).
 
-It exits non-zero with no result when no card is present or fewer than the
-cell asks for, and when a module of JAX or of the JAX package is loaded.
+It exits non-zero with no result when the configuration names a family
+with no module, when no card is present or fewer than the cell asks for,
+and when a module of JAX or of the JAX package is loaded.
 On the card the server and the generator run on cores of their own
 (``cores.py``), and the set-up's objects are frozen out of the garbage
 collector's passes before the window opens.
@@ -37,17 +40,20 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import faulthandler
 import gc
 import importlib.util
 import json
 import os
+import signal
 import sys
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 
-from . import audio, cores, hoststats, traffic, weights
+from . import audio, cores, families, hoststats, traffic, weights
 from .reference import judge
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -56,13 +62,22 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "amira_rust_asr_server_tpu")
 PROFILE_S = 2.0  # the traced sub-window
 LEAD_S = 1.0  # the generator's connections open before the window
 RUN_LIMIT_S = 340.0  # a run that has not ended by then fails
+TRACE_LIMIT_S = 60.0  # past the traced sub-window, for the profiler's stop
 
-# --rehearse-cpu: the port's tiny widths, small traffic
-TINY = dict(n_mels=32, d_model=64, n_layers=2, n_heads=2, ff_expansion=2,
-            conv_kernel=5, subsampling_factor=4, subsampling_dim=32,
-            d_enc=64, d_pred=32, pred_layers=2, d_embed=32, d_joint=32,
-            vocab_size=16, blank_id=15)
+# --rehearse-cpu: the port's tiny widths (the encoder's, with the family's
+# TINY laid over them), small traffic
+TINY_ENCODER = dict(n_mels=32, d_model=64, n_layers=2, n_heads=2,
+                    ff_expansion=2, conv_kernel=5, subsampling_factor=4,
+                    subsampling_dim=32, d_enc=64)
 REHEARSAL_TRAFFIC = {"clients": 4, "pool": 8, "rate_per_s": 3.0}
+
+
+def __getattr__(name: str):
+    """``TINY``: the rehearsal widths of the default family (the
+    transducer's), which its tests read."""
+    if name == "TINY":
+        return dict(TINY_ENCODER, **families.load(families.DEFAULT).TINY)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def forbidden_modules(names) -> list:
@@ -81,14 +96,15 @@ def load_reader(kind: str, name: str):
 
 
 def cell_spec(bench: dict, workload: str) -> dict:
-    """The cell's entry, its configuration, traffic and check, and its
-    metrics."""
+    """The cell's entry, its configuration and the configuration's model
+    family, its traffic and check, and its metrics."""
     wl = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if wl is None:
         raise SystemExit(f"unknown workload {workload!r}")
     centry = next(c for c in bench["configs"] if c["name"] == wl["config"])
     with open(ROOT / centry["file"], "r", encoding="utf-8") as f:
         config = json.load(f)
+    family = families.of(config)
     e2e = [m for m in bench["end_to_end"]
            if workload in m.get("workloads", [workload])]
     reported = {m["name"] for m in e2e}
@@ -96,8 +112,8 @@ def cell_spec(bench: dict, workload: str) -> dict:
               if workload in m.get("workloads", [workload])
               and m["moves"] in reported]
     check = json.loads((BENCH / "checks" / f"{workload}.json").read_text())
-    return {"workload": wl, "config": config, "e2e": e2e, "layers": layers,
-            "check": check,
+    return {"workload": wl, "config": config, "family": family, "e2e": e2e,
+            "layers": layers, "check": check,
             "traffic_path": traffic.traffic_path(BENCH, wl["traffic"])}
 
 
@@ -190,7 +206,8 @@ class Generator:
 
 
 def prepare(args):
-    """The cell's files, widths, serving overrides, traffic and device."""
+    """The cell's files (with its family, ``cell["family"]``), widths,
+    serving overrides, traffic and device."""
     import torch
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     cell = cell_spec(bench, args.workload)
@@ -200,7 +217,8 @@ def prepare(args):
     override = {}
     if args.rehearse_cpu:
         device = torch.device("cpu")
-        m.update(TINY)
+        m.update(TINY_ENCODER)
+        m.update(cell["family"].TINY)
         if m["causal"]:
             m["att_context"] = [8, 0]
         serving["batch_buckets"] = [1, 2, 4]
@@ -231,23 +249,57 @@ async def window(system, gen: Generator, seconds: float, spans,
     t1 = t0 + seconds
     await gen.go(port, t0)
     await asyncio.sleep(max(0.0, t0 - time.monotonic()))
-    counters = {"start": system.counters()}
+    counters = {"start": await system.counters()}
     if host is not None:
         counters["host_start"] = host.sample()
     if tracer is not None:
         prof_s = min(PROFILE_S, seconds / 3)
         await asyncio.sleep(max(0.0, t0 + (seconds - prof_s) / 2
                                 - time.monotonic()))
-        tracer.start()  # on the event loop's thread, as the profiler needs
-        await asyncio.sleep(prof_s)
-        tracer.stop()
+        watchdog = Deadline(prof_s + TRACE_LIMIT_S, "the device trace did "
+                            "not stop", gen.proc.pid)
+        try:
+            tracer.start()  # on the event loop's thread, as it needs
+            await asyncio.sleep(prof_s)
+            await tracer.stop(system.pipeline.device_lock)
+        finally:
+            watchdog.cancel()
     await asyncio.sleep(max(0.0, t1 - time.monotonic()))
-    counters["end"] = system.counters()
+    counters["end"] = await system.counters()
     if host is not None:
         counters["host_end"] = host.sample()
     late, records = await gen.finish()
     return {"t0": t0, "t1": t1, "counters": counters, "late": late,
             "records": records}
+
+
+class Deadline:
+    """A watchdog over a step that may block the event loop's thread in
+    native code, where no asyncio timeout can reach: unless cancelled
+    within ``seconds`` it prints ``what``, every thread's stack and the
+    limit on standard error, kills the load generator (``pid``) and ends
+    the process with code 4, so the run fails with no result instead of
+    hanging."""
+
+    def __init__(self, seconds: float, what: str, pid: int):
+        self.seconds, self.what, self.pid = seconds, what, pid
+        self.timer = threading.Timer(seconds, self._expire)
+        self.timer.daemon = True
+        self.timer.start()
+
+    def _expire(self) -> None:
+        print(f"{self.what} within {self.seconds:g} s; the run fails. "
+              "Every thread's stack:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        try:
+            os.kill(self.pid, signal.SIGKILL)
+            os.waitpid(self.pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+        os._exit(4)
+
+    def cancel(self) -> None:
+        self.timer.cancel()
 
 
 def errors(records: list) -> dict:
@@ -260,35 +312,34 @@ def errors(records: list) -> dict:
     return out
 
 
-def judge_sample(records, spec, check, m, seed, device, dtype, bias,
-                 bucket_of, max_total, max_symbols, control=False,
-                 fault=False) -> list:
+def judge_sample(records, spec, check, m, seed, device, family, served,
+                 control=False, fault=False) -> list:
     """The check's readings on a seeded sample of the served transcripts:
-    one dict per item (``reference/judge.judge_one``); with ``fault`` also
-    the widest gap of the item's tokens with one of them altered
-    (``fault_gap``)."""
+    one dict per item (the family's ``judge_one``, with ``served`` from
+    ``sut.System.judge_args``); with ``fault`` also the widest gap of the
+    item's tokens with one of them altered (the family's ``altered``,
+    ``fault_gap``)."""
     from .reference import model as ref
     ref.no_tf32()
-    W = ref.as_f32(weights.make_weights(m, seed, device, dtype, bias))
-    causal = bool(m["causal"])
+    W = ref.as_f32(weights.make_weights(m, seed, device, served["dtype"],
+                                        served["bias"], family))
     out = []
     for rec in sample(records, check["sample"], seed):
         x = served_samples(spec, seed, rec)
-        how = (W, m, None if causal else bucket_of(x.shape[0]), not causal,
-               max_total, max_symbols)
-        r = judge.judge_one(x, rec["tokens"], *how, control=control)
+        r = family.judge_one(x, rec["tokens"], W, m, served, control=control)
         if fault and rec["tokens"]:
-            r["fault_gap"] = judge.judge_one(
-                x, altered(rec["tokens"], m), *how)["gap"]
+            r["fault_gap"] = family.judge_one(
+                x, family.altered(rec["tokens"], m), W, m, served)["gap"]
         r["audio_s"] = rec["audio_s"]
         out.append(r)
     return out
 
 
-async def build(args, m, serving, spec, device):
-    """The served system, warmed and with its blank bias bisected."""
+async def build(args, m, serving, spec, device, family):
+    """The served system of ``family``, warmed and with its emission bias
+    bisected."""
     from . import sut
-    system = sut.System(m, serving, args.seed, device)
+    system = sut.System(m, serving, args.seed, device, family)
     system.warm(spec)
     bias = system.bisect_blank_bias(spec)
     print(json.dumps({"blank_bias": bias}), flush=True)
@@ -304,7 +355,7 @@ async def run(args, t_start: float) -> dict:
     try:
         await gen.start(cell["traffic_path"], args.seed, args.seconds,
                         config["name"], override)
-        system = await build(args, m, serving, spec, device)
+        system = await build(args, m, serving, spec, device, cell["family"])
         tracer = None
         if args.trace and device.type == "cuda":
             from .trace import DeviceTrace
@@ -340,17 +391,14 @@ async def run(args, t_start: float) -> dict:
             if value is not None:
                 metrics[entry["name"]] = {"value": value,
                                           "unit": entry["unit"]}
-        keep = dict(dtype=system.dtype, bias=system.blank_bias,
-                    bucket_of=system.bucket_len,
-                    max_total=system.config.max_total_tokens,
-                    max_symbols=system.config.max_symbols_per_step)
+        served = system.judge_args()
         await system.close()
         system = None
         sut.free_cuda()
 
         check = cell["check"]
         readings = judge_sample(w["records"], spec, check, m, args.seed,
-                                device, **keep)
+                                device, cell["family"], served)
         # None where nothing was judged: that run is not correct
         mean = judge.mean_gap(readings) if readings else None
         widest = max((r["gap"] for r in readings), default=None)

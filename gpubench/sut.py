@@ -2,13 +2,15 @@
 through its public constructors, as ``server/app.build_state`` wires it
 (which takes only preset names).
 
-:class:`System` makes the model from the file's ``model`` object and the
-benchmark's seeded weights, the serving pipeline and the application state
-with the file's ``serving`` overrides of the port's ``Config``, warms the
-programs the cell's traffic uses and no others, sets the blank bias by
-bisection, and serves ``server/app.create_app`` on an ephemeral local port.
-The vocabulary is the benchmark's own: id ``i`` is the word ``w<i>``, so a
-transcript's text gives back its ids.
+:class:`System` makes the model of the file's family
+(``gpubench/families``) from its ``model`` object and the benchmark's
+seeded weights, the serving pipeline and the application state with the
+file's ``serving`` overrides of the port's ``Config`` (and the family's),
+warms the programs the cell's traffic uses and no others, sets the
+family's emission bias by bisection, and serves ``server/app.create_app``
+on an ephemeral local port. The vocabulary is the benchmark's own: id
+``i`` is the word ``w<i>`` (:func:`words`), so a transcript's text gives
+back its ids.
 
 :class:`Spans` are the benchmark's wrappers around calls into the port's
 layers, installed in traced runs only: the HTTP handler, the wait in
@@ -18,13 +20,15 @@ lane-engine tick and feed.
 
 from __future__ import annotations
 
+import json
 import time
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from . import audio, traffic, weights
+from . import audio, families, traffic, weights
 
 TARGET_TOKENS_PER_S = 3.5  # read speech: ~2.5 words/s at ~1.3 tokens a word
 BIAS_RANGE = (0.0, 16.0)
@@ -141,30 +145,41 @@ def serving_config(serving: dict, device: torch.device):
     return cfg
 
 
+def words(m: dict, specials) -> dict:
+    """The benchmark's vocabulary: id ``i`` is the piece ``▁w<i>``, for
+    every id but ``specials`` (a family's blank, or its control tokens)."""
+    return {i: f"▁w{i}" for i in range(m["vocab_size"]) if i not in specials}
+
+
 class System:
+    """The port's server for model widths ``m`` of ``family`` (a module of
+    ``gpubench/families``; the transducer where None)."""
+
     def __init__(self, m: dict, serving: dict, seed: int,
-                 device: torch.device):
-        from amira_rust_asr_server_tpu_torch.models import Transducer
+                 device: torch.device, family=None):
         from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
             serving_pipeline
         from amira_rust_asr_server_tpu_torch.server.state import AppState
         from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
+        self.family = family or families.load(families.DEFAULT)
         self.m, self.seed, self.device = m, seed, device
-        self.config = serving_config(serving, device)
+        self.config = serving_config(dict(serving, **self.family.SERVING),
+                                     device)
         self.dtype = (torch.bfloat16 if self.config.compute_dtype ==
                       "bfloat16" else torch.float32)
-        vocab = Vocabulary.from_map({i: f"▁w{i}"
-                                     for i in range(m["vocab_size"])
-                                     if i != m["blank_id"]})
+        vocab = Vocabulary.from_map(self.family.vocabulary(m))
         with torch.device("meta"):
-            model = Transducer(model_config(m))
+            model = self.family.build_model(model_config(m))
         model = model.to(dtype=self.dtype).to_empty(device=device)
-        model.load_state_dict(weights.make_weights(m, seed, device,
-                                                   self.dtype), strict=True)
+        model.load_state_dict(self._weights(seed), strict=True)
         self.pipeline = serving_pipeline(model, vocab, self.config, device)
         self.state = AppState(self.pipeline, vocab, self.config)
         self.blank_bias = 0.0
         self.runner = None
+
+    def _weights(self, seed: int) -> dict:
+        return weights.make_weights(self.m, seed, self.device, self.dtype,
+                                    family=self.family)
 
     def reseed(self, seed: int) -> None:
         """New weights from ``seed``, copied into the parameters the
@@ -172,8 +187,7 @@ class System:
         self.seed = seed
         pipe = self.pipeline
         with pipe.device_lock:
-            pipe.model.load_state_dict(weights.make_weights(
-                self.m, seed, self.device, self.dtype), strict=True)
+            pipe.model.load_state_dict(self._weights(seed), strict=True)
             pipe.refresh_tables()
             if self.state.lane_engine is not None:
                 self.state.lane_engine.refresh_()
@@ -192,16 +206,18 @@ class System:
         self.pipeline.warmup(batch_sizes=self.config.batch_buckets,
                              secs=used)
 
-    # -- the blank bias -------------------------------------------------------
+    # -- the emission bias ----------------------------------------------------
     def set_blank_bias(self, value: float) -> float:
-        """The joint's blank bias, in the served type, with every table
-        derived from it recomputed; returns the value as held."""
+        """The family's emission bias (``emission_bias``: the transducer's
+        and CTC's blank), in the served type, with every table derived from
+        it recomputed; returns the value as held."""
         pipe = self.pipeline
-        b = pipe.model.joint.out.b
+        name, index = self.family.emission_bias(self.m)
+        b = pipe.model.get_parameter(name)
         with pipe.device_lock, torch.no_grad():
-            b[self.m["blank_id"]] = value
+            b[index] = value
             pipe.refresh_tables()
-            self.blank_bias = float(b[self.m["blank_id"]])
+            self.blank_bias = float(b[index])
         return self.blank_bias
 
     def _rate_batch(self, items: List[np.ndarray]) -> float:
@@ -225,8 +241,9 @@ class System:
     def bisect_blank_bias(self, spec: dict) -> dict:
         """Seeded random weights emit on nearly every frame and spend the
         token budget of every call; a trained model emits a few tokens a
-        second. Bisect the blank bias so that the cell's own audio (a
-        fixed subset of it) decodes at about ``TARGET_TOKENS_PER_S``."""
+        second. Bisect the emission bias (:meth:`set_blank_bias`; a larger
+        one emits fewer tokens) so that the cell's own audio (a fixed
+        subset of it) decodes at about ``TARGET_TOKENS_PER_S``."""
         if spec["kind"] == "ws_streams":
             plan = [s for c in traffic.stream_plan(spec, self.seed, 60.0)
                     for s in c]
@@ -275,13 +292,26 @@ class System:
         await self.unserve()
         self.state.close()
 
-    def counters(self) -> dict:
-        out = {"batcher": self.state.batcher.stats.to_json()}
-        if self.state.lane_engine is not None:
-            eng = self.state.lane_engine
-            out["lanes"] = eng.stats.to_json(eng.live_lanes, eng.n_lanes,
-                                             eng.warmed_up)
+    async def counters(self) -> dict:
+        """The whole ``/metrics`` payload, as the port's handler makes it
+        (its groups ``batcher``, ``lane_engine`` and the rest), with the
+        lane engine's group also under ``lanes``."""
+        from amira_rust_asr_server_tpu_torch.server.app import \
+            metrics_handler
+        resp = await metrics_handler(SimpleNamespace(
+            app={"state": self.state}))
+        out = json.loads(resp.text)
+        if "lane_engine" in out:
+            out["lanes"] = out["lane_engine"]
         return out
+
+    def judge_args(self) -> dict:
+        """What a family's judge takes from the served system, read before
+        it is closed."""
+        return dict(dtype=self.dtype, bias=self.blank_bias,
+                    bucket_of=self.bucket_len,
+                    max_total=self.config.max_total_tokens,
+                    max_symbols=self.config.max_symbols_per_step)
 
     def bucket_len(self, n_samples: int) -> int:
         """The padded length of a request of ``n_samples`` (the serving

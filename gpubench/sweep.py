@@ -61,7 +61,8 @@ async def sweep(args):
     import json
     from gpubench import harness
     cell, m, serving, spec, override, device = harness.prepare(args)
-    system = await harness.build(args, m, serving, spec, device)
+    system = await harness.build(args, m, serving, spec, device,
+                                 cell["family"])
     try:
         key = "clients" if spec["kind"] == "ws_streams" else "rate_per_s"
         stats = _stream_stats if key == "clients" else _stats

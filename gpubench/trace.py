@@ -12,6 +12,7 @@ open at their midpoint.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import os
 import tempfile
@@ -21,6 +22,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 MARK = "gpubench.clock_mark"
+LOCK_POLL_S = 0.0005  # how often the stop tries the device lock
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # what the host was doing in a gap: the innermost open span first
 GAP_LABELS = {
@@ -33,7 +35,8 @@ GAP_LABELS = {
 
 
 class DeviceTrace:
-    """Start, stop and read one profiled window (CUDA only)."""
+    """Start, stop and read one profiled window (CUDA only); kernels that
+    run past its end while the profiler waits to stop lie outside it."""
 
     def __init__(self):
         self.prof = None
@@ -60,9 +63,21 @@ class DeviceTrace:
             torch.zeros(())  # an op inside the marker
         self.p0 = time.monotonic()
 
-    def stop(self) -> None:
+    async def stop(self, lock) -> None:
+        """Close the traced window now, then stop the profiler on this
+        thread (the event loop's, where it started) while it holds
+        ``lock``: the pipeline's device lock, so that no replay is in
+        flight on the dispatch thread while the profiler stops (a stop
+        beside ``CUDAGraph.replay`` has hung). The lock is re-entrant, so
+        the thread that takes it releases it; it is taken by polling, which
+        leaves the loop serving while a dispatch ends."""
         self.p1 = time.monotonic()
-        self.prof.stop()
+        while not lock.acquire(blocking=False):
+            await asyncio.sleep(LOCK_POLL_S)
+        try:
+            self.prof.stop()
+        finally:
+            lock.release()
 
     def read(self) -> dict:
         """Kernels as arrays of host-clock start and end, with names."""
