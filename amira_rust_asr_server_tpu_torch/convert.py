@@ -23,6 +23,7 @@ converted ``.npz`` for a reload of a serving model without touching it.
 
 from __future__ import annotations
 
+import dataclasses
 import zipfile
 from pathlib import Path
 from typing import Any, Dict, Iterator, Optional, Tuple
@@ -32,7 +33,7 @@ import torch
 
 from .errors import AppError
 from .models import Transducer
-from .models.aed import AEDModel
+from .models.aed import AEDModel, port_config
 from .models.ctc import CTCModel
 from .models.presets import ModelConfig
 
@@ -129,15 +130,21 @@ def load_npz(path) -> Dict[str, torch.Tensor]:
 
 
 def to_model(tree: Dict[str, Any], cfg: ModelConfig,
-             family: Optional[str] = None, **model_kw) -> torch.nn.Module:
+             family: Optional[str] = None, **decoder) -> torch.nn.Module:
     """The family's model with the converted tree loaded strictly (every
-    key and shape); an AED model takes its decoder depth from the tree and
-    ``dec_heads`` from ``model_kw``."""
+    key and shape). An AED model's config takes the decoder's depth and
+    width from the tree, and its heads and prompt from ``cfg``, unless
+    ``decoder`` gives them (``dec_layers``, ``dec_heads``, ``d_dec``,
+    ``dec_prompt``)."""
     family = family_of(tree, family)
     if family == "aed":
-        model_kw.setdefault("dec_layers", len(tree["decoder"]["layers"]))
-        model_kw.setdefault("d_dec", np.shape(tree["decoder"]["embed"])[1])
-    model = MODELS[family](cfg, **model_kw)
+        decoder.setdefault("dec_layers", len(tree["decoder"]["layers"]))
+        decoder.setdefault("d_dec", np.shape(tree["decoder"]["embed"])[1])
+        cfg = dataclasses.replace(port_config(cfg), **decoder)
+    elif decoder:
+        raise TypeError(f"a {family} model takes no decoder fields: "
+                        f"{sorted(decoder)}")
+    model = MODELS[family](cfg)
     model.load_state_dict(from_jax_params(tree, cfg, family))
     return model
 

@@ -10,18 +10,24 @@ dtype it is given: LayerNorm with eps 1e-5 written out, the ``-1e9`` masks
 in the activation dtype (bf16 too), attention logits scaled by
 ``sqrt(dh)`` in that dtype, GELU's tanh form (``jax.nn.gelu``'s default).
 
-``config.blank_id`` doubles as BOS (decoder input position 0) and EOS.
+The decoder's depth, heads and width are the config's ``dec_layers``,
+``dec_heads`` and ``d_dec``. Its first input positions are the task prompt
+``dec_prompt`` (:attr:`AEDModel.prompt`; by default the single BOS
+``blank_id``, the reference's), and ``blank_id`` is its EOS. Every entry
+takes the prompt as the decoder's prefix and returns tokens without it.
 Every decode runs a fixed ``max_len`` loop of device ops with no host read
 inside, so a CUDA graph captures it whole: :meth:`AEDModel.decode_greedy`
 and :meth:`AEDModel.decode_beam` re-run the causally masked full decoder
 every step, as the reference does; :meth:`AEDModel.decode_greedy_cached`
-keeps static ``[L, B, U+1, H, Dh]`` self-attention K/V buffers and projects
-the cross-attention K/V once. :meth:`AEDModel.loss` is the teacher-forced
-cross-entropy the family trains on.
+prefills the prompt's positions into static ``[L, B, P + max_len, H, Dh]``
+self-attention K/V buffers in one pass, then writes one position per step,
+and projects the cross-attention K/V once. :meth:`AEDModel.loss` is the
+teacher-forced cross-entropy the family trains on.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -115,22 +121,50 @@ def _counts(toks: torch.Tensor, eos: int, max_len: int) -> torch.Tensor:
         torch.int32)
 
 
-class AEDModel(EncoderModel):
-    """``dec_layers``, ``dec_heads`` and ``d_dec`` are the reference's
-    decoder hyperparameters (not in ``ModelConfig``); ``d_dec=0`` means
-    ``min(d_enc, 512)``."""
+def port_config(config) -> ModelConfig:
+    """``config`` as the port's :class:`ModelConfig`: another model config
+    (the reference's, which keeps no decoder fields) gives its fields of
+    the same names, and the decoder's take their defaults."""
+    if isinstance(config, ModelConfig):
+        return config
+    return ModelConfig(**{f.name: getattr(config, f.name)
+                          for f in dataclasses.fields(ModelConfig)
+                          if hasattr(config, f.name)})
 
-    def __init__(self, config: ModelConfig, dec_layers: int = 2,
-                 dec_heads: int = 4, d_dec: int = 0):
+
+class AEDModel(EncoderModel):
+    """The decoder's hyperparameters are the config's (``dec_layers``,
+    ``dec_heads``, ``d_dec``: 0 means ``min(d_enc, 512)``, ``dec_prompt``)."""
+
+    def __init__(self, config: ModelConfig):
+        config = port_config(config)
         super().__init__(config)
-        self.dec_layers, self.dec_heads, self.d_dec = (dec_layers, dec_heads,
-                                                       d_dec)
+        if self.d % config.dec_heads:
+            raise ValueError("the decoder's width must be divisible by "
+                             "dec_heads")
         self.decoder = AEDDecoder(config.d_enc, config.vocab_size, self.d,
-                                  dec_layers)
+                                  config.dec_layers)
 
     @property
     def d(self) -> int:
-        return self.d_dec or min(self.config.d_enc, 512)
+        return self.config.d_dec or min(self.config.d_enc, 512)
+
+    @property
+    def prompt(self) -> Tuple[int, ...]:
+        """The decoder's first input ids: ``dec_prompt``, or the BOS
+        ``(blank_id,)`` where it is empty."""
+        return self.config.dec_prompt or (self.config.blank_id,)
+
+    def _prompted(self, shape, device) -> torch.Tensor:
+        """int32 ``[..., U]`` of EOS with the prompt at positions
+        ``0..P-1``, each position a fill (no host copy, so a capture holds
+        it)."""
+        eos = self.config.blank_id
+        buf = torch.full(shape, eos, dtype=torch.int32, device=device)
+        for i, tok in enumerate(self.prompt):
+            if tok != eos:
+                buf[..., i].fill_(tok)
+        return buf
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "AEDModel":
@@ -160,9 +194,9 @@ class AEDModel(EncoderModel):
     def decoder_logits(self, dec_in: torch.Tensor, enc: torch.Tensor,
                        enc_lens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced decoder forward: ``dec_in [B, U]`` token ids
-        (position 0 is BOS = blank), ``enc [B, T, d_enc]`` -> logits
-        [B, U, vocab]; causal over U, cross-attention masked to the valid
-        encoder frames."""
+        (positions ``0..P-1`` the prompt, :attr:`prompt`), ``enc [B, T,
+        d_enc]`` -> logits [B, U, vocab]; causal over U, cross-attention
+        masked to the valid encoder frames."""
         p = self.decoder
         b, u = dec_in.shape
         t = enc.shape[1]
@@ -172,11 +206,11 @@ class AEDModel(EncoderModel):
         causal = _mask(ar_u[:, None] >= ar_u[None, :], x)
         enc_mask = _mask(torch.arange(t, device=dev)[None, None, :]
                          < enc_lens[:, None, None], x).expand(b, u, t)
+        heads = self.config.dec_heads
         for lp in p.layers:
             h = _ln(x, lp["ln1"])
-            x = x + _mha(h, h, lp["self"], self.dec_heads, causal)
-            x = x + _mha(_ln(x, lp["ln2"]), enc, lp["cross"], self.dec_heads,
-                         enc_mask)
+            x = x + _mha(h, h, lp["self"], heads, causal)
+            x = x + _mha(_ln(x, lp["ln2"]), enc, lp["cross"], heads, enc_mask)
             x = x + _ff(_ln(x, lp["ln3"]), lp["ff"])
         x = _ln(x, p.ln_out)
         return x @ p.out["w"] + p.out["b"]
@@ -185,7 +219,7 @@ class AEDModel(EncoderModel):
              labels: torch.Tensor, label_lens: torch.Tensor) -> torch.Tensor:
         """Mean per-token teacher-forced cross-entropy: the targets are
         ``labels`` with EOS (= blank) at position ``label_lens``, the
-        decoder's input ``[BOS, labels]``; the mean runs over the valid
+        decoder's input ``[prompt, labels]``; the mean runs over the valid
         positions, EOS included."""
         blank = self.config.blank_id
         enc, enc_lens = self.encode(features, feat_lens)
@@ -193,14 +227,15 @@ class AEDModel(EncoderModel):
         labels = labels.to(dev).long()
         label_lens = label_lens.to(dev).long()
         b, u_lab = labels.shape
-        dec_in = torch.cat([torch.full((b, 1), blank, dtype=torch.long,
-                                       device=dev), labels], dim=1)
+        n_p = len(self.prompt)
+        dec_in = torch.cat([self._prompted((b, n_p), dev).long(), labels],
+                           dim=1)
         pos = torch.arange(u_lab + 1, device=dev)[None, :]
         targets = torch.where(pos < label_lens[:, None],
                               F.pad(labels, (0, 1)), blank)  # EOS at len
         valid = (pos <= label_lens[:, None]).to(torch.float32)
-        logp = torch.log_softmax(self.decoder_logits(dec_in, enc, enc_lens),
-                                 dim=-1)
+        logp = torch.log_softmax(
+            self.decoder_logits(dec_in, enc, enc_lens)[:, n_p - 1:], dim=-1)
         nll = -torch.gather(logp, 2, targets[..., None])[..., 0]
         return (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
@@ -212,16 +247,17 @@ class AEDModel(EncoderModel):
         eos = self.config.blank_id
         enc, enc_lens = self.encode(features, feat_lens)
         b = enc.shape[0]
-        buf = torch.full((b, max_len + 1), eos, dtype=torch.int32,
-                         device=enc.device)                    # BOS at 0
+        n_p = len(self.prompt)
+        buf = self._prompted((b, n_p + max_len), enc.device)
         done = torch.zeros((b,), dtype=torch.bool, device=enc.device)
         for u in range(max_len):
             logits = self.decoder_logits(buf, enc, enc_lens)
-            nxt = torch.argmax(logits[:, u], dim=-1).to(torch.int32)
+            nxt = torch.argmax(logits[:, n_p - 1 + u], dim=-1).to(
+                torch.int32)
             nxt = torch.where(done, eos, nxt)
             done = done | (nxt == eos)
-            buf[:, u + 1] = nxt
-        toks = buf[:, 1:]
+            buf[:, n_p + u] = nxt
+        toks = buf[:, n_p:]
         return toks, _counts(toks, eos, max_len)
 
     def sequence_scores(self, features: torch.Tensor, feat_lens: torch.Tensor,
@@ -233,14 +269,15 @@ class AEDModel(EncoderModel):
         enc, enc_lens = self.encode(features, feat_lens)
         b, u_lab = tokens.shape
         dev = tokens.device
-        bos = torch.full((b, 1), eos, dtype=torch.int32, device=dev)
-        dec_in = torch.cat([bos, tokens.to(torch.int32)], dim=1)
+        n_p = len(self.prompt)
+        dec_in = torch.cat([self._prompted((b, n_p), dev),
+                            tokens.to(torch.int32)], dim=1)
         pos = torch.arange(u_lab + 1, device=dev)[None, :]
         padded = F.pad(tokens.to(torch.int32), (0, 1))
         targets = torch.where(pos < counts[:, None], padded, eos).long()
         valid = (pos <= counts[:, None]).to(torch.float32)
-        logp = torch.log_softmax(self.decoder_logits(dec_in, enc, enc_lens),
-                                 dim=-1)
+        logp = torch.log_softmax(
+            self.decoder_logits(dec_in, enc, enc_lens)[:, n_p - 1:], dim=-1)
         lp = torch.gather(logp, 2, targets[..., None])[..., 0]
         return (lp * valid).sum(dim=1)
 
@@ -262,12 +299,13 @@ class AEDModel(EncoderModel):
         enc, enc_lens = self.encode(features, feat_lens)
         b, dev = enc.shape[0], enc.device
         k = width
-        u_max = max_len + 1
+        n_p = len(self.prompt)
+        u_max = n_p + max_len
         enc_rep = enc.repeat_interleave(k, dim=0)           # [B*K, T, D]
         lens_rep = enc_lens.repeat_interleave(k, dim=0)
         f32 = torch.float32
 
-        buf = torch.full((b, k, u_max), eos, dtype=torch.int32, device=dev)
+        buf = self._prompted((b, k, u_max), dev)
         scores = torch.full((b, k), NEG, dtype=f32, device=dev)
         scores[:, 0] = 0.0              # hypothesis 0 is the live empty one
         done = torch.zeros((b, k), dtype=torch.bool, device=dev)
@@ -277,7 +315,8 @@ class AEDModel(EncoderModel):
         for u in range(max_len):
             logits = self.decoder_logits(buf.reshape(b * k, u_max), enc_rep,
                                          lens_rep)
-            logp = torch.log_softmax(logits[:, u], dim=-1).reshape(b, k, v)
+            logp = torch.log_softmax(logits[:, n_p - 1 + u], dim=-1).reshape(
+                b, k, v)
             logp = torch.where(done[..., None], eos_row, logp)
             cand = (scores[..., None] + logp).reshape(b, k * v)
             top, idx = topk_first(cand, k)
@@ -285,14 +324,14 @@ class AEDModel(EncoderModel):
             token = (idx % v).to(torch.int32)
             buf = torch.gather(buf, 1, parent[..., None].expand(b, k, u_max))
             done = torch.gather(done, 1, parent)
-            buf[:, :, u + 1] = torch.where(done, eos, token)
+            buf[:, :, n_p + u] = torch.where(done, eos, token)
             done = done | (token == eos)
             scores = top
-        tail = torch.log_softmax(
-            self.decoder_logits(buf.reshape(b * k, u_max), enc_rep,
-                                lens_rep)[:, max_len], dim=-1)[:, eos]
+        last = self.decoder_logits(buf.reshape(b * k, u_max), enc_rep,
+                                   lens_rep)[:, n_p - 1 + max_len]
+        tail = torch.log_softmax(last, dim=-1)[:, eos]
         scores = torch.where(done, scores, scores + tail.reshape(b, k))
-        toks = buf[:, :, 1:]                                  # [B, K, L]
+        toks = buf[:, :, n_p:]                                # [B, K, L]
         counts = _counts(toks, eos, max_len)
         ranked = (scores / counts.clamp(min=1).to(f32) ** length_penalty
                   if length_penalty > 0 else scores)
@@ -309,23 +348,33 @@ class AEDModel(EncoderModel):
                              feat_lens: torch.Tensor, *, max_len: int = 64
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
         """KV-cached greedy decode, token-identical to :meth:`decode_greedy`
-        (pre-LN makes position u's K/V depend only on tokens <= u): the
-        self-attention K/V of every layer in static ``[L, B, U+1, H, Dh]``
-        buffers written one position per step, the cross-attention K/V
-        projected from the encoder once before the loop."""
+        (pre-LN makes position u's K/V depend only on tokens <= u): see
+        :meth:`greedy_cached_from_enc`."""
         enc, enc_lens = self.encode(features, feat_lens)
         return self.greedy_cached_from_enc(enc, enc_lens, max_len=max_len)
 
     def greedy_cached_from_enc(self, enc: torch.Tensor,
-                               enc_lens: torch.Tensor, *, max_len: int
-                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """:meth:`decode_greedy_cached` from the encoder's output."""
+                               enc_lens: torch.Tensor, *, max_len: int,
+                               return_logits: bool = False):
+        """:meth:`decode_greedy_cached` from the encoder's output: (tokens
+        [B, max_len] without the prompt, counts [B]), and with
+        ``return_logits`` each decision's logits [B, max_len, vocab].
+
+        One prefill pass runs the prompt's P positions as a block: it
+        writes their self-attention K/V into static ``[L, B, P + max_len,
+        H, Dh]`` buffers, and its last position's logits make the first
+        decision. Then ``max_len - 1`` steps of one position each, from
+        position P, each writing its K/V and attending to the cache up to
+        itself. The cross-attention K/V are projected from the encoder
+        once, before the prefill. Positions and the sinusoids follow the
+        teacher-forced ``[prompt, tokens]`` of :meth:`decoder_logits`."""
         eos = self.config.blank_id
         p = self.decoder
         b, t = enc.shape[0], enc.shape[1]
-        d, h = self.d, self.dec_heads
+        d, h = self.d, self.config.dec_heads
         dh = d // h
-        u_max = max_len + 1
+        n_p = len(self.prompt)
+        u_max = n_p + max_len
         dev, dt = enc.device, p.embed.dtype
         pe = _sinusoid(u_max, d, dt, dev)
 
@@ -333,46 +382,58 @@ class AEDModel(EncoderModel):
         cross_kv = [((enc @ lp["cross"]["wk"]).reshape(b, t, h, dh),
                      (enc @ lp["cross"]["wv"]).reshape(b, t, h, dh))
                     for lp in p.layers]
-        enc_mask = None
+        enc_mask = _mask(torch.arange(t, device=dev)[None, :]
+                         < enc_lens[:, None], pe)[:, None, None, :]
         kc = torch.zeros((len(p.layers), b, u_max, h, dh), dtype=dt,
                          device=dev)
         vc = torch.zeros_like(kc)
-        buf = torch.full((b, u_max), eos, dtype=torch.int32, device=dev)
+        buf = self._prompted((b, u_max), dev)
         done = torch.zeros((b,), dtype=torch.bool, device=dev)
         ar_u = torch.arange(u_max, device=dev)
 
-        for u in range(max_len):
-            x = p.embed[buf[:, u].long()] + pe[u]                 # [B, D]
-            pos_mask = None
+        def block(pos: int, n: int) -> torch.Tensor:
+            """Positions ``pos..pos+n-1`` through the decoder, their K/V
+            into the cache: the last position's logits [B, vocab]."""
+            x = p.embed[buf[:, pos:pos + n].long()] + pe[pos:pos + n]
+            pos_mask = _mask(ar_u[None, :] <= ar_u[pos:pos + n, None],
+                             x)                                # [n, U]
             for li, lp in enumerate(p.layers):
                 hh = _ln(x, lp["ln1"])
-                q = (hh @ lp["self"]["wq"]).reshape(b, h, dh)
-                kc[li, :, u] = (hh @ lp["self"]["wk"]).reshape(b, h, dh)
-                vc[li, :, u] = (hh @ lp["self"]["wv"]).reshape(b, h, dh)
-                logits = torch.einsum("bhd,bthd->bht", q, kc[li])
+                q = (hh @ lp["self"]["wq"]).reshape(b, n, h, dh)
+                kc[li, :, pos:pos + n] = (hh @ lp["self"]["wk"]).reshape(
+                    b, n, h, dh)
+                vc[li, :, pos:pos + n] = (hh @ lp["self"]["wv"]).reshape(
+                    b, n, h, dh)
+                logits = torch.einsum("bnhd,bthd->bhnt", q, kc[li])
                 logits = logits / torch.sqrt(scalar(dh, logits))
-                if pos_mask is None:
-                    pos_mask = _mask(ar_u <= u, logits)
-                att = _softmax(logits + pos_mask[None, None, :])
-                x = x + torch.einsum("bht,bthd->bhd", att, vc[li]
-                                     ).reshape(b, d) @ lp["self"]["wo"]
+                att = _softmax(logits + pos_mask)
+                x = x + torch.einsum("bhnt,bthd->bnhd", att, vc[li]
+                                     ).reshape(b, n, d) @ lp["self"]["wo"]
                 hh = _ln(x, lp["ln2"])
-                q = (hh @ lp["cross"]["wq"]).reshape(b, h, dh)
+                q = (hh @ lp["cross"]["wq"]).reshape(b, n, h, dh)
                 ck, cv = cross_kv[li]
-                cl = torch.einsum("bhd,bthd->bht", q, ck)
+                cl = torch.einsum("bnhd,bthd->bhnt", q, ck)
                 cl = cl / torch.sqrt(scalar(dh, cl))
-                if enc_mask is None:
-                    enc_mask = _mask(torch.arange(t, device=dev)[None, :]
-                                     < enc_lens[:, None], cl)      # [B, T]
-                catt = _softmax(cl + enc_mask[:, None, :])
-                x = x + torch.einsum("bht,bthd->bhd", catt, cv
-                                     ).reshape(b, d) @ lp["cross"]["wo"]
+                catt = _softmax(cl + enc_mask)
+                x = x + torch.einsum("bhnt,bthd->bnhd", catt, cv
+                                     ).reshape(b, n, d) @ lp["cross"]["wo"]
                 x = x + _ff(_ln(x, lp["ln3"]), lp["ff"])
-            x = _ln(x, p.ln_out)
-            step_logits = x @ p.out["w"] + p.out["b"]
+            x = _ln(x[:, -1], p.ln_out)
+            return x @ p.out["w"] + p.out["b"]
+
+        kept = []
+        for u in range(max_len):
+            # the prefill makes the first decision; step u feeds the token
+            # at position P + u - 1 (the last decision)
+            step_logits = block(0, n_p) if u == 0 else block(n_p + u - 1, 1)
+            if return_logits:
+                kept.append(step_logits)
             nxt = torch.argmax(step_logits, dim=-1).to(torch.int32)
             nxt = torch.where(done, eos, nxt)
             done = done | (nxt == eos)
-            buf[:, u + 1] = nxt
-        toks = buf[:, 1:]
-        return toks, _counts(toks, eos, max_len)
+            buf[:, n_p + u] = nxt
+        toks = buf[:, n_p:]
+        counts = _counts(toks, eos, max_len)
+        if return_logits:
+            return toks, counts, torch.stack(kept, dim=1)
+        return toks, counts

@@ -184,7 +184,7 @@ def init_reference_weights(model: nn.Module, seed: int) -> nn.Module:
         model.head["b"].zero_()
     else:                            # models/aed.py
         k_enc, k_dec = split(key, 2)
-        keys = iter(split(k_dec, 2 + 12 * model.dec_layers))
+        keys = iter(split(k_dec, 2 + 12 * model.config.dec_layers))
         dec = model.decoder
 
         def dense(w, scale=np.float32(1.0)):

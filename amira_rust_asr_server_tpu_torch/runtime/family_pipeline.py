@@ -15,10 +15,12 @@ one CUDA graph at its warm-up and replayed by every dispatch:
   clipped to ``max_total_tokens``; beam: the prefix beam search
   (``ops/ctc_beam.py``) with the transducer's decoding graphs (static
   tables per graph capacity) and a static bias vector.
-* **AED**: log-mel -> encoder -> the KV-cached greedy decoder
-  (``models/aed.py``, a fixed ``max_len`` loop with no host read, which is
-  what lets the graph hold it); beam: the length-normalized search (length
-  penalty 0.6, all K hypotheses for the n-best). AED has no frame
+* **AED**: log-mel -> encoder, then the KV-cached greedy decoder
+  (``models/aed.py``: the task prompt's prefill, then a fixed ``max_len``
+  loop with no host read, which is what lets a graph hold it), two stages
+  of one program, captured as one graph with timing events between them;
+  beam: the length-normalized search
+  (length penalty 0.6, all K hypotheses for the n-best). AED has no frame
   alignment: its ``frame_idx`` and ``confidence`` are zeros, as the
   reference's. Its beam takes no decoding graph and no bias, as the
   reference's takes none.
@@ -26,6 +28,14 @@ one CUDA graph at its warm-up and replayed by every dispatch:
 ``max_len = min(max_total_tokens, MAX_TOTAL_TOKENS)`` for AED, and its
 ``enc_lens`` follow :func:`_enc_lens_rule`, the encoder's own rule. The
 decode cores are plain torch, as they are plain XLA in the reference.
+A greedy dispatch is recorded as the transducer's is (the span
+``dispatch`` with its lanes, buckets and requests, and the children
+``dispatch.lock``, ``.stage``, ``.run``, ``.readback``, ``.capture``). The
+AED pipeline counts its greedy dispatches (:class:`AEDStats`, the group
+``aed`` of the JSON ``/metrics``) from the host arrays the dispatch reads
+back and the stages' device times read after that readback, so the
+counting adds no wait for the device.
+
 Both families are stateless: WebSocket streaming stays transducer-only
 (refused with 400 by the handler), and a carried stream state is refused
 here. Beam results reach the batcher as a transducer's do
@@ -53,7 +63,7 @@ from ..ops.beam import BeamResult, TokenTrie
 from ..ops.ctc import ctc_greedy_decode_timed
 from ..ops.ctc_beam import ctc_beam_decode
 from ..ops.greedy import GreedyResult
-from ..reliability import get_logger
+from ..reliability import get_logger, tracing
 from ..vocab import Vocabulary
 from .pipeline import AsrPipeline
 from .programs import DeviceProgram
@@ -147,10 +157,22 @@ class CTCPipeline(AsrPipeline):
             raise InvalidAudioFormatError("empty batch")
         n = self._bucket_len(max(s.shape[0] for s in samples))
         b = self._bucket_batch_warm(b_real, n, "greedy")
-        with self.device_lock:
-            prog = self._bucket_program("greedy", b, n)
-            self._stage_audio(prog, samples)
-            host = prog.to_host(prog.run_eager() if eager else prog.run())
+        with tracing.span("dispatch", attrs=(
+                ("lanes", b_real), ("batch", b), ("length", n),
+                ("requests", tracing.served_requests()))) as top:
+            with tracing.span("dispatch.lock", top):
+                self.device_lock.acquire()
+            try:
+                prog = self._bucket_program("greedy", b, n, dispatch=top)
+                with tracing.span("dispatch.stage", top):
+                    self._stage_audio(prog, samples)
+                with tracing.span("dispatch.run", top):
+                    outs = prog.run_eager() if eager else prog.run()
+                with tracing.span("dispatch.readback", top):
+                    host = prog.to_host(outs)
+                    self._count_dispatch(prog, host, b_real)
+            finally:
+                self.device_lock.release()
         if not eager:
             self._mark_compiled("greedy", b, n)
         feat_lens, enc_lens, tokens, counts, frames, confs = host
@@ -158,6 +180,11 @@ class CTCPipeline(AsrPipeline):
                            confidence=confs, state=None, pred_out=None,
                            last_token=None)
         return res, feat_lens, enc_lens, [None] * b_real
+
+    def _count_dispatch(self, prog: DeviceProgram, host, b_real: int
+                        ) -> None:
+        """Count a greedy dispatch from what its readback gave (the AED
+        family's counters; none here)."""
 
     def decode_beam_batch(self, samples: Sequence[np.ndarray], *, bias=None,
                           graph: Optional[TokenTrie] = None, n_best: int = 1
@@ -196,6 +223,29 @@ class CTCPipeline(AsrPipeline):
                           n_best=rows if n_best > 1 else None)
 
 
+@dataclasses.dataclass
+class AEDStats:
+    """The AED pipeline's greedy dispatches, for ``/metrics`` (group
+    ``aed``): the decoder's steps are its decisions, ``max_len`` a
+    dispatch (the prompt's prefill makes the first); a lane's live steps
+    are its tokens and its EOS, at most ``max_len``; the device seconds are
+    the encoder stage's (log-mel and encoder) and the decode stage's (the
+    cross K/V, the prefill and the loop), from CUDA events, on a card
+    only."""
+
+    dispatches: int = 0
+    lanes_total: int = 0
+    steps_total: int = 0            # decisions run, max_len a dispatch
+    lane_steps_total: int = 0       # steps x real lanes
+    live_lane_steps_total: int = 0  # min(tokens + 1, max_len), real lanes
+    prompt_tokens_total: int = 0    # prompt positions x real lanes
+    encode_device_s_total: float = 0.0
+    decode_device_s_total: float = 0.0
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
 class AEDPipeline(CTCPipeline):
     """The AED family on the full serving surface (the CTC pipeline's
     plumbing: stateless, no prediction net)."""
@@ -208,6 +258,7 @@ class AEDPipeline(CTCPipeline):
                  config: Optional[Config] = None,
                  device: Optional[torch.device] = None, mesh=None):
         super().__init__(model, vocab, config, device, mesh)
+        self.aed_stats = AEDStats()
         if self.beam_graph is not None:
             log.warning("the aed family's beam search takes no decoding "
                         "graph (as the reference's): beam_grammar_path is "
@@ -221,10 +272,22 @@ class AEDPipeline(CTCPipeline):
     def graph_capacity(graph: Optional[TokenTrie]) -> int:
         return 0  # the beam programs read no graph tables
 
-    def _greedy_body(self, x: dict) -> Tuple[torch.Tensor, ...]:
+    def _greedy_program(self, b: int, n: int) -> DeviceProgram:
+        """Two stages: log-mel and the encoder, then the decoder."""
+        x = self._audio_inputs(b, n)
+        return self._new_program(
+            f"{self.family} greedy bucket {b} x {n} samples",
+            (lambda: self._encode_stage(x), self._decode_stage), x)
+
+    def _encode_stage(self, x: dict) -> Tuple[torch.Tensor, ...]:
         feats, feat_lens = self._features(x["audio"], x["lens"])
-        toks, counts = self.model.decode_greedy_cached(
-            feats, feat_lens, max_len=self.max_len)
+        enc, enc_lens = self.model.encode(feats, feat_lens)
+        return feat_lens, enc, enc_lens
+
+    def _decode_stage(self, feat_lens: torch.Tensor, enc: torch.Tensor,
+                      enc_lens: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        toks, counts = self.model.greedy_cached_from_enc(
+            enc, enc_lens, max_len=self.max_len)
         enc_lens = _enc_lens_rule(feat_lens,
                                   self.model.config.subsampling_factor)
         # attention decoders have no frame-synchronous alignment: no
@@ -233,6 +296,24 @@ class AEDPipeline(CTCPipeline):
                 torch.zeros(toks.shape, dtype=torch.int32, device=toks.device),
                 torch.zeros(toks.shape, dtype=torch.float32,
                             device=toks.device))
+
+    def _count_dispatch(self, prog: DeviceProgram, host, b_real: int
+                        ) -> None:
+        """The ``aed`` counters of one greedy dispatch: its real lanes'
+        counts (``host[3]``) and its stages' device times."""
+        st, steps = self.aed_stats, self.max_len
+        counts = host[3][:b_real]
+        st.dispatches += 1
+        st.lanes_total += b_real
+        st.steps_total += steps
+        st.lane_steps_total += steps * b_real
+        st.live_lane_steps_total += int(np.minimum(
+            counts.astype(np.int64) + 1, steps).sum())
+        st.prompt_tokens_total += len(self.model.prompt) * b_real
+        secs = prog.stage_seconds()
+        if secs is not None:
+            st.encode_device_s_total += secs[0]
+            st.decode_device_s_total += secs[1]
 
     def _beam_body(self, x: dict, graph: Optional[TokenTrie]
                    ) -> Tuple[torch.Tensor, ...]:

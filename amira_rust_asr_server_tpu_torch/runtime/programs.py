@@ -17,6 +17,13 @@ program made with ``capture=False`` runs so on CUDA too: the programs of a
 pipeline placed on a device mesh, whose layers call collectives and
 DTensor redistributions from the host on every run (``models/tp.py``).
 
+A program may run in stages (a tuple of bodies, each taking the outputs of
+the one before). On a card a timing event is recorded before, between and
+after them, and the capture holds those records as event nodes of the one
+graph, so a replay is still one launch and the device time of each stage
+(:meth:`DeviceProgram.stage_seconds`) is read after the run's readback with
+no wait of its own. The AED family times its encoder and its decode loop so.
+
 The caller serializes runs of all programs of one device behind one lock
 (``AsrPipeline.device_lock``): a capture in PyTorch's default "global"
 mode makes other threads' CUDA calls fail while it lasts, and programs of
@@ -26,28 +33,41 @@ one pipeline share one memory pool, so no two may run at once.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..ops import kernels
 
-Body = Callable[[], Sequence[torch.Tensor]]
+Body = Callable[..., Sequence[torch.Tensor]]
 
 
 class DeviceProgram:
     """``body()`` returns the program's outputs, a sequence of tensors; it
     reads the static inputs its owner allocated and may update other
-    static state in place (the lane engine's carry and cache)."""
+    static state in place (the lane engine's carry and cache). ``body`` may
+    be a tuple of stages instead: the first is called with no argument,
+    each later one with the outputs of the one before, and the last one's
+    outputs are the program's."""
 
-    def __init__(self, name: str, device: torch.device, body: Body,
+    def __init__(self, name: str, device: torch.device,
+                 body: Union[Body, Tuple[Body, ...]],
                  inputs: Optional[Dict[str, torch.Tensor]] = None,
                  pool=None, capture: bool = True):
         self.name = name
         self.device = device
-        self.body = body
+        self.stages = tuple(body) if isinstance(body, tuple) else (body,)
+        self.body = body if len(self.stages) == 1 else self._staged
         self.capture = capture and device.type == "cuda"
+        # a staged program's timing events, on a card only; ``external``
+        # makes a capture hold their records as nodes of its graph
+        self._marks: Optional[List[torch.cuda.Event]] = None
+        if len(self.stages) > 1 and device.type == "cuda":
+            self._marks = [torch.cuda.Event(enable_timing=True,
+                                            external=True)
+                           for _ in range(len(self.stages) + 1)]
+        self._timed = False  # the marks hold a whole run
         # the static inputs by name, and the host buffers they are filled
         # from (:func:`host_staging`), both the owner's to allocate
         self.inputs = inputs or {}
@@ -94,6 +114,30 @@ class DeviceProgram:
         self.graph.replay()
         kernels.add_launches(self.launches)
         return self.outputs
+
+    def _staged(self) -> Tuple[torch.Tensor, ...]:
+        """The stages in order, a timing mark before, between and after."""
+        outs: Tuple[torch.Tensor, ...] = ()
+        self._mark(0)
+        for i, stage in enumerate(self.stages):
+            outs = tuple(stage(*outs))
+            self._mark(i + 1)
+        return outs
+
+    def _mark(self, i: int) -> None:
+        if self._marks is not None:
+            self._marks[i].record()
+            self._timed = True
+
+    def stage_seconds(self) -> Optional[List[float]]:
+        """The device time of each stage of the last run, in seconds; None
+        off a card, for a program of one stage, or before a run. These are
+        the events' times, which need the run to have finished: read them
+        after the run's readback (:meth:`to_host` waits for the stream)."""
+        if not self._timed:
+            return None
+        m = self._marks
+        return [m[i].elapsed_time(m[i + 1]) / 1e3 for i in range(len(m) - 1)]
 
     def _run_and_capture(self) -> Tuple[torch.Tensor, ...]:
         dev = self.device

@@ -419,6 +419,9 @@ async def metrics_handler(request: web.Request) -> web.Response:
             eng.live_lanes, eng.n_lanes, eng.warmed_up)
     if state.config.decoding_mode == "beam":
         payload["beam_decode_paths"] = dict(state.pipeline.decode_path_counts)
+    aed = getattr(state.pipeline, "aed_stats", None)
+    if aed is not None:  # the AED family's greedy dispatches
+        payload["aed"] = aed.to_json()
     if state.mirror is not None:
         payload["world"] = state.mirror.to_json()
     return web.json_response(payload)

@@ -2721,9 +2721,27 @@ def phase_r(results):
                     state, free_port(), [(s, {}) for s in secs],
                     per_request))
                 mode = "beam" if label == "beam" else "greedy"
-                device_ms = {
-                    f"{k[2] / 16000:g}s": cuda_ms(p.graph.replay, 3)
-                    for k, p in pipe.programs.items() if k[0] == mode}
+                device_ms, stage_ms = {}, {}
+                for k, p in pipe.programs.items():
+                    if k[0] != mode:
+                        continue
+                    key = f"{k[2] / 16000:g}s"
+                    device_ms[key] = cuda_ms(p.graph.replay, 3)
+                    if len(p.stages) > 1:
+                        # a staged program (the AED greedy bucket: encoder,
+                        # then decoder): its one graph holds every stage
+                        p.graph.replay()
+                        torch.cuda.synchronize()
+                        stage_ms[key] = [s * 1e3 for s in p.stage_seconds()]
+                        if not 0.8 <= sum(stage_ms[key]) / device_ms[key] \
+                                <= 1.25:
+                            raise AssertionError(
+                                f"[R] {fam} {label} {key}: stages "
+                                f"{stage_ms[key]} ms of a {device_ms[key]} "
+                                "ms replay")
+                if fam == "aed" and label == "greedy" and \
+                        set(stage_ms) != set(device_ms):
+                    raise AssertionError("[R] aed greedy: not staged")
                 mcfg = pipe.model.config
                 for (s, n, status, body, wall), counts in zip(resp,
                                                               per_request):
@@ -2735,11 +2753,14 @@ def phase_r(results):
                                 "log_mel": counts["log_mel"],
                                 "quant_matmul": counts["quant_matmul"],
                                 "build_s": build_s}
+                    if f"{s:g}s" in stage_ms:
+                        out[key]["stage_ms"] = stage_ms[f"{s:g}s"]
                     say("R", f"large {key} bf16: HTTP {status} "
                         f"{body.get('status')} {len(md.get('tokens', []))} "
                         f"tokens {md.get('decode_path', '')}, request wall "
                         f"{wall * 1e3:.1f} ms, bucket replay {dms:.3f} ms "
-                        f"device; launches log_mel {counts['log_mel']} "
+                        f"device (stages {out[key].get('stage_ms')} ms); "
+                        f"launches log_mel {counts['log_mel']} "
                         f"quant_matmul {counts['quant_matmul']} (built and "
                         f"warmed in {build_s:.1f} s)")
                     if not response_ok(mcfg, n, status, body,
