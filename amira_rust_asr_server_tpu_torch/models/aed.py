@@ -21,14 +21,19 @@ and :meth:`AEDModel.decode_beam` re-run the causally masked full decoder
 every step, as the reference does; :meth:`AEDModel.decode_greedy_cached`
 prefills the prompt's positions into static ``[L, B, P + max_len, H, Dh]``
 self-attention K/V buffers in one pass, then writes one position per step,
-and projects the cross-attention K/V once. :meth:`AEDModel.loss` is the
-teacher-forced cross-entropy the family trains on.
+and projects the cross-attention K/V once. Its loop runs in pieces of
+:data:`LOOP_CHUNK` decisions on a :class:`CachedLoop` kept in place
+(:meth:`AEDModel.greedy_open`, then :meth:`AEDModel.greedy_chunk`), so a
+server may capture each piece as a graph of its own and stop once every
+real lane has emitted EOS; the whole loop runs every piece.
+:meth:`AEDModel.loss` is the teacher-forced cross-entropy the family trains
+on.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +44,12 @@ from .encoder import EncoderModel, init_encoder_weights, scalar
 from .presets import ModelConfig
 
 NEG = -1e9
+
+# decisions in each piece of the cached greedy loop: the opening makes the
+# first N (the prompt's prefill and N - 1 steps), each chunk the next N. A
+# loop served in pieces runs at most N - 1 decisions past its last live one,
+# and the piece queued ahead of the flag's read.
+LOOP_CHUNK = 8
 
 
 def _sinusoid(u: int, d: int, dtype=torch.float32,
@@ -121,6 +132,68 @@ def _counts(toks: torch.Tensor, eos: int, max_len: int) -> torch.Tensor:
         torch.int32)
 
 
+def loop_pieces(max_len: int) -> List[Tuple[int, int]]:
+    """(first decision, decisions) of each piece of a ``max_len`` cached
+    greedy loop: the opening, then the chunks (the last may be short)."""
+    return [(s, min(LOOP_CHUNK, max_len - s))
+            for s in range(0, max_len, LOOP_CHUNK)]
+
+
+@dataclasses.dataclass
+class CachedLoop:
+    """The state of the KV-cached greedy loop, read and written in place
+    by its pieces, so that each piece can be a graph of its own over the
+    same buffers. ``cross`` and ``frame_mask`` hold up to :attr:`capacity`
+    encoder frames; a state views ``t`` of them (:meth:`frames`), so
+    buckets of one batch size can share one set."""
+
+    cross: torch.Tensor       # flat: cross K, then V, each [L, B, t, H, Dh]
+    frame_mask: torch.Tensor  # flat: [B, 1, 1, t] additive, valid frames
+    real: torch.Tensor        # [B] bool: the lanes the flag watches
+    k: torch.Tensor           # [L, B, P + max_len, H, Dh] self-attention K
+    v: torch.Tensor           # and V
+    pe: torch.Tensor          # [P + max_len, d] the positions' sinusoids
+    buf: torch.Tensor         # [B, P + max_len] int32: prompt, then tokens
+    done: torch.Tensor        # [B] bool: the lane has emitted EOS
+    counts: torch.Tensor      # [B] int32: tokens before the first EOS
+    live: torch.Tensor        # [1] bool: a real lane has not emitted EOS
+    prompt_len: int
+    t: int                    # encoder frames viewed
+
+    @property
+    def capacity(self) -> int:
+        return self.frame_mask.numel() // self.buf.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.buf.shape[1] - self.prompt_len
+
+    @property
+    def tokens(self) -> torch.Tensor:
+        """[B, max_len] int32, EOS after each lane's last decision."""
+        return self.buf[:, self.prompt_len:]
+
+    def frames(self, t: int) -> "CachedLoop":
+        """This state's buffers, viewing ``t`` encoder frames."""
+        if t > self.capacity:
+            raise ValueError(f"{t} encoder frames exceed the loop state's "
+                             f"{self.capacity}")
+        return dataclasses.replace(self, t=t)
+
+    def cross_kv(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer ``layer``'s cross-attention K and V, contiguous [B, t, H,
+        Dh] views."""
+        n_layers, b, _, h, dh = self.k.shape
+        kv = self.cross[:2 * n_layers * b * self.t * h * dh].view(
+            2, n_layers, b, self.t, h, dh)
+        return kv[0, layer], kv[1, layer]
+
+    @property
+    def enc_mask(self) -> torch.Tensor:
+        b = self.buf.shape[0]
+        return self.frame_mask[:b * self.t].view(b, 1, 1, self.t)
+
+
 def port_config(config) -> ModelConfig:
     """``config`` as the port's :class:`ModelConfig`: another model config
     (the reference's, which keeps no decoder fields) gives its fields of
@@ -159,8 +232,13 @@ class AEDModel(EncoderModel):
         """int32 ``[..., U]`` of EOS with the prompt at positions
         ``0..P-1``, each position a fill (no host copy, so a capture holds
         it)."""
+        return self._prompt_into(torch.empty(shape, dtype=torch.int32,
+                                             device=device))
+
+    def _prompt_into(self, buf: torch.Tensor) -> torch.Tensor:
+        """:meth:`_prompted` written into ``buf`` in place."""
         eos = self.config.blank_id
-        buf = torch.full(shape, eos, dtype=torch.int32, device=device)
+        buf.fill_(eos)
         for i, tok in enumerate(self.prompt):
             if tok != eos:
                 buf[..., i].fill_(tok)
@@ -360,80 +438,140 @@ class AEDModel(EncoderModel):
         [B, max_len] without the prompt, counts [B]), and with
         ``return_logits`` each decision's logits [B, max_len, vocab].
 
-        One prefill pass runs the prompt's P positions as a block: it
-        writes their self-attention K/V into static ``[L, B, P + max_len,
-        H, Dh]`` buffers, and its last position's logits make the first
-        decision. Then ``max_len - 1`` steps of one position each, from
-        position P, each writing its K/V and attending to the cache up to
-        itself. The cross-attention K/V are projected from the encoder
-        once, before the prefill. Positions and the sinusoids follow the
-        teacher-forced ``[prompt, tokens]`` of :meth:`decoder_logits`."""
-        eos = self.config.blank_id
-        p = self.decoder
-        b, t = enc.shape[0], enc.shape[1]
-        d, h = self.d, self.config.dec_heads
-        dh = d // h
-        n_p = len(self.prompt)
-        u_max = n_p + max_len
-        dev, dt = enc.device, p.embed.dtype
-        pe = _sinusoid(u_max, d, dt, dev)
-
-        # cross-attention K/V: one projection per layer, reused every step
-        cross_kv = [((enc @ lp["cross"]["wk"]).reshape(b, t, h, dh),
-                     (enc @ lp["cross"]["wv"]).reshape(b, t, h, dh))
-                    for lp in p.layers]
-        enc_mask = _mask(torch.arange(t, device=dev)[None, :]
-                         < enc_lens[:, None], pe)[:, None, None, :]
-        kc = torch.zeros((len(p.layers), b, u_max, h, dh), dtype=dt,
-                         device=dev)
-        vc = torch.zeros_like(kc)
-        buf = self._prompted((b, u_max), dev)
-        done = torch.zeros((b,), dtype=torch.bool, device=dev)
-        ar_u = torch.arange(u_max, device=dev)
-
-        def block(pos: int, n: int) -> torch.Tensor:
-            """Positions ``pos..pos+n-1`` through the decoder, their K/V
-            into the cache: the last position's logits [B, vocab]."""
-            x = p.embed[buf[:, pos:pos + n].long()] + pe[pos:pos + n]
-            pos_mask = _mask(ar_u[None, :] <= ar_u[pos:pos + n, None],
-                             x)                                # [n, U]
-            for li, lp in enumerate(p.layers):
-                hh = _ln(x, lp["ln1"])
-                q = (hh @ lp["self"]["wq"]).reshape(b, n, h, dh)
-                kc[li, :, pos:pos + n] = (hh @ lp["self"]["wk"]).reshape(
-                    b, n, h, dh)
-                vc[li, :, pos:pos + n] = (hh @ lp["self"]["wv"]).reshape(
-                    b, n, h, dh)
-                logits = torch.einsum("bnhd,bthd->bhnt", q, kc[li])
-                logits = logits / torch.sqrt(scalar(dh, logits))
-                att = _softmax(logits + pos_mask)
-                x = x + torch.einsum("bhnt,bthd->bnhd", att, vc[li]
-                                     ).reshape(b, n, d) @ lp["self"]["wo"]
-                hh = _ln(x, lp["ln2"])
-                q = (hh @ lp["cross"]["wq"]).reshape(b, n, h, dh)
-                ck, cv = cross_kv[li]
-                cl = torch.einsum("bnhd,bthd->bhnt", q, ck)
-                cl = cl / torch.sqrt(scalar(dh, cl))
-                catt = _softmax(cl + enc_mask)
-                x = x + torch.einsum("bhnt,bthd->bnhd", catt, cv
-                                     ).reshape(b, n, d) @ lp["cross"]["wo"]
-                x = x + _ff(_ln(x, lp["ln3"]), lp["ff"])
-            x = _ln(x[:, -1], p.ln_out)
-            return x @ p.out["w"] + p.out["b"]
-
-        kept = []
-        for u in range(max_len):
-            # the prefill makes the first decision; step u feeds the token
-            # at position P + u - 1 (the last decision)
-            step_logits = block(0, n_p) if u == 0 else block(n_p + u - 1, 1)
-            if return_logits:
-                kept.append(step_logits)
-            nxt = torch.argmax(step_logits, dim=-1).to(torch.int32)
-            nxt = torch.where(done, eos, nxt)
-            done = done | (nxt == eos)
-            buf[:, n_p + u] = nxt
-        toks = buf[:, n_p:]
-        counts = _counts(toks, eos, max_len)
+        The opening (:meth:`greedy_open`), then every chunk
+        (:meth:`greedy_chunk`), on a fresh :class:`CachedLoop`: the
+        ``max_len`` decisions whatever the lanes emit."""
+        loop = self.cached_loop(enc.shape[0], enc.shape[1], max_len,
+                                enc.device)
+        kept: Optional[List[torch.Tensor]] = [] if return_logits else None
+        pieces = loop_pieces(max_len)
+        self.greedy_open(enc, enc_lens, loop, pieces[0][1], kept)
+        for start, n in pieces[1:]:
+            self.greedy_chunk(loop, start, n, kept)
+        toks, counts = loop.tokens, loop.counts
         if return_logits:
             return toks, counts, torch.stack(kept, dim=1)
         return toks, counts
+
+    def cached_loop(self, b: int, frames: int, max_len: int,
+                    device: torch.device) -> CachedLoop:
+        """A zeroed :class:`CachedLoop` for ``b`` lanes of up to ``frames``
+        encoder frames and ``max_len`` decisions, in the decoder's dtype on
+        ``device``."""
+        p = self.decoder
+        dt = p.embed.dtype
+        n_layers, d, h = len(p.layers), self.d, self.config.dec_heads
+        n_p = len(self.prompt)
+        u_max = n_p + max_len
+
+        def zeros(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return CachedLoop(
+            cross=zeros(2 * n_layers * b * frames * d),
+            frame_mask=zeros(b * frames), real=zeros(b, dtype=torch.bool),
+            k=zeros(n_layers, b, u_max, h, d // h),
+            v=zeros(n_layers, b, u_max, h, d // h),
+            pe=_sinusoid(u_max, d, dt, device),
+            buf=self._prompted((b, u_max), device),
+            done=zeros(b, dtype=torch.bool),
+            counts=zeros(b, dtype=torch.int32),
+            live=zeros(1, dtype=torch.bool), prompt_len=n_p, t=frames)
+
+    def greedy_open(self, enc: torch.Tensor, enc_lens: torch.Tensor,
+                    loop: CachedLoop, steps: int,
+                    kept: Optional[List[torch.Tensor]] = None,
+                    real: Optional[torch.Tensor] = None) -> None:
+        """The loop's opening on ``loop`` (whose state it resets): the
+        cross-attention K/V projected from ``enc [B, t, d_enc]`` once, the
+        valid frames' mask, then the first ``steps`` decisions. The first is
+        the prefill's: the prompt's P positions as one block, their
+        self-attention K/V into the cache, the last one's logits deciding.
+        ``kept`` collects each decision's logits; ``real [B]`` bool names
+        the lanes whose EOS the flag waits for (by default every lane)."""
+        p = self.decoder
+        b, t = enc.shape[0], enc.shape[1]
+        if (b, t) != (loop.buf.shape[0], loop.t):
+            raise ValueError(f"the loop state holds {loop.buf.shape[0]} "
+                             f"lanes of {loop.t} frames, not {b} of {t}")
+        h = self.config.dec_heads
+        dh = self.d // h
+        for li, lp in enumerate(p.layers):
+            ck, cv = loop.cross_kv(li)
+            ck.copy_((enc @ lp["cross"]["wk"]).reshape(b, t, h, dh))
+            cv.copy_((enc @ lp["cross"]["wv"]).reshape(b, t, h, dh))
+        loop.enc_mask.copy_(_mask(torch.arange(t, device=enc.device)[None, :]
+                                  < enc_lens[:, None], loop.pe)[:, None,
+                                                                None, :])
+        if real is None:
+            loop.real.fill_(True)
+        else:
+            loop.real.copy_(real)
+        loop.k.zero_()
+        loop.v.zero_()
+        self._prompt_into(loop.buf)
+        loop.done.zero_()
+        self.greedy_chunk(loop, 0, steps, kept)
+
+    def greedy_chunk(self, loop: CachedLoop, start: int, steps: int,
+                     kept: Optional[List[torch.Tensor]] = None) -> None:
+        """Decisions ``start .. start + steps - 1`` of the loop on
+        ``loop`` (after the first, one position a step, each feeding the
+        last decision's token and attending to the cache up to it), then
+        its counts and its flag "a real lane is live". A lane that has
+        emitted EOS takes EOS again, so steps past it change none of its
+        tokens."""
+        eos, n_p = self.config.blank_id, loop.prompt_len
+        ar_u = torch.arange(loop.buf.shape[1], device=loop.buf.device)
+        for u in range(start, start + steps):
+            # the prefill makes the first decision; step u feeds the token
+            # at position P + u - 1 (the last decision)
+            logits = (self._cached_block(loop, ar_u, 0, n_p) if u == 0
+                      else self._cached_block(loop, ar_u, n_p + u - 1, 1))
+            if kept is not None:
+                kept.append(logits)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            nxt = torch.where(loop.done, eos, nxt)
+            loop.done |= nxt == eos
+            loop.buf[:, n_p + u] = nxt
+        loop.counts.copy_(_counts(loop.tokens, eos, loop.max_len))
+        loop.live.copy_((loop.real & ~loop.done).any().reshape(1))
+
+    def _cached_block(self, loop: CachedLoop, ar_u: torch.Tensor, pos: int,
+                      n: int) -> torch.Tensor:
+        """Positions ``pos..pos+n-1`` through the decoder, their K/V into
+        the cache: the last position's logits [B, vocab]. Positions and
+        sinusoids follow the teacher-forced ``[prompt, tokens]`` of
+        :meth:`decoder_logits`."""
+        p = self.decoder
+        b = loop.buf.shape[0]
+        d, h = self.d, self.config.dec_heads
+        dh = d // h
+        kc, vc = loop.k, loop.v
+        x = p.embed[loop.buf[:, pos:pos + n].long()] + loop.pe[pos:pos + n]
+        pos_mask = _mask(ar_u[None, :] <= ar_u[pos:pos + n, None],
+                         x)                                    # [n, U]
+        enc_mask = loop.enc_mask
+        for li, lp in enumerate(p.layers):
+            hh = _ln(x, lp["ln1"])
+            q = (hh @ lp["self"]["wq"]).reshape(b, n, h, dh)
+            kc[li, :, pos:pos + n] = (hh @ lp["self"]["wk"]).reshape(
+                b, n, h, dh)
+            vc[li, :, pos:pos + n] = (hh @ lp["self"]["wv"]).reshape(
+                b, n, h, dh)
+            logits = torch.einsum("bnhd,bthd->bhnt", q, kc[li])
+            logits = logits / torch.sqrt(scalar(dh, logits))
+            att = _softmax(logits + pos_mask)
+            x = x + torch.einsum("bhnt,bthd->bnhd", att, vc[li]
+                                 ).reshape(b, n, d) @ lp["self"]["wo"]
+            hh = _ln(x, lp["ln2"])
+            q = (hh @ lp["cross"]["wq"]).reshape(b, n, h, dh)
+            ck, cv = loop.cross_kv(li)
+            cl = torch.einsum("bnhd,bthd->bhnt", q, ck)
+            cl = cl / torch.sqrt(scalar(dh, cl))
+            catt = _softmax(cl + enc_mask)
+            x = x + torch.einsum("bhnt,bthd->bnhd", catt, cv
+                                 ).reshape(b, n, d) @ lp["cross"]["wo"]
+            x = x + _ff(_ln(x, lp["ln3"]), lp["ff"])
+        x = _ln(x[:, -1], p.ln_out)
+        return x @ p.out["w"] + p.out["b"]

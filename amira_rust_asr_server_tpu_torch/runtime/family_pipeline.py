@@ -16,10 +16,14 @@ one CUDA graph at its warm-up and replayed by every dispatch:
   (``ops/ctc_beam.py``) with the transducer's decoding graphs (static
   tables per graph capacity) and a static bias vector.
 * **AED**: log-mel -> encoder, then the KV-cached greedy decoder
-  (``models/aed.py``: the task prompt's prefill, then a fixed ``max_len``
-  loop with no host read, which is what lets a graph hold it), two stages
-  of one program, captured as one graph with timing events between them;
-  beam: the length-normalized search
+  (``models/aed.py``): the bucket's program runs the encoder and the
+  loop's opening (the cross K/V, the task prompt's prefill and the first
+  ``LOOP_CHUNK`` decisions) as two stages captured as one graph with
+  timing events between them; each later chunk of ``LOOP_CHUNK``
+  decisions is a program of its own on the bucket's static loop state
+  (``CachedLoop``), replayed while a device flag says a real lane has not
+  emitted EOS (:meth:`AEDPipeline._greedy_replay`); beam: the
+  length-normalized search
   (length penalty 0.6, all K hypotheses for the n-best). AED has no frame
   alignment: its ``frame_idx`` and ``confidence`` are zeros, as the
   reference's. Its beam takes no decoding graph and no bias, as the
@@ -33,8 +37,8 @@ A greedy dispatch is recorded as the transducer's is (the span
 ``dispatch.lock``, ``.stage``, ``.run``, ``.readback``, ``.capture``). The
 AED pipeline counts its greedy dispatches (:class:`AEDStats`, the group
 ``aed`` of the JSON ``/metrics``) from the host arrays the dispatch reads
-back and the stages' device times read after that readback, so the
-counting adds no wait for the device.
+back, the chunks it ran and the device times read after that readback, so
+the counting adds no wait for the device.
 
 Both families are stateless: WebSocket streaming stays transducer-only
 (refused with 400 by the handler), and a carried stream state is refused
@@ -48,7 +52,7 @@ serving world sends to the other ranks (``parallel/serve.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,12 +61,14 @@ from .. import constants as C
 from ..config import Config
 from ..convert import MODELS, load_checkpoint
 from ..errors import InvalidAudioFormatError
-from ..models.aed import AEDModel
+from ..models.aed import AEDModel, CachedLoop, loop_pieces
 from ..models.presets import get_preset
 from ..ops.beam import BeamResult, TokenTrie
 from ..ops.ctc import ctc_greedy_decode_timed
 from ..ops.ctc_beam import ctc_beam_decode
+from ..ops.features import feature_lens
 from ..ops.greedy import GreedyResult
+from ..parallel.serve import mirrored
 from ..reliability import get_logger, tracing
 from ..vocab import Vocabulary
 from .pipeline import AsrPipeline
@@ -167,10 +173,9 @@ class CTCPipeline(AsrPipeline):
                 with tracing.span("dispatch.stage", top):
                     self._stage_audio(prog, samples)
                 with tracing.span("dispatch.run", top):
-                    outs = prog.run_eager() if eager else prog.run()
+                    ran = self._greedy_replay(prog, eager, (b, n))
                 with tracing.span("dispatch.readback", top):
-                    host = prog.to_host(outs)
-                    self._count_dispatch(prog, host, b_real)
+                    host = self._greedy_readback(prog, ran, b_real)
             finally:
                 self.device_lock.release()
         if not eager:
@@ -181,10 +186,18 @@ class CTCPipeline(AsrPipeline):
                            last_token=None)
         return res, feat_lens, enc_lens, [None] * b_real
 
-    def _count_dispatch(self, prog: DeviceProgram, host, b_real: int
-                        ) -> None:
-        """Count a greedy dispatch from what its readback gave (the AED
-        family's counters; none here)."""
+    def _greedy_replay(self, prog: DeviceProgram, eager: bool,
+                       bucket: Tuple[int, int]):
+        """Run the greedy program ``prog`` of ``bucket`` (batch, samples;
+        the span ``dispatch.run``): its outputs; ``eager`` runs its body
+        instead of its replay."""
+        return prog.run_eager() if eager else prog.run()
+
+    def _greedy_readback(self, prog: DeviceProgram, ran, b_real: int):
+        """What :meth:`_greedy_replay` gave, on the host (the span
+        ``dispatch.readback``): (feat_lens, enc_lens, tokens, counts,
+        frame_idx, confidence)."""
+        return prog.to_host(ran)
 
     def decode_beam_batch(self, samples: Sequence[np.ndarray], *, bias=None,
                           graph: Optional[TokenTrie] = None, n_best: int = 1
@@ -226,19 +239,23 @@ class CTCPipeline(AsrPipeline):
 @dataclasses.dataclass
 class AEDStats:
     """The AED pipeline's greedy dispatches, for ``/metrics`` (group
-    ``aed``): the decoder's steps are its decisions, ``max_len`` a
-    dispatch (the prompt's prefill makes the first); a lane's live steps
+    ``aed``): the decoder's steps are the decisions a dispatch ran (the
+    prompt's prefill makes the first): the opening's ``LOOP_CHUNK``, then
+    those of each chunk replayed, at most ``max_len``; a lane's live steps
     are its tokens and its EOS, at most ``max_len``; the device seconds are
-    the encoder stage's (log-mel and encoder) and the decode stage's (the
-    cross K/V, the prefill and the loop), from CUDA events, on a card
-    only."""
+    the encoder stage's (log-mel and encoder) and the decode's (the
+    bucket's decode stage, the cross K/V, the prefill and the opening's
+    decisions, from its captured events, and the chunks, from an event
+    before the first and one after the last, with any wait for the host
+    between them), from CUDA events, on a card only."""
 
     dispatches: int = 0
     lanes_total: int = 0
-    steps_total: int = 0            # decisions run, max_len a dispatch
+    steps_total: int = 0            # decisions run
     lane_steps_total: int = 0       # steps x real lanes
     live_lane_steps_total: int = 0  # min(tokens + 1, max_len), real lanes
     prompt_tokens_total: int = 0    # prompt positions x real lanes
+    loop_chunks_total: int = 0      # chunk programs replayed
     encode_device_s_total: float = 0.0
     decode_device_s_total: float = 0.0
 
@@ -246,9 +263,50 @@ class AEDStats:
         return dataclasses.asdict(self)
 
 
+@dataclasses.dataclass
+class BucketLoop:
+    """A greedy AED bucket's loop after its opening: the bucket's view of
+    its batch size's loop state, a program for each later chunk of
+    decisions, and the decisions of the opening and of each chunk."""
+
+    state: CachedLoop
+    chunks: List[DeviceProgram]
+    decisions: List[int]
+
+
+class _FlagBehind:
+    """The loop's 1-byte device flag read one chunk behind: :meth:`post`
+    queues a copy of the flag as the last queued piece leaves it into a
+    pinned host byte, with an event after it on a card; :meth:`previous`
+    waits for the post before the last and reads it, while the device runs
+    the piece queued after that post."""
+
+    def __init__(self, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = [torch.zeros(1, dtype=torch.bool, pin_memory=cuda)
+                     for _ in range(2)]
+        self.events = ([torch.cuda.Event() for _ in range(2)] if cuda
+                       else None)
+        self.posts = 0
+
+    def post(self, flag: torch.Tensor) -> None:
+        i = self.posts % 2
+        self.host[i].copy_(flag, non_blocking=True)
+        if self.events is not None:
+            self.events[i].record()
+        self.posts += 1
+
+    def previous(self) -> bool:
+        i = self.posts % 2  # the post before the last
+        if self.events is not None:
+            self.events[i].synchronize()
+        return bool(self.host[i][0])
+
+
 class AEDPipeline(CTCPipeline):
     """The AED family on the full serving surface (the CTC pipeline's
-    plumbing: stateless, no prediction net)."""
+    plumbing: stateless, no prediction net). Its greedy loop stops at the
+    chunk after the one in which its last real lane emitted EOS."""
 
     family = "aed"
     beam_path = "aed_beam"
@@ -259,6 +317,15 @@ class AEDPipeline(CTCPipeline):
                  device: Optional[torch.device] = None, mesh=None):
         super().__init__(model, vocab, config, device, mesh)
         self.aed_stats = AEDStats()
+        self._loops: dict = {}  # batch size -> the greedy loop's state
+        # (batch, samples) -> the greedy bucket's loop after its opening
+        self.bucket_loops: Dict[Tuple[int, int], BucketLoop] = {}
+        self._flag = _FlagBehind(self.device)
+        # the chunks' device time: an event before the first, one after
+        # the last (a card only)
+        self._chunk_marks = ([torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)]
+                             if self.device.type == "cuda" else None)
         if self.beam_graph is not None:
             log.warning("the aed family's beam search takes no decoding "
                         "graph (as the reference's): beam_grammar_path is "
@@ -273,47 +340,148 @@ class AEDPipeline(CTCPipeline):
         return 0  # the beam programs read no graph tables
 
     def _greedy_program(self, b: int, n: int) -> DeviceProgram:
-        """Two stages: log-mel and the encoder, then the decoder."""
+        """Two stages: log-mel and the encoder, then the loop's opening;
+        the rest of the loop, a program for each later chunk of decisions
+        on the bucket's view of its batch size's loop state, goes to
+        :attr:`bucket_loops`."""
         x = self._audio_inputs(b, n)
-        return self._new_program(
-            f"{self.family} greedy bucket {b} x {n} samples",
-            (lambda: self._encode_stage(x), self._decode_stage), x)
+        name = f"{self.family} greedy bucket {b} x {n} samples"
+        loop = self._loop_state(b, n)
+        (_, opening), *rest = loop_pieces(self.max_len)
+        prog = self._new_program(
+            name, (lambda: self._encode_stage(x),
+                   lambda *enc: self._decode_stage(loop, opening, x["lens"],
+                                                   *enc)), x)
+        self.bucket_loops[(b, n)] = BucketLoop(loop, [
+            DeviceProgram(
+                f"{name}: decisions {start}-{start + steps - 1}",
+                self.device,
+                lambda start=start, steps=steps: self._chunk(loop, start,
+                                                             steps),
+                pool=self.graph_pool(), capture=self.capture)
+            for start, steps in rest],
+            [opening] + [steps for _, steps in rest])
+        return prog
+
+    def _loop_state(self, b: int, n: int) -> CachedLoop:
+        """The greedy loop's state for a bucket of ``b`` lanes of ``n``
+        samples: one set a batch size, made outside any capture for the
+        longest length bucket's encoder frames, viewed for this bucket's
+        (its dispatches run one at a time behind :attr:`device_lock`)."""
+        loop = self._loops.get(b)
+        if loop is None:
+            longest = int(self._sec_buckets[-1] * C.SAMPLE_RATE)
+            loop = self._loops[b] = self.model.cached_loop(
+                b, self._enc_frames(longest), self.max_len, self.device)
+        return loop.frames(self._enc_frames(n))
+
+    def _enc_frames(self, n: int) -> int:
+        """The encoder's frames for ``n`` samples."""
+        return int(_enc_lens_rule(feature_lens(torch.tensor([n])),
+                                  self.model.config.subsampling_factor)[0])
 
     def _encode_stage(self, x: dict) -> Tuple[torch.Tensor, ...]:
         feats, feat_lens = self._features(x["audio"], x["lens"])
         enc, enc_lens = self.model.encode(feats, feat_lens)
         return feat_lens, enc, enc_lens
 
-    def _decode_stage(self, feat_lens: torch.Tensor, enc: torch.Tensor,
-                      enc_lens: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        toks, counts = self.model.greedy_cached_from_enc(
-            enc, enc_lens, max_len=self.max_len)
-        enc_lens = _enc_lens_rule(feat_lens,
-                                  self.model.config.subsampling_factor)
+    def _decode_stage(self, loop: CachedLoop, steps: int,
+                      lens: torch.Tensor, feat_lens: torch.Tensor,
+                      enc: torch.Tensor, enc_lens: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+        """The loop's opening into ``loop``, its flag included, watching
+        the lanes with audio (``lens``, samples: a padding lane has none,
+        though its one feature frame gives it an encoder frame): (feat_lens,
+        enc_lens)."""
+        self.model.greedy_open(enc, enc_lens, loop, steps, real=lens > 0)
+        return feat_lens, _enc_lens_rule(feat_lens,
+                                         self.model.config.subsampling_factor)
+
+    def _chunk(self, loop: CachedLoop, start: int, steps: int) -> tuple:
+        self.model.greedy_chunk(loop, start, steps)
+        return ()  # the chunk's effects are on the loop state
+
+    def _greedy_replay(self, prog: DeviceProgram, eager: bool,
+                       bucket: Tuple[int, int]):
+        """The bucket's program, then its chunks, each queued before the
+        flag the piece before it left is read, until that flag says no
+        real lane is live or the chunks run out: (the program's outputs,
+        the bucket's :class:`BucketLoop`, chunks run). A decision after every real lane's EOS changes none
+        of their tokens, so the chunk run ahead of the flag is exact; a
+        padding lane (no audio) never holds the loop. ``eager`` runs each
+        piece's body instead of its replay. A bucket made by this dispatch
+        then warms the chunks it did not reach."""
+        def run(p: DeviceProgram):
+            return p.run_eager() if eager else p.run()
+
+        loop = self.bucket_loops[bucket]
+        outs = run(prog)
+        self._flag.post(loop.state.live)
+        ran = 0
+        for chunk in loop.chunks:
+            if ran == 0 and self._chunk_marks is not None:
+                self._chunk_marks[0].record()
+            run(chunk)
+            self._flag.post(loop.state.live)
+            ran += 1
+            if not self._flag.previous():
+                break
+        if ran and self._chunk_marks is not None:
+            self._chunk_marks[1].record()
+        if not eager:
+            self._warm_chunks(loop)
+        return outs, loop, ran
+
+    @staticmethod
+    def _warm_chunks(loop: BucketLoop) -> None:
+        """Capture every chunk program of ``loop`` not yet warm, whatever
+        the flag says (each runs once on the loop state as it stands)."""
+        for chunk in loop.chunks:
+            chunk.warm_up()
+
+    def _greedy_readback(self, prog: DeviceProgram, ran, b_real: int):
+        outs, loop, chunks = ran
+        feat_lens, enc_lens, tokens, counts = prog.to_host(
+            (*outs, loop.state.tokens, loop.state.counts))
+        self._count_dispatch(prog, loop, counts[:b_real], chunks)
         # attention decoders have no frame-synchronous alignment: no
         # per-token times or confidences (the reference's zeros)
-        return (feat_lens, enc_lens, toks, counts,
-                torch.zeros(toks.shape, dtype=torch.int32, device=toks.device),
-                torch.zeros(toks.shape, dtype=torch.float32,
-                            device=toks.device))
+        return (feat_lens, enc_lens, tokens, counts,
+                np.zeros(tokens.shape, np.int32),
+                np.zeros(tokens.shape, np.float32))
 
-    def _count_dispatch(self, prog: DeviceProgram, host, b_real: int
-                        ) -> None:
+    def _count_dispatch(self, prog: DeviceProgram, loop: BucketLoop,
+                        counts: np.ndarray, chunks: int) -> None:
         """The ``aed`` counters of one greedy dispatch: its real lanes'
-        counts (``host[3]``) and its stages' device times."""
-        st, steps = self.aed_stats, self.max_len
-        counts = host[3][:b_real]
+        ``counts``, the decisions of the opening and the ``chunks`` run, and
+        the device times, read after the readback."""
+        st, lanes = self.aed_stats, len(counts)
+        steps = sum(loop.decisions[:chunks + 1])
         st.dispatches += 1
-        st.lanes_total += b_real
+        st.lanes_total += lanes
         st.steps_total += steps
-        st.lane_steps_total += steps * b_real
+        st.lane_steps_total += steps * lanes
         st.live_lane_steps_total += int(np.minimum(
             counts.astype(np.int64) + 1, steps).sum())
-        st.prompt_tokens_total += len(self.model.prompt) * b_real
+        st.prompt_tokens_total += len(self.model.prompt) * lanes
+        st.loop_chunks_total += chunks
         secs = prog.stage_seconds()
         if secs is not None:
             st.encode_device_s_total += secs[0]
             st.decode_device_s_total += secs[1]
+            if chunks:
+                a, b = self._chunk_marks
+                st.decode_device_s_total += a.elapsed_time(b) / 1e3
+
+    @mirrored
+    def _warm_one(self, b: int, n_samples: int) -> None:
+        """:meth:`AsrPipeline._warm_one`, and in greedy mode every chunk
+        program of the bucket, so that no dispatch captures one."""
+        with self.device_lock:
+            super()._warm_one(b, n_samples)
+            if self.config.decoding_mode == "greedy":
+                self._warm_chunks(self.bucket_loops[
+                    (self._bucket_batch(b), self._bucket_len(n_samples))])
 
     def _beam_body(self, x: dict, graph: Optional[TokenTrie]
                    ) -> Tuple[torch.Tensor, ...]:

@@ -270,9 +270,12 @@ def test_the_aed_counters_count_a_dispatch_from_its_readback(pipe):
     res = pipe.decode_samples_batch(samples)[0]
     after = pipe.aed_stats.to_json()
     d = {k: after[k] - before[k] for k in after}
-    steps = pipe.max_len
+    loop = pipe.bucket_loops[(2, 8000)]
+    steps = sum(loop.decisions[:d["loop_chunks_total"] + 1])
     counts = [int(c) for c in res.counts[:2]]
     assert d["dispatches"] == 1 and d["lanes_total"] == 2
+    assert 0 <= d["loop_chunks_total"] <= len(loop.chunks)
+    assert min(max(counts) + 1, pipe.max_len) <= steps <= pipe.max_len
     assert d["steps_total"] == steps
     assert d["lane_steps_total"] == 2 * steps
     assert d["live_lane_steps_total"] == sum(min(c + 1, steps)
@@ -299,7 +302,7 @@ def test_the_aed_group_is_in_metrics_only_when_aed_is_served(pipe):
     assert out["aed"] == pipe.aed_stats.to_json()
     assert set(out["aed"]) == {
         "dispatches", "lanes_total", "steps_total", "lane_steps_total",
-        "live_lane_steps_total", "prompt_tokens_total",
+        "live_lane_steps_total", "prompt_tokens_total", "loop_chunks_total",
         "encode_device_s_total", "decode_device_s_total"}
     ctc_model = CTCModel(dataclasses.replace(CFG, dec_prompt=())
                          ).init_weights(torch.Generator().manual_seed(1))
