@@ -19,13 +19,14 @@ Every decode runs a fixed ``max_len`` loop of device ops with no host read
 inside, so a CUDA graph captures it whole: :meth:`AEDModel.decode_greedy`
 and :meth:`AEDModel.decode_beam` re-run the causally masked full decoder
 every step, as the reference does; :meth:`AEDModel.decode_greedy_cached`
-prefills the prompt's positions into static ``[L, B, P + max_len, H, Dh]``
-self-attention K/V buffers in one pass, then writes one position per step,
-and projects the cross-attention K/V once. Its loop runs in pieces of
-:data:`LOOP_CHUNK` decisions on a :class:`CachedLoop` kept in place
-(:meth:`AEDModel.greedy_open`, then :meth:`AEDModel.greedy_chunk`), so a
-server may capture each piece as a graph of its own and stop once every
-real lane has emitted EOS; the whole loop runs every piece.
+prefills the prompt's positions into static self-attention K/V buffers in
+one pass, then writes one position per step, and projects the
+cross-attention K/V once. Its loop runs in pieces of :data:`LOOP_CHUNK`
+decisions on a :class:`CachedLoop` kept in place (:meth:`AEDModel.
+greedy_open`, then :meth:`AEDModel.greedy_chunk`); each step reads its
+position from the state on the device, so every chunk is the same piece of
+work and a server may capture it as one graph, replayed until every real
+lane has emitted EOS; the whole loop runs every chunk.
 :meth:`AEDModel.loss` is the teacher-forced cross-entropy the family trains
 on.
 """
@@ -132,32 +133,31 @@ def _counts(toks: torch.Tensor, eos: int, max_len: int) -> torch.Tensor:
         torch.int32)
 
 
-def loop_pieces(max_len: int) -> List[Tuple[int, int]]:
-    """(first decision, decisions) of each piece of a ``max_len`` cached
-    greedy loop: the opening, then the chunks (the last may be short)."""
-    return [(s, min(LOOP_CHUNK, max_len - s))
-            for s in range(0, max_len, LOOP_CHUNK)]
-
-
 @dataclasses.dataclass
 class CachedLoop:
     """The state of the KV-cached greedy loop, read and written in place
-    by its pieces, so that each piece can be a graph of its own over the
-    same buffers. ``cross`` and ``frame_mask`` hold up to :attr:`capacity`
-    encoder frames; a state views ``t`` of them (:meth:`frames`), so
-    buckets of one batch size can share one set."""
+    by its pieces, so that each piece can be a graph over the same buffers.
+    ``cross`` and ``frame_mask`` hold up to :attr:`capacity` encoder
+    frames; a state views ``t`` of them (:meth:`frames`), so buckets of one
+    batch size can share one set. The positions hold whole chunks (R): a
+    chunk past ``max_len`` writes none that a decision up to it reads."""
 
     cross: torch.Tensor       # flat: cross K, then V, each [L, B, t, H, Dh]
     frame_mask: torch.Tensor  # flat: [B, 1, 1, t] additive, valid frames
     real: torch.Tensor        # [B] bool: the lanes the flag watches
-    k: torch.Tensor           # [L, B, P + max_len, H, Dh] self-attention K
+    k: torch.Tensor           # [L, B, P + R, H, Dh] self-attention K
     v: torch.Tensor           # and V
-    pe: torch.Tensor          # [P + max_len, d] the positions' sinusoids
-    buf: torch.Tensor         # [B, P + max_len] int32: prompt, then tokens
+    pe: torch.Tensor          # [P + R, d] the positions' sinusoids
+    buf: torch.Tensor         # [B, P + R] int32: prompt, then tokens
     done: torch.Tensor        # [B] bool: the lane has emitted EOS
     counts: torch.Tensor      # [B] int32: tokens before the first EOS
     live: torch.Tensor        # [1] bool: a real lane has not emitted EOS
+    # [1] int64 (index_copy_'s index type): the position the next decision
+    # feeds, P + u - 1 for decision u
+    pos: torch.Tensor
+    ar: torch.Tensor          # [P + max_len] int64: the positions attended
     prompt_len: int
+    max_len: int
     t: int                    # encoder frames viewed
 
     @property
@@ -165,13 +165,14 @@ class CachedLoop:
         return self.frame_mask.numel() // self.buf.shape[0]
 
     @property
-    def max_len(self) -> int:
-        return self.buf.shape[1] - self.prompt_len
+    def chunks(self) -> int:
+        """The chunks after the opening that reach ``max_len``."""
+        return (self.buf.shape[1] - self.prompt_len) // LOOP_CHUNK - 1
 
     @property
     def tokens(self) -> torch.Tensor:
         """[B, max_len] int32, EOS after each lane's last decision."""
-        return self.buf[:, self.prompt_len:]
+        return self.buf[:, self.prompt_len:self.prompt_len + self.max_len]
 
     def frames(self, t: int) -> "CachedLoop":
         """This state's buffers, viewing ``t`` encoder frames."""
@@ -440,29 +441,29 @@ class AEDModel(EncoderModel):
 
         The opening (:meth:`greedy_open`), then every chunk
         (:meth:`greedy_chunk`), on a fresh :class:`CachedLoop`: the
-        ``max_len`` decisions whatever the lanes emit."""
+        ``max_len`` decisions whatever the lanes emit (and those of the
+        last chunk past it, which change none of them)."""
         loop = self.cached_loop(enc.shape[0], enc.shape[1], max_len,
                                 enc.device)
         kept: Optional[List[torch.Tensor]] = [] if return_logits else None
-        pieces = loop_pieces(max_len)
-        self.greedy_open(enc, enc_lens, loop, pieces[0][1], kept)
-        for start, n in pieces[1:]:
-            self.greedy_chunk(loop, start, n, kept)
+        self.greedy_open(enc, enc_lens, loop, kept)
+        for _ in range(loop.chunks):
+            self.greedy_chunk(loop, LOOP_CHUNK, kept)
         toks, counts = loop.tokens, loop.counts
         if return_logits:
-            return toks, counts, torch.stack(kept, dim=1)
+            return toks, counts, torch.stack(kept[:max_len], dim=1)
         return toks, counts
 
     def cached_loop(self, b: int, frames: int, max_len: int,
                     device: torch.device) -> CachedLoop:
         """A zeroed :class:`CachedLoop` for ``b`` lanes of up to ``frames``
-        encoder frames and ``max_len`` decisions, in the decoder's dtype on
-        ``device``."""
+        encoder frames and ``max_len`` decisions (positions for whole
+        chunks), in the decoder's dtype on ``device``."""
         p = self.decoder
         dt = p.embed.dtype
         n_layers, d, h = len(p.layers), self.d, self.config.dec_heads
         n_p = len(self.prompt)
-        u_max = n_p + max_len
+        u_max = n_p + -(-max_len // LOOP_CHUNK) * LOOP_CHUNK
 
         def zeros(*shape, dtype=dt):
             return torch.zeros(shape, dtype=dtype, device=device)
@@ -472,20 +473,25 @@ class AEDModel(EncoderModel):
             frame_mask=zeros(b * frames), real=zeros(b, dtype=torch.bool),
             k=zeros(n_layers, b, u_max, h, d // h),
             v=zeros(n_layers, b, u_max, h, d // h),
-            pe=_sinusoid(u_max, d, dt, device),
+            # the positions past P + max_len feed no decision at or before
+            # max_len: zeros, so the others are the sinusoids of P + max_len
+            pe=torch.cat([_sinusoid(n_p + max_len, d, dt, device),
+                          zeros(u_max - n_p - max_len, d)]),
             buf=self._prompted((b, u_max), device),
             done=zeros(b, dtype=torch.bool),
             counts=zeros(b, dtype=torch.int32),
-            live=zeros(1, dtype=torch.bool), prompt_len=n_p, t=frames)
+            live=zeros(1, dtype=torch.bool), pos=zeros(1, dtype=torch.int64),
+            ar=torch.arange(n_p + max_len, device=device),
+            prompt_len=n_p, max_len=max_len, t=frames)
 
     def greedy_open(self, enc: torch.Tensor, enc_lens: torch.Tensor,
-                    loop: CachedLoop, steps: int,
+                    loop: CachedLoop,
                     kept: Optional[List[torch.Tensor]] = None,
                     real: Optional[torch.Tensor] = None) -> None:
         """The loop's opening on ``loop`` (whose state it resets): the
         cross-attention K/V projected from ``enc [B, t, d_enc]`` once, the
-        valid frames' mask, then the first ``steps`` decisions. The first is
-        the prefill's: the prompt's P positions as one block, their
+        valid frames' mask, then the first :data:`LOOP_CHUNK` decisions. The
+        first is the prefill's: the prompt's P positions as one block, their
         self-attention K/V into the cache, the last one's logits deciding.
         ``kept`` collects each decision's logits; ``real [B]`` bool names
         the lanes whose EOS the flag waits for (by default every lane)."""
@@ -511,58 +517,64 @@ class AEDModel(EncoderModel):
         loop.v.zero_()
         self._prompt_into(loop.buf)
         loop.done.zero_()
-        self.greedy_chunk(loop, 0, steps, kept)
+        loop.pos.fill_(loop.prompt_len - 1)  # the prompt's last decides
+        self._decide(loop, self._cached_block(
+            loop, loop.ar[:loop.prompt_len]), kept)
+        self.greedy_chunk(loop, LOOP_CHUNK - 1, kept)
 
-    def greedy_chunk(self, loop: CachedLoop, start: int, steps: int,
+    def greedy_chunk(self, loop: CachedLoop, steps: int,
                      kept: Optional[List[torch.Tensor]] = None) -> None:
-        """Decisions ``start .. start + steps - 1`` of the loop on
-        ``loop`` (after the first, one position a step, each feeding the
-        last decision's token and attending to the cache up to it), then
-        its counts and its flag "a real lane is live". A lane that has
-        emitted EOS takes EOS again, so steps past it change none of its
-        tokens."""
-        eos, n_p = self.config.blank_id, loop.prompt_len
-        ar_u = torch.arange(loop.buf.shape[1], device=loop.buf.device)
-        for u in range(start, start + steps):
-            # the prefill makes the first decision; step u feeds the token
-            # at position P + u - 1 (the last decision)
-            logits = (self._cached_block(loop, ar_u, 0, n_p) if u == 0
-                      else self._cached_block(loop, ar_u, n_p + u - 1, 1))
-            if kept is not None:
-                kept.append(logits)
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-            nxt = torch.where(loop.done, eos, nxt)
-            loop.done |= nxt == eos
-            loop.buf[:, n_p + u] = nxt
-        loop.counts.copy_(_counts(loop.tokens, eos, loop.max_len))
+        """``steps`` decisions of the loop on ``loop`` from its position
+        (one position a step, each feeding the last decision's token and
+        attending to the cache up to it), then its counts and its flag "a
+        real lane is live". A lane that has emitted EOS takes EOS again, so
+        steps past it change none of its tokens."""
+        for _ in range(steps):
+            self._decide(loop, self._cached_block(loop, loop.pos), kept)
+        loop.counts.copy_(_counts(loop.tokens, self.config.blank_id,
+                                  loop.max_len))
         loop.live.copy_((loop.real & ~loop.done).any().reshape(1))
 
-    def _cached_block(self, loop: CachedLoop, ar_u: torch.Tensor, pos: int,
-                      n: int) -> torch.Tensor:
-        """Positions ``pos..pos+n-1`` through the decoder, their K/V into
-        the cache: the last position's logits [B, vocab]. Positions and
-        sinusoids follow the teacher-forced ``[prompt, tokens]`` of
-        :meth:`decoder_logits`."""
+    def _decide(self, loop: CachedLoop, logits: torch.Tensor,
+                kept: Optional[List[torch.Tensor]]) -> None:
+        """The next token of every lane from ``logits`` (EOS once a lane
+        has emitted it), stored at the next position, which the position
+        moves on to."""
+        eos = self.config.blank_id
+        if kept is not None:
+            kept.append(logits)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.where(loop.done, eos, nxt)
+        loop.done |= nxt == eos
+        loop.pos.add_(1)
+        loop.buf.index_copy_(1, loop.pos, nxt[:, None])
+
+    def _cached_block(self, loop: CachedLoop, at: torch.Tensor
+                      ) -> torch.Tensor:
+        """Positions ``at`` ([n] int64 on the device) through the decoder,
+        their K/V into the cache: the last position's logits [B, vocab].
+        Positions and sinusoids follow the teacher-forced ``[prompt,
+        tokens]`` of :meth:`decoder_logits`."""
         p = self.decoder
-        b = loop.buf.shape[0]
+        b, n, u = loop.buf.shape[0], at.shape[0], loop.ar.shape[0]
         d, h = self.d, self.config.dec_heads
         dh = d // h
-        kc, vc = loop.k, loop.v
-        x = p.embed[loop.buf[:, pos:pos + n].long()] + loop.pe[pos:pos + n]
-        pos_mask = _mask(ar_u[None, :] <= ar_u[pos:pos + n, None],
-                         x)                                    # [n, U]
+        x = (p.embed[loop.buf.index_select(1, at).long()]
+             + loop.pe.index_select(0, at))
+        pos_mask = _mask(loop.ar[None, :] <= at[:, None], x)  # [n, U]
         enc_mask = loop.enc_mask
         for li, lp in enumerate(p.layers):
             hh = _ln(x, lp["ln1"])
             q = (hh @ lp["self"]["wq"]).reshape(b, n, h, dh)
-            kc[li, :, pos:pos + n] = (hh @ lp["self"]["wk"]).reshape(
-                b, n, h, dh)
-            vc[li, :, pos:pos + n] = (hh @ lp["self"]["wv"]).reshape(
-                b, n, h, dh)
-            logits = torch.einsum("bnhd,bthd->bhnt", q, kc[li])
+            loop.k[li].index_copy_(1, at, (hh @ lp["self"]["wk"]).reshape(
+                b, n, h, dh))
+            loop.v[li].index_copy_(1, at, (hh @ lp["self"]["wv"]).reshape(
+                b, n, h, dh))
+            kc, vc = loop.k[li, :, :u], loop.v[li, :, :u]
+            logits = torch.einsum("bnhd,bthd->bhnt", q, kc)
             logits = logits / torch.sqrt(scalar(dh, logits))
             att = _softmax(logits + pos_mask)
-            x = x + torch.einsum("bhnt,bthd->bnhd", att, vc[li]
+            x = x + torch.einsum("bhnt,bthd->bnhd", att, vc
                                  ).reshape(b, n, d) @ lp["self"]["wo"]
             hh = _ln(x, lp["ln2"])
             q = (hh @ lp["cross"]["wq"]).reshape(b, n, h, dh)

@@ -19,11 +19,12 @@ one CUDA graph at its warm-up and replayed by every dispatch:
   (``models/aed.py``): the bucket's program runs the encoder and the
   loop's opening (the cross K/V, the task prompt's prefill and the first
   ``LOOP_CHUNK`` decisions) as two stages captured as one graph with
-  timing events between them; each later chunk of ``LOOP_CHUNK``
-  decisions is a program of its own on the bucket's static loop state
-  (``CachedLoop``), replayed while a device flag says a real lane has not
-  emitted EOS (:meth:`AEDPipeline._greedy_replay`); beam: the
-  length-normalized search
+  timing events between them; every later chunk of ``LOOP_CHUNK``
+  decisions is one chunk program per bucket, its loop
+  (:class:`~runtime.programs.FlagLoop`), on the bucket's static loop state
+  (``CachedLoop``, whose device position says where a chunk starts),
+  replayed while a device flag says a real lane has not emitted EOS, up to
+  ``max_len``; beam: the length-normalized search
   (length penalty 0.6, all K hypotheses for the n-best). AED has no frame
   alignment: its ``frame_idx`` and ``confidence`` are zeros, as the
   reference's. Its beam takes no decoding graph and no bias, as the
@@ -32,13 +33,13 @@ one CUDA graph at its warm-up and replayed by every dispatch:
 ``max_len = min(max_total_tokens, MAX_TOTAL_TOKENS)`` for AED, and its
 ``enc_lens`` follow :func:`_enc_lens_rule`, the encoder's own rule. The
 decode cores are plain torch, as they are plain XLA in the reference.
-A greedy dispatch is recorded as the transducer's is (the span
-``dispatch`` with its lanes, buckets and requests, and the children
-``dispatch.lock``, ``.stage``, ``.run``, ``.readback``, ``.capture``). The
-AED pipeline counts its greedy dispatches (:class:`AEDStats`, the group
-``aed`` of the JSON ``/metrics``) from the host arrays the dispatch reads
-back, the chunks it ran and the device times read after that readback, so
-the counting adds no wait for the device.
+A greedy dispatch is the transducer's (``AsrPipeline._decode_batch``,
+its spans included); a family gives what it reads back
+(:meth:`CTCPipeline._readback`). The AED pipeline counts its greedy
+dispatches (:class:`AEDStats`, the group ``aed`` of the JSON ``/metrics``)
+from the host arrays the dispatch reads back, the chunks it ran and the
+device times read after that readback, so the counting adds no wait for
+the device.
 
 Both families are stateless: WebSocket streaming stays transducer-only
 (refused with 400 by the handler), and a carried stream state is refused
@@ -52,7 +53,7 @@ serving world sends to the other ranks (``parallel/serve.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,19 +61,17 @@ import torch
 from .. import constants as C
 from ..config import Config
 from ..convert import MODELS, load_checkpoint
-from ..errors import InvalidAudioFormatError
-from ..models.aed import AEDModel, CachedLoop, loop_pieces
+from ..models.aed import LOOP_CHUNK, AEDModel, CachedLoop
 from ..models.presets import get_preset
 from ..ops.beam import BeamResult, TokenTrie
 from ..ops.ctc import ctc_greedy_decode_timed
 from ..ops.ctc_beam import ctc_beam_decode
 from ..ops.features import feature_lens
 from ..ops.greedy import GreedyResult
-from ..parallel.serve import mirrored
-from ..reliability import get_logger, tracing
+from ..reliability import get_logger
 from ..vocab import Vocabulary
 from .pipeline import AsrPipeline
-from .programs import DeviceProgram
+from .programs import DeviceProgram, FlagLoop
 
 log = get_logger("asr.pipeline")
 
@@ -144,60 +143,23 @@ class CTCPipeline(AsrPipeline):
             + (f", graph of up to {cap} states" if cap else ""),
             lambda: self._beam_body(x, graph), x)
 
+    # -- dispatch (AsrPipeline._decode_batch) --------------------------------
     def _stage_carry(self, prog: DeviceProgram, stream_states) -> None:
-        pass  # stateless: the programs take no carry
-
-    # -- dispatch -----------------------------------------------------------
-    def _decode_batch(self, samples: Sequence[np.ndarray],
-                      stream_states=None, *, eager: bool = False):
-        """:meth:`decode_samples_batch`: (GreedyResult with host arrays and
-        no carry, feat_lens, enc_lens, a ``None`` state per request);
-        ``eager`` runs the bucket program's body instead of its replay."""
-        if stream_states is not None and any(s is not None
-                                             for s in stream_states):
+        """Stateless: the programs take no carry, and refuse one."""
+        if any(s is not None for s in stream_states):
             raise ValueError(f"the {self.family} family is stateless: "
                              "carried stream state needs the transducer "
                              "family")
-        b_real = len(samples)
-        if b_real == 0:
-            raise InvalidAudioFormatError("empty batch")
-        n = self._bucket_len(max(s.shape[0] for s in samples))
-        b = self._bucket_batch_warm(b_real, n, "greedy")
-        with tracing.span("dispatch", attrs=(
-                ("lanes", b_real), ("batch", b), ("length", n),
-                ("requests", tracing.served_requests()))) as top:
-            with tracing.span("dispatch.lock", top):
-                self.device_lock.acquire()
-            try:
-                prog = self._bucket_program("greedy", b, n, dispatch=top)
-                with tracing.span("dispatch.stage", top):
-                    self._stage_audio(prog, samples)
-                with tracing.span("dispatch.run", top):
-                    ran = self._greedy_replay(prog, eager, (b, n))
-                with tracing.span("dispatch.readback", top):
-                    host = self._greedy_readback(prog, ran, b_real)
-            finally:
-                self.device_lock.release()
-        if not eager:
-            self._mark_compiled("greedy", b, n)
-        feat_lens, enc_lens, tokens, counts, frames, confs = host
-        res = GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
-                           confidence=confs, state=None, pred_out=None,
-                           last_token=None)
-        return res, feat_lens, enc_lens, [None] * b_real
 
-    def _greedy_replay(self, prog: DeviceProgram, eager: bool,
-                       bucket: Tuple[int, int]):
-        """Run the greedy program ``prog`` of ``bucket`` (batch, samples;
-        the span ``dispatch.run``): its outputs; ``eager`` runs its body
-        instead of its replay."""
-        return prog.run_eager() if eager else prog.run()
-
-    def _greedy_readback(self, prog: DeviceProgram, ran, b_real: int):
-        """What :meth:`_greedy_replay` gave, on the host (the span
-        ``dispatch.readback``): (feat_lens, enc_lens, tokens, counts,
-        frame_idx, confidence)."""
-        return prog.to_host(ran)
+    def _readback(self, prog: DeviceProgram, outs, pieces: int, b_real: int
+                  ) -> Tuple[GreedyResult, np.ndarray, np.ndarray]:
+        """The program's (feat_lens, enc_lens, tokens, counts, frame_idx,
+        confidence) on the host: the result has no carry."""
+        feat_lens, enc_lens, tokens, counts, frames, confs = prog.to_host(
+            outs)
+        return (GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
+                             confidence=confs, state=None, pred_out=None,
+                             last_token=None), feat_lens, enc_lens)
 
     def decode_beam_batch(self, samples: Sequence[np.ndarray], *, bias=None,
                           graph: Optional[TokenTrie] = None, n_best: int = 1
@@ -247,7 +209,8 @@ class AEDStats:
     bucket's decode stage, the cross K/V, the prefill and the opening's
     decisions, from its captured events, and the chunks, from an event
     before the first and one after the last, with any wait for the host
-    between them), from CUDA events, on a card only."""
+    between them: ``FlagLoop.seconds``), from CUDA events, on a card
+    only."""
 
     dispatches: int = 0
     lanes_total: int = 0
@@ -261,46 +224,6 @@ class AEDStats:
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
-
-
-@dataclasses.dataclass
-class BucketLoop:
-    """A greedy AED bucket's loop after its opening: the bucket's view of
-    its batch size's loop state, a program for each later chunk of
-    decisions, and the decisions of the opening and of each chunk."""
-
-    state: CachedLoop
-    chunks: List[DeviceProgram]
-    decisions: List[int]
-
-
-class _FlagBehind:
-    """The loop's 1-byte device flag read one chunk behind: :meth:`post`
-    queues a copy of the flag as the last queued piece leaves it into a
-    pinned host byte, with an event after it on a card; :meth:`previous`
-    waits for the post before the last and reads it, while the device runs
-    the piece queued after that post."""
-
-    def __init__(self, device: torch.device):
-        cuda = device.type == "cuda"
-        self.host = [torch.zeros(1, dtype=torch.bool, pin_memory=cuda)
-                     for _ in range(2)]
-        self.events = ([torch.cuda.Event() for _ in range(2)] if cuda
-                       else None)
-        self.posts = 0
-
-    def post(self, flag: torch.Tensor) -> None:
-        i = self.posts % 2
-        self.host[i].copy_(flag, non_blocking=True)
-        if self.events is not None:
-            self.events[i].record()
-        self.posts += 1
-
-    def previous(self) -> bool:
-        i = self.posts % 2  # the post before the last
-        if self.events is not None:
-            self.events[i].synchronize()
-        return bool(self.host[i][0])
 
 
 class AEDPipeline(CTCPipeline):
@@ -318,14 +241,6 @@ class AEDPipeline(CTCPipeline):
         super().__init__(model, vocab, config, device, mesh)
         self.aed_stats = AEDStats()
         self._loops: dict = {}  # batch size -> the greedy loop's state
-        # (batch, samples) -> the greedy bucket's loop after its opening
-        self.bucket_loops: Dict[Tuple[int, int], BucketLoop] = {}
-        self._flag = _FlagBehind(self.device)
-        # the chunks' device time: an event before the first, one after
-        # the last (a card only)
-        self._chunk_marks = ([torch.cuda.Event(enable_timing=True)
-                              for _ in range(2)]
-                             if self.device.type == "cuda" else None)
         if self.beam_graph is not None:
             log.warning("the aed family's beam search takes no decoding "
                         "graph (as the reference's): beam_grammar_path is "
@@ -340,28 +255,25 @@ class AEDPipeline(CTCPipeline):
         return 0  # the beam programs read no graph tables
 
     def _greedy_program(self, b: int, n: int) -> DeviceProgram:
-        """Two stages: log-mel and the encoder, then the loop's opening;
-        the rest of the loop, a program for each later chunk of decisions
-        on the bucket's view of its batch size's loop state, goes to
-        :attr:`bucket_loops`."""
+        """Two stages: log-mel and the encoder, then the loop's opening on
+        the bucket's view of its batch size's loop state; its loop is one
+        chunk program of :data:`LOOP_CHUNK` decisions, replayed up to the
+        chunks that reach ``max_len`` (none where the opening does)."""
         x = self._audio_inputs(b, n)
         name = f"{self.family} greedy bucket {b} x {n} samples"
-        loop = self._loop_state(b, n)
-        (_, opening), *rest = loop_pieces(self.max_len)
-        prog = self._new_program(
-            name, (lambda: self._encode_stage(x),
-                   lambda *enc: self._decode_stage(loop, opening, x["lens"],
-                                                   *enc)), x)
-        self.bucket_loops[(b, n)] = BucketLoop(loop, [
-            DeviceProgram(
-                f"{name}: decisions {start}-{start + steps - 1}",
-                self.device,
-                lambda start=start, steps=steps: self._chunk(loop, start,
-                                                             steps),
+        state = self._loop_state(b, n)
+        loop = None
+        if state.chunks:
+            loop = FlagLoop(
+                f"{name}: a chunk of {LOOP_CHUNK} decisions", self.device,
+                lambda: self._chunk(state),
+                lambda: (state.tokens, state.counts), limit=state.chunks,
                 pool=self.graph_pool(), capture=self.capture)
-            for start, steps in rest],
-            [opening] + [steps for _, steps in rest])
-        return prog
+        return self._new_program(
+            name, (lambda: self._encode_stage(x),
+                   lambda *enc: self._decode_stage(state, loop is not None,
+                                                   x["lens"], *enc)),
+            x, loop=loop)
 
     def _loop_state(self, b: int, n: int) -> CachedLoop:
         """The greedy loop's state for a bucket of ``b`` lanes of ``n``
@@ -385,103 +297,57 @@ class AEDPipeline(CTCPipeline):
         enc, enc_lens = self.model.encode(feats, feat_lens)
         return feat_lens, enc, enc_lens
 
-    def _decode_stage(self, loop: CachedLoop, steps: int,
+    def _decode_stage(self, loop: CachedLoop, looped: bool,
                       lens: torch.Tensor, feat_lens: torch.Tensor,
                       enc: torch.Tensor, enc_lens: torch.Tensor
                       ) -> Tuple[torch.Tensor, ...]:
-        """The loop's opening into ``loop``, its flag included, watching
-        the lanes with audio (``lens``, samples: a padding lane has none,
-        though its one feature frame gives it an encoder frame): (feat_lens,
-        enc_lens)."""
-        self.model.greedy_open(enc, enc_lens, loop, steps, real=lens > 0)
-        return feat_lens, _enc_lens_rule(feat_lens,
-                                         self.model.config.subsampling_factor)
+        """The loop's opening into ``loop``, watching the lanes with audio
+        (``lens``, samples: a padding lane has none, though its one feature
+        frame gives it an encoder frame): (feat_lens, enc_lens, and the
+        flag where chunks follow (``looped``), else the tokens and
+        counts)."""
+        self.model.greedy_open(enc, enc_lens, loop, real=lens > 0)
+        enc_lens = _enc_lens_rule(feat_lens,
+                                  self.model.config.subsampling_factor)
+        return (feat_lens, enc_lens,
+                *((loop.live,) if looped else (loop.tokens, loop.counts)))
 
-    def _chunk(self, loop: CachedLoop, start: int, steps: int) -> tuple:
-        self.model.greedy_chunk(loop, start, steps)
-        return ()  # the chunk's effects are on the loop state
+    def _chunk(self, loop: CachedLoop) -> torch.Tensor:
+        """A chunk of decisions from the loop's position; its flag. A
+        decision after every real lane's EOS changes none of their tokens,
+        so the chunk run ahead of the flag's read is exact; a padding lane
+        (no audio) never holds the loop."""
+        self.model.greedy_chunk(loop, LOOP_CHUNK)
+        return loop.live
 
-    def _greedy_replay(self, prog: DeviceProgram, eager: bool,
-                       bucket: Tuple[int, int]):
-        """The bucket's program, then its chunks, each queued before the
-        flag the piece before it left is read, until that flag says no
-        real lane is live or the chunks run out: (the program's outputs,
-        the bucket's :class:`BucketLoop`, chunks run). A decision after every real lane's EOS changes none
-        of their tokens, so the chunk run ahead of the flag is exact; a
-        padding lane (no audio) never holds the loop. ``eager`` runs each
-        piece's body instead of its replay. A bucket made by this dispatch
-        then warms the chunks it did not reach."""
-        def run(p: DeviceProgram):
-            return p.run_eager() if eager else p.run()
-
-        loop = self.bucket_loops[bucket]
-        outs = run(prog)
-        self._flag.post(loop.state.live)
-        ran = 0
-        for chunk in loop.chunks:
-            if ran == 0 and self._chunk_marks is not None:
-                self._chunk_marks[0].record()
-            run(chunk)
-            self._flag.post(loop.state.live)
-            ran += 1
-            if not self._flag.previous():
-                break
-        if ran and self._chunk_marks is not None:
-            self._chunk_marks[1].record()
-        if not eager:
-            self._warm_chunks(loop)
-        return outs, loop, ran
-
-    @staticmethod
-    def _warm_chunks(loop: BucketLoop) -> None:
-        """Capture every chunk program of ``loop`` not yet warm, whatever
-        the flag says (each runs once on the loop state as it stands)."""
-        for chunk in loop.chunks:
-            chunk.warm_up()
-
-    def _greedy_readback(self, prog: DeviceProgram, ran, b_real: int):
-        outs, loop, chunks = ran
-        feat_lens, enc_lens, tokens, counts = prog.to_host(
-            (*outs, loop.state.tokens, loop.state.counts))
-        self._count_dispatch(prog, loop, counts[:b_real], chunks)
-        # attention decoders have no frame-synchronous alignment: no
-        # per-token times or confidences (the reference's zeros)
-        return (feat_lens, enc_lens, tokens, counts,
-                np.zeros(tokens.shape, np.int32),
-                np.zeros(tokens.shape, np.float32))
-
-    def _count_dispatch(self, prog: DeviceProgram, loop: BucketLoop,
-                        counts: np.ndarray, chunks: int) -> None:
-        """The ``aed`` counters of one greedy dispatch: its real lanes'
-        ``counts``, the decisions of the opening and the ``chunks`` run, and
-        the device times, read after the readback."""
-        st, lanes = self.aed_stats, len(counts)
-        steps = sum(loop.decisions[:chunks + 1])
+    def _readback(self, prog: DeviceProgram, outs, pieces: int, b_real: int
+                  ) -> Tuple[GreedyResult, np.ndarray, np.ndarray]:
+        """The program's outputs on the host, then the ``aed`` counters
+        from them, the ``pieces`` (chunks) run and the device times."""
+        feat_lens, enc_lens, tokens, counts = prog.to_host(outs)
+        st, real = self.aed_stats, counts[:b_real]
+        steps = min(LOOP_CHUNK * (1 + pieces), self.max_len)
         st.dispatches += 1
-        st.lanes_total += lanes
+        st.lanes_total += b_real
         st.steps_total += steps
-        st.lane_steps_total += steps * lanes
+        st.lane_steps_total += steps * b_real
         st.live_lane_steps_total += int(np.minimum(
-            counts.astype(np.int64) + 1, steps).sum())
-        st.prompt_tokens_total += len(self.model.prompt) * lanes
-        st.loop_chunks_total += chunks
+            real.astype(np.int64) + 1, steps).sum())
+        st.prompt_tokens_total += len(self.model.prompt) * b_real
+        st.loop_chunks_total += pieces
         secs = prog.stage_seconds()
         if secs is not None:
             st.encode_device_s_total += secs[0]
             st.decode_device_s_total += secs[1]
-            if chunks:
-                a, b = self._chunk_marks
-                st.decode_device_s_total += a.elapsed_time(b) / 1e3
-
-    @mirrored
-    def _warm_one(self, b: int, n_samples: int) -> None:
-        """:meth:`AsrPipeline._warm_one`, and in greedy mode every chunk
-        program of the bucket, so that no dispatch captures one."""
-        with self.device_lock:
-            super()._warm_one(b, n_samples)
-            if self.config.decoding_mode == "greedy":
-                self._warm_chunks(self.bucket_loops[
-                    (self._bucket_batch(b), self._bucket_len(n_samples))])
+            if prog.loop is not None:
+                st.decode_device_s_total += prog.loop.seconds()
+        # attention decoders have no frame-synchronous alignment: no
+        # per-token times or confidences (the reference's zeros)
+        return (GreedyResult(tokens=tokens, counts=counts,
+                             frame_idx=np.zeros(tokens.shape, np.int32),
+                             confidence=np.zeros(tokens.shape, np.float32),
+                             state=None, pred_out=None, last_token=None),
+                feat_lens, enc_lens)
 
     def _beam_body(self, x: dict, graph: Optional[TokenTrie]
                    ) -> Tuple[torch.Tensor, ...]:

@@ -14,9 +14,10 @@ and encoded lengths in, the cache and the carry updated in place, tokens
 out. On CUDA it is captured at :meth:`StreamingLaneEngine.warm` (one eager
 all-inactive step, then the capture), or at the first tick if nothing
 warmed it, and every later tick replays it; on the step route the graph
-ends with the greedy loop's first steps, and a captured program of the
-next steps (:class:`~runtime.pipeline.StepLoop`) replays until no lane is
-active. Every device operation runs under the pipeline's ``device_lock``.
+ends with the greedy loop's first steps, and the program's loop, a
+captured piece of the next steps (:meth:`~runtime.pipeline.AsrPipeline.
+device_steps`), replays until no lane is active. Every device operation
+runs under the pipeline's ``device_lock``.
 
 On a pipeline placed on a device mesh (``AsrPipeline(..., mesh=)``, the
 reference's ``StreamingLaneEngine(..., mesh=)``) the lane state stays whole
@@ -45,7 +46,7 @@ from .. import constants as C
 from ..ops.streaming import encode_chunk, init_encoder_cache
 from ..parallel.serve import mirrored
 from .native_stream import StreamingFeaturizer, fresh_carry
-from .pipeline import StepLoop, take_carry
+from .pipeline import take_carry
 from .programs import DeviceProgram, host_staging, stage
 
 
@@ -143,9 +144,9 @@ class StreamingLaneEngine:
                            self.pred_out[:1].clone())
             name = f"lane engine step {n_lanes} lanes x {chunk_frames} frames"
             # the step route's loop on the device (None: the loop kernel)
-            self.steps = None if pipeline.greedy_route == "loop" else \
-                StepLoop(pipeline, name, max_symbols=max_symbols,
-                         max_total=max_total)
+            loop, self._start = pipeline.device_steps(
+                name, lambda res: take_carry(self.carry, res),
+                max_symbols=max_symbols, max_total=max_total)
             self.program = DeviceProgram(
                 name, dev, self._chunk_body, {
                     "feats": torch.zeros((n_lanes, cfg.n_mels, chunk_frames),
@@ -154,7 +155,8 @@ class StreamingLaneEngine:
                                           device=dev),
                     "enc_lens": torch.zeros((n_lanes,), dtype=torch.int32,
                                             device=dev)},
-                pool=pipeline.graph_pool(), capture=pipeline.capture)
+                pool=pipeline.graph_pool(), capture=pipeline.capture,
+                loop=loop, oracle=lambda: self._chunk_body(host_loop=True))
         self.program.host = {name: host_staging(x.shape, x.dtype, dev)
                              for name, x in self.program.inputs.items()}
 
@@ -182,9 +184,9 @@ class StreamingLaneEngine:
     @mirrored
     def warm(self) -> float:
         """Make the chunk step ready before any stream is admitted: one
-        eager step with every lane inactive, then (CUDA) its capture, and
-        one lane reset; the lanes' state is unchanged. Returns the seconds
-        taken."""
+        eager step with every lane inactive, then (CUDA) its capture, its
+        loop's too, and one lane reset; the lanes' state is unchanged.
+        Returns the seconds taken."""
         t0 = time.perf_counter()
         prog = self.program
         with self.pipeline.device_lock:
@@ -193,10 +195,6 @@ class StreamingLaneEngine:
                     prog.host[name].zero_()
                     stage(x, prog.host[name])
                 prog.warm_up()
-                if self.steps is not None:
-                    # the steps' program, on the loop the step left (no
-                    # lane active: its steps change nothing)
-                    self.steps.program.warm_up()
             self._reset_lane_device_state(0)
             if self._device.type == "cuda":
                 torch.cuda.synchronize(self._device)
@@ -284,59 +282,38 @@ class StreamingLaneEngine:
         return [i for i in range(self.n_lanes) if self.lane_ready(i)]
 
     # ------------------------------------------------------------------
-    def _encode(self):
-        """Encode all lanes, keep the active lanes' new cache, project."""
+    def _chunk_body(self, host_loop: bool = False):
+        """The chunk step on the static inputs: encode all lanes, keep the
+        active lanes' new cache, project, then (loop route, or
+        ``host_loop``: the oracle) decode every lane, the carry updated in
+        place, or (step route) the loop's first steps. Max_total budgets
+        each chunk step, as the reference's counter is local to each decode
+        call: long sessions keep emitting."""
         x = self.program.inputs
         enc, new_cache = encode_chunk(
             self.model.encoder, x["feats"].to(self._dtype), self.enc_cache)
         self.enc_cache.keep_(x["active"], new_cache)
         del new_cache
-        return self.model.joint_precompute_enc(enc).contiguous()
-
-    def _chunk_body(self):
-        """The chunk step's device work on the static inputs: encode, then
-        (loop route) decode, copying the new carry into the carry's own
-        buffers, or (step route) the greedy loop's first steps."""
-        enc_pre = self._encode()
-        if self.steps is None:
-            return self._decode(enc_pre)
-        # max_total budgets each chunk step, as the reference's counter is
-        # local to each decode call: long sessions keep emitting
-        return (self.steps.start(self.pipeline.carried_loop(
-            enc_pre, self.program.inputs["enc_lens"], self.dec_h,
-            self.dec_c, self.pred_out, self.last_token,
-            max_total=self.max_total)),)
-
-    def _decode(self, enc_pre):
-        """The carried decode of every lane, the carry updated in place;
-        (counts, tokens)."""
-        return take_carry(self.carry, self.pipeline.decode_carried(
-            enc_pre, self.program.inputs["enc_lens"], self.dec_h, self.dec_c,
-            self.pred_out, self.last_token, max_symbols=self.max_symbols,
-            max_total=self.max_total))
+        enc_pre = self.model.joint_precompute_enc(enc).contiguous()
+        if self._start is None or host_loop:
+            return take_carry(self.carry, self.pipeline.decode_carried(
+                enc_pre, x["enc_lens"], *self.carry,
+                max_symbols=self.max_symbols, max_total=self.max_total))
+        return (self._start(enc_pre, x["enc_lens"], *self.carry),)
 
     def _step(self, feats: np.ndarray, active: np.ndarray,
               enc_lens: np.ndarray, *, eager: bool = False):
         """One chunk step over all lanes (device), the carry and cache
         updated in place: (counts, tokens) on the host. ``eager`` runs the
-        program's body instead of its replay, and on the step route the
-        encoder, then the host loop (the oracle; tests,
-        ``chip_smoke.py``)."""
+        program's oracle instead of its replay: the encoder, then the host
+        loop on the step route (tests, ``chip_smoke.py``)."""
         prog = self.program
         with self.pipeline.device_lock:
             for name, value in (("feats", feats), ("active", active),
                                 ("enc_lens", enc_lens)):
                 prog.host[name].numpy()[...] = value
                 stage(prog.inputs[name], prog.host[name])
-            if eager and self.steps is not None:
-                with torch.inference_mode():
-                    outs = self._decode(self._encode())
-            else:
-                outs = prog.run_eager() if eager else prog.run()
-                if self.steps is not None:
-                    with torch.inference_mode():
-                        outs = take_carry(self.carry,
-                                          self.steps.finish(outs[0]))
+            outs, _ = prog.run_through(eager)
             return prog.to_host(outs)
 
     @mirrored

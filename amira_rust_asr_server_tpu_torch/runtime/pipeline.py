@@ -35,8 +35,10 @@ deep, the per-step route (see :meth:`AsrPipeline._greedy_route`):
 ``ops.greedy``'s steps with the joint-argmax kernel
 (``use_pallas_decode_step``) or, with that flag off too, with the model's
 own joint (the "plain" route), the first :data:`STEPS_PER_RUN` inside the
-bucket's graph and the rest as replays of a captured program of as many
-steps (:class:`StepLoop`), the host reading one device flag per replay.
+bucket's graph and the rest as replays of a captured piece of as many
+steps (a :class:`~runtime.programs.FlagLoop`, :meth:`AsrPipeline.
+device_steps`), the host reading one device flag a piece, one piece
+behind.
 ``use_pallas_mel=False`` runs the plain log-mel (``ops.features``) and
 ``use_pallas_beam_loop=False`` the plain beam scan, each inside the same
 captured programs: the flag chooses the route, on every device, as the
@@ -80,6 +82,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -110,7 +113,7 @@ from ..parallel.mesh import local_shard, plain_state, shard_params
 from ..parallel.serve import mirrored
 from ..types import TokenInfo, Transcription
 from .native_stream import fresh_carry
-from .programs import DeviceProgram, host_staging, stage
+from .programs import DeviceProgram, FlagLoop, host_staging, stage
 
 log = get_logger("asr.pipeline")
 
@@ -138,60 +141,16 @@ def check_supported(cfg: Config, device: torch.device,
             f"has {world_size} ranks (one per device)")
 
 
-# the per-step route's steps per captured run (N): a run of N steps after
-# the lanes are done costs up to N - 1 wasted steps, one of fewer asks the
+# the per-step route's steps a piece (N): a piece of N steps after the
+# lanes are done costs up to N - 1 wasted steps, one of fewer asks the
 # host more often
 STEPS_PER_RUN = 16
 
 
-class StepLoop:
-    """The per-step route's greedy loop on the device, for one program of
-    fixed shapes: its owner's captured program runs ``greedy_init`` and the
-    first N = :data:`STEPS_PER_RUN` steps into this object's static loop
-    state (:meth:`start`), then a captured program of the next N steps on
-    the same state replays until a device flag says no lane is active
-    (:meth:`finish`): one pinned 1-byte host read per run, counted in
-    :attr:`reads`, where the host loop reads once per step. A step after
-    every lane is done changes nothing, so the runs' last steps past the
-    end are exact."""
-
-    def __init__(self, pipeline: "AsrPipeline", name: str, *,
-                 max_symbols: int, max_total: int):
-        self.pipeline = pipeline
-        self.max_symbols = max_symbols
-        self.max_total = max_total
-        self.n_steps = STEPS_PER_RUN
-        self.loop: Optional[GreedyLoop] = None  # static, made at first run
-        self.reads = 0
-        self.program = DeviceProgram(
-            f"{name}: {self.n_steps} greedy steps", pipeline.device,
-            lambda: (self._advance(self.loop),), pool=pipeline.graph_pool(),
-            capture=pipeline.capture)
-
-    def _advance(self, loop: GreedyLoop) -> torch.Tensor:
-        step = self.pipeline.greedy_step_fn(self.max_symbols, self.max_total)
-        for _ in range(self.n_steps):
-            loop = step(loop)
-        if self.loop is None:  # the owner's first, eager, run
-            self.loop = loop.clone()
-        else:
-            self.loop.copy_(loop)
-        return greedy_active(self.loop, self.max_total).any().reshape(1)
-
-    def start(self, loop: GreedyLoop) -> torch.Tensor:
-        """Inside the owner's body: the first steps from ``loop`` into the
-        static state; returns the device flag "a lane is active"."""
-        return self._advance(loop)
-
-    def finish(self, flag: torch.Tensor) -> GreedyResult:
-        """After the owner's run: the steps' program until ``flag`` reads
-        false; the result in the static state (the next run overwrites
-        it)."""
-        while True:
-            self.reads += 1
-            if not self.program.to_host((flag,))[0][0]:
-                return greedy_result(self.loop)
-            (flag,) = self.program.run()
+def greedy_outputs(res: GreedyResult) -> Tuple[torch.Tensor, ...]:
+    """``res``'s tensors in a greedy bucket program's output order."""
+    return (res.tokens, res.counts, res.frame_idx, res.confidence,
+            *res.state, res.pred_out, res.last_token)
 
 
 def take_carry(carry: Sequence[torch.Tensor], res: GreedyResult
@@ -355,7 +314,7 @@ class AsrPipeline:
         argmax kernel, csrc/decode_step.cu: use_pallas_decode_step), else
         "plain" (the same steps with the model's own joint, the reference's
         plain ``greedy_decode``). The step and plain routes run inside the
-        same captured programs (:class:`StepLoop`)."""
+        same captured programs (:meth:`device_steps`)."""
         cfg = self.config
         if cfg.use_pallas_decode_loop and self.model.config.pred_layers == 2:
             return "loop"
@@ -493,8 +452,8 @@ class AsrPipeline:
         carry. The batch dispatch and both native streaming paths (the
         lane engine's tick, the solo session) decode here; off the loop
         route this is the host loop, which the captured programs run as
-        device steps (:class:`StepLoop`) and which stays the oracle and
-        the solo session's decode."""
+        device steps (:meth:`device_steps`) and which stays the oracle
+        their eager runs take."""
         dt = self.compute_dtype
         if token_offset is None:
             token_offset = torch.zeros((enc_pre.shape[0],), dtype=torch.int32,
@@ -518,31 +477,51 @@ class AsrPipeline:
             max_symbols=max_symbols, max_total=max_total,
             lookahead=self.config.greedy_lookahead)
 
-    def greedy_step_fn(self, max_symbols: int, max_total: int):
-        """``loop -> loop``: one step of the host loop :meth:`decode_carried`
-        runs on the step and plain routes, for :class:`StepLoop`."""
-        fused = (make_fused_step_fn(self.step_weights)
-                 if self.greedy_route == "step" else None)
-        lookahead = self.config.greedy_lookahead
+    def device_steps(self, name: str, result, *, max_symbols: int,
+                     max_total: int):
+        """The step and plain routes' greedy loop on the device: (a
+        :class:`FlagLoop` whose piece is N = :data:`STEPS_PER_RUN` of the
+        host loop's steps on a static loop state, and whose result is
+        ``result(GreedyResult)``; ``start``), or (None, None) on the loop
+        route. ``start``, in the owner's body, takes the arguments of
+        :meth:`decode_carried` but its budgets, runs the first N steps into
+        that state and returns the flag "a lane is active". A step after
+        every lane is done changes nothing, so the steps past the end are
+        exact."""
+        if self.greedy_route == "loop":
+            return None, None
+        static: List[GreedyLoop] = []  # made by the owner's first run
 
-        def step(loop: GreedyLoop) -> GreedyLoop:
-            return greedy_step(loop, self.model.predict_step,
-                               self.model.joint_step_pre,
-                               self.model.config.blank_id,
-                               max_symbols=max_symbols, max_total=max_total,
-                               lookahead=lookahead, fused_step_fn=fused)
-        return step
+        def advance(loop: GreedyLoop) -> torch.Tensor:
+            fused = (make_fused_step_fn(self.step_weights)
+                     if self.greedy_route == "step" else None)
+            for _ in range(STEPS_PER_RUN):
+                loop = greedy_step(
+                    loop, self.model.predict_step, self.model.joint_step_pre,
+                    self.model.config.blank_id, max_symbols=max_symbols,
+                    max_total=max_total,
+                    lookahead=self.config.greedy_lookahead,
+                    fused_step_fn=fused)
+            if static:
+                static[0].copy_(loop)
+            else:  # the owner's first, eager, run
+                static.append(loop.clone())
+            return greedy_active(static[0], max_total).any().reshape(1)
 
-    def carried_loop(self, enc_pre, enc_lens, h0, c0, pred0, last_token,
-                     token_offset=None, *, max_total: int) -> GreedyLoop:
-        """The step and plain routes' loop state before its first step,
-        from the carry as :meth:`decode_carried` takes it."""
-        dt = self.compute_dtype
-        return greedy_init(self.model.predict_step, enc_pre, enc_lens,
-                           (h0.to(dt), c0.to(dt)), self.model.config.blank_id,
-                           max_total=max_total, init_pred_out=pred0.to(dt),
-                           init_last_token=last_token,
-                           token_offset=token_offset)
+        def start(enc_pre, enc_lens, h0, c0, pred0, last_token,
+                  token_offset=None) -> torch.Tensor:
+            dt = self.compute_dtype
+            return advance(greedy_init(
+                self.model.predict_step, enc_pre, enc_lens,
+                (h0.to(dt), c0.to(dt)), self.model.config.blank_id,
+                max_total=max_total, init_pred_out=pred0.to(dt),
+                init_last_token=last_token, token_offset=token_offset))
+
+        loop = FlagLoop(f"{name}: {STEPS_PER_RUN} greedy steps", self.device,
+                        lambda: advance(static[0]),
+                        lambda: result(greedy_result(static[0])),
+                        pool=self.graph_pool(), capture=self.capture)
+        return loop, start
 
     # ------------------------------------------------------------------
     # bucket programs
@@ -604,8 +583,9 @@ class AsrPipeline:
     def _greedy_program(self, b: int, n: int) -> DeviceProgram:
         """mel -> encoder -> joint_precompute_enc -> the loop kernel from
         the static carry; on the step and plain routes the program ends
-        with the loop's first steps, and its :class:`StepLoop` runs the
-        rest (see :meth:`_greedy_run`)."""
+        with the loop's first steps, and its loop runs the rest
+        (:meth:`device_steps`). Its oracle decodes with
+        :meth:`decode_carried`, the host loop on those routes."""
         dev = self.device
         fresh_out, (fresh_h, _) = self._fresh_carry()
         layers, width = fresh_h.shape[0], fresh_h.shape[2]
@@ -620,65 +600,36 @@ class AsrPipeline:
             last_token=torch.zeros((b,), dtype=torch.int32, device=dev),
             token_offset=torch.zeros((b,), dtype=torch.int32, device=dev))
         name = f"greedy bucket {b} x {n} samples"
-        steps = None if self.greedy_route == "loop" else StepLoop(
-            self, name, max_symbols=self.config.max_symbols_per_step,
+        loop, start = self.device_steps(
+            name, greedy_outputs,
+            max_symbols=self.config.max_symbols_per_step,
             max_total=self.config.max_total_tokens)
 
-        def body():
+        def body(host_loop: bool = False):
             enc_pre, feat_lens, enc_lens = self._encode(x["audio"], x["lens"])
-            if steps is not None:
-                return feat_lens, enc_lens, steps.start(self.carried_loop(
-                    enc_pre, enc_lens, x["h0"], x["c0"], x["pred0"],
-                    x["last_token"], x["token_offset"],
-                    max_total=self.config.max_total_tokens))
-            res = self._decode_from(x, enc_pre, enc_lens)
-            return (feat_lens, enc_lens, res.tokens, res.counts,
-                    res.frame_idx, res.confidence, *res.state, res.pred_out,
-                    res.last_token)
+            carry = (x["h0"], x["c0"], x["pred0"], x["last_token"],
+                     x["token_offset"])
+            if start is None or host_loop:
+                return (feat_lens, enc_lens, *greedy_outputs(
+                    self.decode_carried(
+                        enc_pre, enc_lens, *carry,
+                        max_symbols=self.config.max_symbols_per_step,
+                        max_total=self.config.max_total_tokens)))
+            return feat_lens, enc_lens, start(enc_pre, enc_lens, *carry)
 
-        prog = self._new_program(name, body, x)
-        prog.steps = steps
-        return prog
+        return self._new_program(name, body, x, loop=loop,
+                                 oracle=lambda: body(host_loop=True))
 
-    def _new_program(self, name: str, body, inputs: dict) -> DeviceProgram:
+    def _new_program(self, name: str, body, inputs: dict,
+                     **kw) -> DeviceProgram:
         prog = DeviceProgram(name, self.device, body, inputs,
-                             pool=self.graph_pool(), capture=self.capture)
+                             pool=self.graph_pool(), capture=self.capture,
+                             **kw)
         prog.host = {"audio": host_staging(inputs["audio"].shape,
                                            torch.float32, self.device),
                      "lens": host_staging(inputs["lens"].shape, torch.int32,
                                           self.device)}
         return prog
-
-    def _decode_from(self, x: dict, enc_pre, enc_lens) -> GreedyResult:
-        return self.decode_carried(
-            enc_pre, enc_lens, x["h0"], x["c0"], x["pred0"], x["last_token"],
-            x["token_offset"], max_symbols=self.config.max_symbols_per_step,
-            max_total=self.config.max_total_tokens)
-
-    def _greedy_run(self, prog: DeviceProgram, eager: bool
-                    ) -> Tuple[GreedyResult, torch.Tensor, torch.Tensor]:
-        """Run a greedy program: (the decode's result, feat_lens,
-        enc_lens). On the step and plain routes its :class:`StepLoop`
-        finishes the loop after the run; ``eager`` runs the body instead
-        of the replay, and on those routes the encoder, then the host loop
-        (:meth:`decode_carried`), which asks the host after every step:
-        the oracle both are held to."""
-        if self.greedy_route != "loop":
-            if eager:
-                x = prog.inputs
-                with torch.inference_mode():
-                    enc_pre, feat_lens, enc_lens = self._encode(x["audio"],
-                                                                x["lens"])
-                return (self._decode_from(x, enc_pre, enc_lens), feat_lens,
-                        enc_lens)
-            feat_lens, enc_lens, flag = prog.run()
-            with torch.inference_mode():
-                return prog.steps.finish(flag), feat_lens, enc_lens
-        (feat_lens, enc_lens, tokens, counts, frames, confs, h, c, pred,
-         last) = prog.run_eager() if eager else prog.run()
-        return (GreedyResult(tokens=tokens, counts=counts, frame_idx=frames,
-                             confidence=confs, state=(h, c), pred_out=pred,
-                             last_token=last), feat_lens, enc_lens)
 
     def _stage_audio(self, prog: DeviceProgram,
                      samples: Sequence[np.ndarray]) -> None:
@@ -786,9 +737,11 @@ class AsrPipeline:
 
     def _decode_batch(self, samples: Sequence[np.ndarray],
                       stream_states=None, *, eager: bool = False):
-        """:meth:`decode_samples_batch`; ``eager`` runs the bucket
-        program's body eagerly instead of its replay (the oracle a replay
-        is held to: tests, ``chip_smoke.py``), and marks nothing warm."""
+        """:meth:`decode_samples_batch` of every family, whose hooks stage
+        its carry, read back and make the new stream states. ``eager`` runs
+        the program's oracle or bodies instead of the replays (what a
+        replay is held to: tests, ``chip_smoke.py``), and marks nothing
+        warm."""
         b_real = len(samples)
         if b_real == 0:
             raise InvalidAudioFormatError("empty batch")
@@ -807,28 +760,47 @@ class AsrPipeline:
                     self._stage_audio(prog, samples)
                     self._stage_carry(prog, stream_states)
                 with tracing.span("dispatch.run", top):
-                    res, feat_lens, enc_lens = self._greedy_run(prog, eager)
+                    outs, pieces = prog.run_through(eager)
                 with tracing.span("dispatch.readback", top):
-                    host = prog.to_host((res.tokens, res.counts,
-                                         res.frame_idx, res.confidence,
-                                         feat_lens, enc_lens))
-                    with torch.inference_mode():
-                        h, c, pred, last = (x.clone() for x in (
-                            *res.state, res.pred_out, res.last_token))
+                    res, feat_lens, enc_lens = self._readback(
+                        prog, outs, pieces, b_real)
             finally:
                 self.device_lock.release()
             if not eager:
                 self._mark_compiled("greedy", b, n)
-            res = GreedyResult(tokens=host[0], counts=host[1],
-                               frame_idx=host[2], confidence=host[3],
-                               state=(h, c), pred_out=pred, last_token=last)
-            new_states = [StreamState(
-                state=(h[:, i:i + 1], c[:, i:i + 1]), pred_out=pred[i:i + 1],
-                last_token=last[i:i + 1],
-                tokens_emitted=(prior.tokens_emitted if prior else 0)
-                + int(res.counts[i]))
-                for i, prior in enumerate(stream_states)]
-        return res, host[4], host[5], new_states
+            new_states = self._stream_states(res, stream_states)
+        return res, feat_lens, enc_lens, new_states
+
+    def _readback(self, prog: DeviceProgram, outs, pieces: int, b_real: int
+                  ) -> Tuple[GreedyResult, np.ndarray, np.ndarray]:
+        """A greedy bucket's outputs in one wait: (the result with host
+        arrays and the carry cloned out of graph memory, feat_lens,
+        enc_lens)."""
+        feat_lens, enc_lens, tokens, counts, frames, confs, *carry = outs
+        host = prog.to_host((tokens, counts, frames, confs, feat_lens,
+                             enc_lens))
+        with torch.inference_mode():
+            h, c, pred, last = (x.clone() for x in carry)
+        return (GreedyResult(tokens=host[0], counts=host[1],
+                             frame_idx=host[2], confidence=host[3],
+                             state=(h, c), pred_out=pred, last_token=last),
+                host[4], host[5])
+
+    def _stream_states(self, res: GreedyResult,
+                       prior: Sequence[Optional[StreamState]]
+                       ) -> List[StreamState]:
+        """Each request's new stream state: views of its lane of the
+        result's carry (None without one: the stateless families)."""
+        if res.state is None:
+            return [None] * len(prior)
+        h, c = res.state
+        return [StreamState(
+            state=(h[:, i:i + 1], c[:, i:i + 1]),
+            pred_out=res.pred_out[i:i + 1],
+            last_token=res.last_token[i:i + 1],
+            tokens_emitted=(st.tokens_emitted if st else 0)
+            + int(res.counts[i]))
+            for i, st in enumerate(prior)]
 
     # ------------------------------------------------------------------
     # beam search
@@ -1145,10 +1117,10 @@ class AsrPipeline:
         prog = DeviceProgram(
             f"beam chunk step {chunk_frames} frames, beam {beam_width}"
             + (f", graph of up to {cap} states" if cap else ""), dev, body,
-            x, pool=self.graph_pool(), capture=self.capture)
+            x, pool=self.graph_pool(), capture=self.capture,
+            state=cache.tensors() + carry.tensors())
         prog.host = {name: host_staging(t.shape, t.dtype, dev)
                      for name, t in x.items() if name != "bias"}
-        prog.cache, prog.carry = cache, carry
         self.beam_chunk_programs[key] = prog
         return prog
 
@@ -1170,10 +1142,6 @@ class AsrPipeline:
             prog = self._beam_chunk_program(
                 feats.shape[0], beam_width, max_expansions,
                 self.graph_capacity(graph))
-            prog.host["feats"].numpy()[0] = feats.T
-            prog.host["enc_lens"].numpy()[0] = n_enc
-            for name in ("feats", "enc_lens"):
-                stage(prog.inputs[name], prog.host[name])
             self._stage_graph(graph)
             with torch.inference_mode():
                 if bias is None:
@@ -1181,15 +1149,27 @@ class AsrPipeline:
                 else:
                     prog.inputs["bias"].copy_(
                         torch.as_tensor(bias, dtype=torch.float32))
-                for dst, src in zip(prog.cache.tensors() + prog.carry.tensors(),
-                                    cache.tensors() + carry.tensors()):
-                    dst.copy_(src)
-            outs = prog.run_eager() if eager else prog.run()
-            with torch.inference_mode():
-                for dst, src in zip(cache.tensors() + carry.tensors(),
-                                    prog.cache.tensors() + prog.carry.tensors()):
-                    dst.copy_(src)
-            return prog.to_host(outs)
+            return self._run_chunk(prog, cache.tensors() + carry.tensors(),
+                                   feats, n_enc, eager)
+
+    def _run_chunk(self, prog: DeviceProgram, mine: List[torch.Tensor],
+                   feats: np.ndarray, n_enc: int, eager: bool
+                   ) -> Tuple[np.ndarray, ...]:
+        """One stream's chunk: its mel ``feats [Tc, M]`` and ``n_enc``
+        staged, its state ``mine`` copied into the program's, the run
+        through, the state copied back; the outputs on the host."""
+        prog.host["feats"].numpy()[0] = feats.T
+        prog.host["enc_lens"].numpy()[0] = n_enc
+        for name in ("feats", "enc_lens"):
+            stage(prog.inputs[name], prog.host[name])
+        with torch.inference_mode():
+            for dst, src in zip(prog.state, mine):
+                dst.copy_(src)
+        outs, _ = prog.run_through(eager)
+        with torch.inference_mode():
+            for dst, src in zip(mine, prog.state):
+                dst.copy_(src)
+        return prog.to_host(outs)
 
     def beam_chunk_warm(self, chunk_frames: int, beam_width: int,
                         max_expansions: int,
@@ -1206,23 +1186,20 @@ class AsrPipeline:
                         graph: Optional[TokenTrie] = None) -> float:
         """Make the streaming beam's chunk program ready before a stream
         needs it (on CUDA: its eager run, then the capture), on silence of
-        a fresh stream; returns the seconds taken."""
-        import time
-        t0 = time.perf_counter()
+        a fresh stream (:meth:`_warm_chunk`); returns the seconds taken."""
         with self.device_lock:
-            prog = self._beam_chunk_program(chunk_frames, beam_width,
-                                            max_expansions,
-                                            self.graph_capacity(graph))
-            if not prog.warm:
-                cache, carry = self.fresh_beam(beam_width)
-                self.beam_chunk(cache, carry,
-                                np.zeros((chunk_frames,
-                                          self.model.config.n_mels),
-                                         np.float32), 0,
-                                beam_width=beam_width,
-                                max_expansions=max_expansions, graph=graph)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._stage_graph(graph)
+            return self._warm_chunk(lambda: self._beam_chunk_program(
+                chunk_frames, beam_width, max_expansions,
+                self.graph_capacity(graph)))
+
+    def _warm_chunk(self, make) -> float:
+        """Make the chunk program ``make()`` and its loop ready on the
+        inputs and state it was made with (silence of a fresh stream)."""
+        t0 = time.perf_counter()
+        make().warm_up()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
     # ------------------------------------------------------------------
@@ -1235,11 +1212,11 @@ class AsrPipeline:
         over ``chunk_frames`` mel frames, the joint's encoder projection
         and the carried greedy decode of ``enc_lens`` encoder frames
         (:meth:`decode_carried`; on the step and plain routes the loop's
-        first steps, its :class:`StepLoop` running the rest); the cache and
-        the carry (h, c, pred_out, last token in the working type) are
-        static and updated in place. ``body(host_loop=True)`` decodes with
-        :meth:`decode_carried` on every route: the eager oracle. Made on
-        first use; called under :attr:`device_lock`."""
+        first steps, its loop running the rest, :meth:`device_steps`); the
+        cache and the carry (h, c, pred_out, last token in the working
+        type) are its static state, updated in place. Its oracle decodes
+        with :meth:`decode_carried` on every route. Made on first use;
+        called under :attr:`device_lock`."""
         key = (chunk_frames, max_symbols, max_total)
         prog = self.solo_chunk_programs.get(key)
         if prog is not None:
@@ -1252,8 +1229,9 @@ class AsrPipeline:
             cache = init_encoder_cache(mcfg, 1, dt, dev)
             carry = fresh_carry(self.model, 1, dt, dev)
         name = f"solo chunk step {chunk_frames} frames"
-        steps = None if self.greedy_route == "loop" else StepLoop(
-            self, name, max_symbols=max_symbols, max_total=max_total)
+        loop, start = self.device_steps(
+            name, lambda res: take_carry(carry, res),
+            max_symbols=max_symbols, max_total=max_total)
 
         def body(host_loop: bool = False):
             enc, new_cache = encode_chunk(self.model.encoder,
@@ -1262,9 +1240,8 @@ class AsrPipeline:
                 dst.copy_(src)
             del new_cache
             enc_pre = self.model.joint_precompute_enc(enc).contiguous()
-            if steps is not None and not host_loop:
-                return (steps.start(self.carried_loop(
-                    enc_pre, x["enc_lens"], *carry, max_total=max_total)),)
+            if start is not None and not host_loop:
+                return (start(enc_pre, x["enc_lens"], *carry),)
             # max_total budgets each chunk step, as the reference's counter
             # is local to each decode call: a long session never goes silent
             return take_carry(carry, self.decode_carried(
@@ -1272,10 +1249,11 @@ class AsrPipeline:
                 max_total=max_total))
 
         prog = DeviceProgram(name, dev, body, x, pool=self.graph_pool(),
-                             capture=self.capture)
+                             capture=self.capture, loop=loop,
+                             oracle=lambda: body(host_loop=True),
+                             state=cache.tensors() + list(carry))
         prog.host = {k: host_staging(t.shape, t.dtype, dev)
                      for k, t in x.items()}
-        prog.cache, prog.carry, prog.steps = cache, carry, steps
         self.solo_chunk_programs[key] = prog
         return prog
 
@@ -1295,27 +1273,8 @@ class AsrPipeline:
         with self.device_lock:
             prog = self._solo_chunk_program(feats.shape[0], max_symbols,
                                             max_total)
-            prog.host["feats"].numpy()[0] = feats.T
-            prog.host["enc_lens"].numpy()[0] = n_enc
-            for name in ("feats", "enc_lens"):
-                stage(prog.inputs[name], prog.host[name])
-            mine = cache.tensors() + list(carry)
-            static = prog.cache.tensors() + list(prog.carry)
-            with torch.inference_mode():
-                for dst, src in zip(static, mine):
-                    dst.copy_(src)
-                if eager:
-                    outs = prog.body(host_loop=True)
-            if not eager:
-                outs = prog.run()
-                if prog.steps is not None:
-                    with torch.inference_mode():
-                        outs = take_carry(prog.carry,
-                                          prog.steps.finish(outs[0]))
-            with torch.inference_mode():
-                for dst, src in zip(mine, static):
-                    dst.copy_(src)
-            return prog.to_host(outs)
+            return self._run_chunk(prog, cache.tensors() + list(carry),
+                                   feats, n_enc, eager)
 
     def solo_chunk_warm(self, chunk_frames: int, max_symbols: int,
                         max_total: int) -> bool:
@@ -1329,27 +1288,11 @@ class AsrPipeline:
                         max_total: int) -> float:
         """Make the solo chunk program ready before a stream needs it (on
         CUDA: its eager run, then the capture, and on the step and plain
-        routes its steps' program), on silence of a fresh stream; returns
-        the seconds taken."""
-        import time
-        t0 = time.perf_counter()
-        mcfg, dt, dev = self.model.config, self.compute_dtype, self.device
+        routes its loop's piece), on silence of a fresh stream
+        (:meth:`_warm_chunk`); returns the seconds taken."""
         with self.device_lock:
-            prog = self._solo_chunk_program(chunk_frames, max_symbols,
-                                            max_total)
-            if not prog.warm:
-                with torch.inference_mode():
-                    cache = init_encoder_cache(mcfg, 1, dt, dev)
-                    carry = fresh_carry(self.model, 1, dt, dev)
-                self.solo_chunk(cache, carry,
-                                np.zeros((chunk_frames, mcfg.n_mels),
-                                         np.float32), 0,
-                                max_symbols=max_symbols, max_total=max_total)
-                if prog.steps is not None:
-                    prog.steps.program.warm_up()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        return time.perf_counter() - t0
+            return self._warm_chunk(lambda: self._solo_chunk_program(
+                chunk_frames, max_symbols, max_total))
 
     # ------------------------------------------------------------------
     def process_batch_samples(self, samples: np.ndarray) -> Transcription:
@@ -1399,11 +1342,11 @@ class AsrPipeline:
 
     @mirrored
     def _warm_one(self, b: int, n_samples: int) -> None:
-        """Warm one (batch, length) bucket's program in the configured mode
-        on silence of ``n_samples`` in every lane and fresh carries. Beam
-        warms the natural bucket directly: decode_beam_batch's warm-bucket
-        redirect would send it to a warm larger bucket and never warm this
-        one."""
+        """Warm one (batch, length) bucket's program and its loop in the
+        configured mode on silence of ``n_samples`` in every lane and fresh
+        carries. Beam warms the natural bucket directly:
+        decode_beam_batch's warm-bucket redirect would send it to a warm
+        larger bucket and never warm this one."""
         mode = self.config.decoding_mode
         bb = self._bucket_batch(b)
         nb = self._bucket_len(n_samples)
@@ -1416,12 +1359,7 @@ class AsrPipeline:
                     self._stage_carry(prog, [None] * bb)
                 else:
                     self._stage_graph(self.beam_graph)
-                if getattr(prog, "steps", None) is not None:
-                    # the step route: the bucket, then its steps' program
-                    self._greedy_run(prog, eager=False)
-                    prog.steps.program.warm_up()
-                else:
-                    prog.warm_up()
+                prog.warm_up()
         self._mark_compiled(mode, bb, nb)
 
     def start_background_warmup(self) -> None:

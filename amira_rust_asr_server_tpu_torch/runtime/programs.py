@@ -24,6 +24,12 @@ graph, so a replay is still one launch and the device time of each stage
 (:meth:`DeviceProgram.stage_seconds`) is read after the run's readback with
 no wait of its own. The AED family times its encoder and its decode loop so.
 
+A program may open a loop that a :class:`FlagLoop` finishes: one captured
+piece of the loop on the owner's static state, replayed while the 1-element
+device flag the piece before it left says the loop is live, the flag read
+one piece behind. :meth:`DeviceProgram.run_through` runs the program, then
+its loop; the transducer's per-step route and the AED's decoder loop so.
+
 The caller serializes runs of all programs of one device behind one lock
 (``AsrPipeline.device_lock``): a capture in PyTorch's default "global"
 mode makes other threads' CUDA calls fail while it lasts, and programs of
@@ -54,7 +60,10 @@ class DeviceProgram:
     def __init__(self, name: str, device: torch.device,
                  body: Union[Body, Tuple[Body, ...]],
                  inputs: Optional[Dict[str, torch.Tensor]] = None,
-                 pool=None, capture: bool = True):
+                 pool=None, capture: bool = True,
+                 loop: Optional["FlagLoop"] = None,
+                 oracle: Optional[Body] = None,
+                 state: Sequence[torch.Tensor] = ()):
         self.name = name
         self.device = device
         self.stages = tuple(body) if isinstance(body, tuple) else (body,)
@@ -72,6 +81,12 @@ class DeviceProgram:
         # from (:func:`host_staging`), both the owner's to allocate
         self.inputs = inputs or {}
         self.host: Dict[str, torch.Tensor] = {}
+        # the loop the body opens with its last output, the whole run
+        # without a loop (the eager oracle), and the static state the owner
+        # fills from a caller's tensors and copies back (a stream's chunk)
+        self.loop = loop
+        self.oracle = oracle
+        self.state = list(state)
         self.pool = pool              # a graph memory pool shared by owner
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
@@ -82,14 +97,33 @@ class DeviceProgram:
 
     @property
     def warm(self) -> bool:
-        """Captured (CUDA), or run once (CPU, or not captured)."""
-        return self.outputs is not None
+        """Captured (CUDA), or run once (CPU, or not captured), and so is
+        the piece of its loop."""
+        return self.outputs is not None and (
+            self.loop is None or self.loop.program.outputs is not None)
 
     def warm_up(self) -> None:
         """Make the program ready to run (see :meth:`run`) on the static
-        inputs as they are."""
-        if not self.warm:
+        inputs as they are, then its loop's piece on the state it left."""
+        if self.outputs is None:
             self.run()
+        if self.loop is not None:
+            self.loop.warm_up()
+
+    def run_through(self, eager: bool = False
+                    ) -> Tuple[Tuple[torch.Tensor, ...], int]:
+        """The program, then its loop from the flag it returns last: (its
+        outputs with the loop's result for the flag, the pieces run).
+        ``eager`` runs the oracle, or the bodies instead of the replays."""
+        if eager and self.oracle is not None:
+            with torch.inference_mode():
+                return tuple(self.oracle()), 0
+        outs = self.run_eager() if eager else self.run()
+        if self.loop is None:
+            return outs, 0
+        with torch.inference_mode():
+            pieces = self.loop.finish(outs[-1], eager)
+            return (*outs[:-1], *self.loop.result()), pieces
 
     def run(self) -> Tuple[torch.Tensor, ...]:
         """One run on the static inputs. On CUDA the first run is the
@@ -187,6 +221,79 @@ class DeviceProgram:
             staged.append(buf)
         torch.cuda.current_stream(self.device).synchronize()
         return tuple(b.numpy().copy() for b in staged)
+
+
+class FlagLoop:
+    """A loop on its owner's static state, which the owner's program opens:
+    ``piece()`` advances the state and returns a 1-element bool device flag
+    "the loop is live", ``result()`` reads the outputs off the state. The
+    piece is one program in the owner's pool. Each piece is queued before
+    the flag the one before it left is read, so the device does not wait
+    for the host and the loop runs one piece past its end, which must
+    change none of its results. ``limit`` caps the pieces (None: until the
+    flag reads false)."""
+
+    def __init__(self, name: str, device: torch.device,
+                 piece: Callable[[], torch.Tensor],
+                 result: Callable[[], Sequence[torch.Tensor]], *,
+                 limit: Optional[int] = None, pool=None,
+                 capture: bool = True):
+        self.program = DeviceProgram(name, device, lambda: (piece(),),
+                                     pool=pool, capture=capture)
+        self.result = result
+        self.limit = limit
+        self.reads = 0   # flags read on the host
+        self.pieces = 0  # pieces run
+        cuda = device.type == "cuda"
+        self._host = [torch.zeros(1, dtype=torch.bool, pin_memory=cuda)
+                      for _ in range(2)]
+        # after each pinned copy, then timed around a finish's pieces (a
+        # card only)
+        self._events = ([torch.cuda.Event(enable_timing=i >= 2)
+                         for i in range(4)] if cuda else None)
+
+    def warm_up(self) -> None:
+        """Make the piece ready (captured) on the state as it stands."""
+        self.program.warm_up()
+
+    def finish(self, flag: torch.Tensor, eager: bool = False) -> int:
+        """After the owner's program has queued the loop's opening, which
+        left ``flag``: the piece, queued again until the flag the piece
+        before it left reads false or :attr:`limit` pieces have run; returns
+        the pieces run. ``eager`` runs the piece's body instead of its
+        replay."""
+        run = self.program.run_eager if eager else self.program.run
+        self._post(flag, 0)
+        self._record(2)
+        ran = 0
+        while self.limit is None or ran < self.limit:
+            (flag,) = run()
+            ran += 1
+            self._post(flag, ran % 2)
+            self.reads += 1
+            if self._events is not None:
+                self._events[(ran - 1) % 2].synchronize()
+            if not self._host[(ran - 1) % 2][0]:
+                break
+        self._record(3)
+        self.pieces += ran
+        return ran
+
+    def _post(self, flag: torch.Tensor, i: int) -> None:
+        self._host[i].copy_(flag, non_blocking=True)
+        self._record(i)
+
+    def _record(self, i: int) -> None:
+        if self._events is not None:
+            self._events[i].record()
+
+    def seconds(self) -> Optional[float]:
+        """The device time of the last finish's pieces, flag waits
+        included; None off a card. Read it after the owner's readback,
+        which waited for the device."""
+        if self._events is None:
+            return None
+        return self._events[2].elapsed_time(self._events[3]) / 1e3
 
 
 def host_staging(shape, dtype: torch.dtype,

@@ -2480,6 +2480,8 @@ def phase_q(results):
     from amira_rust_asr_server_tpu_torch.ops import greedy as greedy_mod
     from amira_rust_asr_server_tpu_torch.ops import kernels
     from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
+    from amira_rust_asr_server_tpu_torch.runtime.pipeline import \
+        STEPS_PER_RUN
     from amira_rust_asr_server_tpu_torch.runtime.programs import \
         DeviceProgram
     from amira_rust_asr_server_tpu_torch.server.app import load_model
@@ -2516,7 +2518,11 @@ def phase_q(results):
                     pipe._stage_audio(bucket, samples)
                     pipe._stage_carry(bucket, [None])
                     enc_pre, fl, el = encoder.run()
-                    res = pipe._decode_from(x, enc_pre, el)
+                    res = pipe.decode_carried(
+                        enc_pre, el, x["h0"], x["c0"], x["pred0"],
+                        x["last_token"], x["token_offset"],
+                        max_symbols=cfg.max_symbols_per_step,
+                        max_total=cfg.max_total_tokens)
                     return bucket.to_host((res.tokens, res.counts))
 
             host_loop()  # warm (capture) the encoder's program
@@ -2535,7 +2541,7 @@ def phase_q(results):
             walls = {"host loop": [], "device loop": []}
             for how in ("host loop", "device loop", "device loop",
                         "host loop") * 2:
-                before = bucket.steps.reads
+                before = bucket.loop.reads
                 kernels.reset_launch_counts()
                 t0 = time.perf_counter()
                 if how == "host loop":
@@ -2545,7 +2551,7 @@ def phase_q(results):
                     toks, counts = got.tokens, got.counts
                 walls[how].append((time.perf_counter() - t0) * 1e3)
                 if how == "device loop":
-                    reads = bucket.steps.reads - before
+                    reads = bucket.loop.reads - before
                     launched = kernels.launch_counts()["joint_argmax"]
                 same = (np.array_equal(toks, want.tokens)
                         and np.array_equal(counts, want.counts))
@@ -2553,7 +2559,7 @@ def phase_q(results):
                     raise AssertionError(f"[Q] {label} {sec:.0f} s {how}: "
                                          "tokens differ from the host loop")
             key = f"{label} {sec:.0f}s"
-            nsteps = bucket.steps.n_steps
+            nsteps = STEPS_PER_RUN
             row = out[key] = {
                 "host_loop_ms": float(np.median(walls["host loop"])),
                 "device_loop_ms": float(np.median(walls["device loop"])),
@@ -2565,10 +2571,11 @@ def phase_q(results):
                 f"median of 4: host loop (encoder replayed, one host read "
                 f"per step) {row['host_loop_ms']:.1f} ms, device loop (N = "
                 f"{nsteps} steps per replay) {row['device_loop_ms']:.1f} ms; "
-                f"host reads per request {reads} (<= ceil(steps / N) + 1 = "
-                f"{-(-steps[0] // nsteps) + 1}); joint_argmax launches "
-                f"{launched} counted through the replays")
-            if reads > -(-steps[0] // nsteps) + 1 or launched < steps[0]:
+                f"host reads per request {reads}, one piece behind (<= "
+                f"ceil(steps / N) + 2 = {-(-steps[0] // nsteps) + 2}); "
+                f"joint_argmax launches {launched} counted through the "
+                "replays")
+            if reads > -(-steps[0] // nsteps) + 2 or launched < steps[0]:
                 raise AssertionError(f"[Q] {key}: {reads} host reads, "
                                      f"{launched} launches")
         del pipe
@@ -2589,14 +2596,13 @@ def family_keys(md: dict, beam: bool) -> set:
     return keys | ({"token_details", "words"} if md.get("tokens") else set())
 
 
-def greedy_dispatch(pipe, prog, bucket, eager: bool = False) -> int:
-    """Run a family pipeline's greedy bucket ``prog`` of ``bucket`` (batch,
-    samples) on the inputs its last dispatch staged, as a dispatch runs
-    it: the bucket's program and, on the AED, the chunks of the loop that
-    its flag lets run. Returns the chunks run (0 for CTC)."""
+def greedy_dispatch(pipe, prog, eager: bool = False) -> int:
+    """Run a greedy bucket ``prog`` on the inputs its last dispatch staged,
+    as a dispatch runs it (``DeviceProgram.run_through``): the bucket's
+    program and, on the AED, the chunks of its loop that the flag lets
+    run. Returns the chunks run (0 for CTC)."""
     with pipe.device_lock:
-        ran = pipe._greedy_replay(prog, eager, bucket)
-    return ran[2] if pipe.family == "aed" else 0
+        return prog.run_through(eager)[1]
 
 
 def phase_r(results):
@@ -2672,11 +2678,11 @@ def phase_r(results):
                    for f in ("tokens", "counts", "frame_idx", "confidence"))
         replay = dispatch_cost(
             lambda: pipe.decode_samples_batch(samples),
-            lambda: greedy_dispatch(pipe, prog, (1, n2)), reps=3)
+            lambda: greedy_dispatch(pipe, prog), reps=3)
         eager = dispatch_cost(
             lambda: pipe._decode_batch(samples, eager=True),
-            lambda: greedy_dispatch(pipe, prog, (1, n2), eager=True), reps=2)
-        chunks = greedy_dispatch(pipe, prog, (1, n2))
+            lambda: greedy_dispatch(pipe, prog, eager=True), reps=2)
+        chunks = greedy_dispatch(pipe, prog)
         say("R", f"large {fam} f32 greedy 1 x 2 s: warm {warm_s:.2f} s "
             f"(capture {prog.capture_seconds:.3f} s, graph pool "
             f"+{prog.graph_bytes / 2**20:.1f} MiB, launches per replay "
@@ -2714,6 +2720,40 @@ def phase_r(results):
         del pipe, prog, bprog
         torch.cuda.empty_cache()
 
+    # the AED's greedy dispatch in bf16 at 1 and 16 lanes x 30 s (seeded
+    # weights emit no EOS, so every chunk runs): its device time, the
+    # chunks run and the bucket's captures (its program and its one chunk
+    # program)
+    cfg = Config(model_family="aed", vocabulary_path=vocab_path,
+                 inference_backend="tpu", audio_sec_buckets=[30.0],
+                 batch_buckets=[1, 16])
+    _, pipe = build_family_pipeline("aed", "large", load_vocab(cfg), cfg,
+                                    dev, model=copy.deepcopy(base["aed"]))
+    n30 = 480000
+    for lanes in (1, 16):
+        t0 = time.perf_counter()
+        pipe._warm_one(lanes, n30)
+        warm_s = time.perf_counter() - t0
+        prog = pipe.programs[("greedy", lanes, n30)]
+        pipe.decode_samples_batch(list(digits_audio(lanes, 30.0, seed=71)))
+        ms = cuda_ms(lambda: greedy_dispatch(pipe, prog), 3)
+        chunks = greedy_dispatch(pipe, prog)
+        captures = [p.name for p in (prog, prog.loop.program)
+                    if p.graph is not None]
+        out[f"aed bf16 greedy {lanes} x 30s"] = {
+            "device_ms": ms, "loop_chunks": chunks, "captures": len(captures),
+            "warm_s": warm_s, "capture_s": prog.capture_seconds
+            + prog.loop.program.capture_seconds}
+        say("R", f"large aed bf16 greedy {lanes} x 30 s: whole dispatch "
+            f"{ms:.3f} ms device, {chunks} loop chunks of one chunk "
+            f"program; {len(captures)} captures a bucket {captures}; warm "
+            f"{warm_s:.2f} s")
+        if len(captures) != 2:
+            raise AssertionError(f"[R] aed {lanes} lanes: captures "
+                                 f"{captures}")
+    del pipe, prog
+    torch.cuda.empty_cache()
+
     runs = (("greedy", {}, (2.0, 8.0, 30.0)),
             ("beam", dict(decoding_mode="beam", beam_n_best=4), (2.0,)),
             ("int8", dict(quantization="int8"), (2.0, 30.0)))
@@ -2747,9 +2787,8 @@ def phase_r(results):
                         # the whole dispatch: on the AED the program, then
                         # the loop's chunks that its flag lets run
                         device_ms[key] = cuda_ms(
-                            lambda p=p, k=k: greedy_dispatch(pipe, p, k[1:]),
-                            3)
-                        chunks[key] = greedy_dispatch(pipe, p, k[1:])
+                            lambda p=p: greedy_dispatch(pipe, p), 3)
+                        chunks[key] = greedy_dispatch(pipe, p)
                     else:
                         device_ms[key] = cuda_ms(p.graph.replay, 3)
                     if len(p.stages) > 1:
@@ -4302,8 +4341,7 @@ def phase_x(results):
         pipe = AsrPipeline(model, vocab, Config(**base, **flags), dev)
         pipe.warmup(batch_sizes=[1, 4])
         progs = list(pipe.programs.values())
-        progs += [p.steps.program for p in progs
-                  if getattr(p, "steps", None) is not None]
+        progs += [p.loop.program for p in progs if p.loop is not None]
         if len(pipe.programs) != 4 or any(p.graph is None for p in progs):
             raise AssertionError(f"[X] {label}: not every program captured")
         capture_s = sum(p.capture_seconds for p in progs)
@@ -4425,7 +4463,7 @@ def phase_x(results):
     kw = dict(chunk_frames=64, norm="none", max_symbols=30, max_total=200)
     eng = StreamingLaneEngine(pipe, n_lanes=4, **kw)
     eng.warm()
-    if eng.program.graph is None or eng.steps.program.graph is None:
+    if eng.program.graph is None or eng.program.loop.program.graph is None:
         raise AssertionError("[X] the lane engine's tick was not captured")
     wave = digits_audio(1, 4.0, seed=97)[0]
     lane = eng.attach()
@@ -4446,7 +4484,7 @@ def phase_x(results):
     same = eng.tokens[lane] == solo
     out["native plain"] = {"tick_ms": float(np.median(ticks)),
                            "capture_s": eng.program.capture_seconds
-                           + eng.steps.program.capture_seconds,
+                           + eng.program.loop.program.capture_seconds,
                            "launches": counts,
                            "tokens": len(eng.tokens[lane])}
     say("X", f"native stream, plain route, 4 lanes: tick {eng.program.name}"

@@ -1,11 +1,12 @@
 """PyTorch port: the AED greedy loop that stops once its last real lane has
 emitted EOS (``models/aed.py`` ``greedy_open``/``greedy_chunk`` on a
-``CachedLoop``, ``runtime/family_pipeline.py`` ``AEDPipeline``'s chunk
-programs and its flag read one chunk behind), on seeded weights at tiny
-widths: d 32, 2 decoder layers of 2 heads, a prompt of 3, 40 outputs with
-EOS 2. The EOS bias sets how long the lanes run: at 20 every lane ends at
-the prefill, at 4.2 the real lanes end after 1, 12 and 13 decisions, at
--1 none ends within 30.
+``CachedLoop`` whose device position says where a chunk starts,
+``runtime/family_pipeline.py`` ``AEDPipeline``'s one chunk program a bucket,
+replayed by ``runtime/programs.py`` ``FlagLoop`` with its flag read one
+chunk behind), on seeded weights at tiny widths: d 32, 2 decoder layers of
+2 heads, a prompt of 3, 40 outputs with EOS 2. The EOS bias sets how long
+the lanes run: at 20 every lane ends at the prefill, at 4.2 the real lanes
+end after 1, 12 and 13 decisions, at -1 none ends within 30.
 
 The oracle is the whole loop, ``greedy_cached_from_enc`` at ``max_len``
 on the bucket's encoder output: every decision, whatever the lanes emit.
@@ -18,9 +19,9 @@ import pytest
 import torch
 
 from amira_rust_asr_server_tpu_torch.config import Config
-from amira_rust_asr_server_tpu_torch.models.aed import (LOOP_CHUNK, AEDModel,
-                                                        loop_pieces)
+from amira_rust_asr_server_tpu_torch.models.aed import LOOP_CHUNK, AEDModel
 from amira_rust_asr_server_tpu_torch.models.presets import ModelConfig
+from amira_rust_asr_server_tpu_torch.runtime import programs
 from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import (
     AEDPipeline, build_family_pipeline)
 from amira_rust_asr_server_tpu_torch.vocab import Vocabulary
@@ -98,9 +99,9 @@ def test_real_lanes_equal_the_whole_loop_beside_a_padding_lane(
 def test_with_no_lane_ending_every_chunk_runs():
     pipe = pipeline(-1.0)
     res, d = dispatch(pipe, samples())
-    loop = pipe.bucket_loops[BUCKET[1:]]
+    loop = pipe.programs[BUCKET].loop
     assert (res.counts[:3] == pipe.max_len).all()
-    assert d["loop_chunks_total"] == len(loop.chunks) == 3
+    assert d["loop_chunks_total"] == loop.limit == 3
     assert d["steps_total"] == pipe.max_len == 30
 
 
@@ -116,19 +117,23 @@ def test_with_every_lane_ending_at_the_prefill_the_look_ahead_chunk_is_last():
 
 @pytest.mark.parametrize("max_len", [5, 8, 13, 30])
 def test_a_loop_off_the_chunk_size_ends_with_a_short_chunk(max_len):
-    """``max_len`` not a multiple of N: the last piece makes what is left
-    (below N, the opening alone); the pieces cover every decision once,
-    and a loop that runs out of chunks is the whole loop."""
-    pieces = loop_pieces(max_len)
-    assert [s for s, _ in pieces] == list(range(0, max_len, LOOP_CHUNK))
-    assert sum(n for _, n in pieces) == max_len
-    assert pieces[-1][1] == (max_len - 1) % LOOP_CHUNK + 1
+    """``max_len`` not a multiple of N: the loop's one chunk program runs
+    until the chunks reach ``max_len`` (none where the opening does), the
+    last one past it on positions that hold whole chunks; the decisions
+    counted stop at ``max_len``, and a loop that runs out of chunks is the
+    whole loop."""
+    chunks = -(-max_len // LOOP_CHUNK) - 1
     pipe = pipeline(-1.0, max_len=max_len)
     res, d = dispatch(pipe, samples())
-    loop = pipe.bucket_loops[BUCKET[1:]]
-    assert loop.decisions == [n for _, n in pieces]
-    assert len(loop.chunks) == len(pieces) - 1
-    assert d["steps_total"] == max_len
+    loop, state = pipe.programs[BUCKET].loop, pipe._loop_state(4, N_SAMPLES)
+    assert (loop is None) == (chunks == 0)
+    assert d["loop_chunks_total"] == chunks == state.chunks
+    if loop is not None:
+        assert loop.limit == chunks and loop.program.warm
+    n_p = len(CFG.dec_prompt)
+    assert state.buf.shape[1] == n_p + LOOP_CHUNK * (chunks + 1)
+    assert int(state.pos[0]) == n_p - 1 + LOOP_CHUNK * (chunks + 1)
+    assert d["steps_total"] == max_len <= LOOP_CHUNK * (chunks + 1)
     want_t, want_c = whole_loop(pipe)
     np.testing.assert_array_equal(res.tokens[:3], want_t[:3])
     np.testing.assert_array_equal(res.counts[:3], want_c[:3])
@@ -144,7 +149,7 @@ def test_the_counters_follow_the_chunks_run():
         with torch.no_grad():
             pipe.model.decoder.out["b"][EOS] = bias
         res, d = dispatch(pipe, samples())
-        steps = sum(pipe.bucket_loops[BUCKET[1:]].decisions[:chunks + 1])
+        steps = min(LOOP_CHUNK * (chunks + 1), pipe.max_len)
         counts = res.counts[:3].astype(np.int64)
         assert d == {
             "dispatches": 1, "lanes_total": 3, "steps_total": steps,
@@ -166,12 +171,14 @@ def test_a_padding_lane_never_holds_the_loop():
     lanes' tokens as they were."""
     pipe = pipeline(-1.0)
     dispatch(pipe, samples())
-    loop = pipe.bucket_loops[BUCKET[1:]].state
+    loop = pipe._loop_state(4, N_SAMPLES)
     assert loop.real.tolist() == [True, True, True, False]
     with torch.inference_mode():
         loop.done.copy_(torch.tensor([True, True, True, False]))
         before = loop.tokens.clone()
-        pipe.model.greedy_chunk(loop, LOOP_CHUNK, LOOP_CHUNK)
+        # the chunk of decisions LOOP_CHUNK .. 2 LOOP_CHUNK - 1
+        loop.pos.fill_(loop.prompt_len + LOOP_CHUNK - 1)
+        pipe.model.greedy_chunk(loop, LOOP_CHUNK)
         assert not loop.done[3] and not loop.live[0]
         now = loop.tokens
         assert torch.equal(now[:3, :LOOP_CHUNK], before[:3, :LOOP_CHUNK])
@@ -180,15 +187,17 @@ def test_a_padding_lane_never_holds_the_loop():
 
 def test_warming_a_bucket_makes_every_chunk_program_whatever_the_flag():
     """The warm-up on silence, and a dispatch into a cold bucket, leave
-    every chunk program of the bucket made, though the loop stopped after
-    the look-ahead chunk (EOS bias 20)."""
+    the bucket's one chunk program made, though the loop stopped after
+    the look-ahead chunk (EOS bias 20); the warm-up reads no flag."""
     pipe = pipeline(20.0)
     pipe._warm_one(4, N_SAMPLES)
-    assert all(c.warm for c in pipe.bucket_loops[BUCKET[1:]].chunks)
+    loop = pipe.programs[BUCKET].loop
+    assert loop.program.warm and pipe.programs[BUCKET].warm
+    assert loop.reads == 0
     cold = pipeline(20.0)
     _, d = dispatch(cold, samples())
     assert d["loop_chunks_total"] == 1
-    assert all(c.warm for c in cold.bucket_loops[BUCKET[1:]].chunks)
+    assert cold.programs[BUCKET].loop.program.warm
 
 
 def test_buckets_of_one_batch_size_share_the_loop_state():
@@ -202,8 +211,8 @@ def test_buckets_of_one_batch_size_share_the_loop_state():
                                  model=model.eval())[1]
     pipe._bucket_program("greedy", 4, 8000)
     pipe._bucket_program("greedy", 4, 32000)
-    short = pipe.bucket_loops[(4, 8000)].state
-    long = pipe.bucket_loops[(4, 32000)].state
+    short = pipe._loop_state(4, 8000)
+    long = pipe._loop_state(4, 32000)
     assert short.t < long.t == long.capacity == short.capacity
     assert short.k.data_ptr() == long.k.data_ptr()
     assert short.cross.data_ptr() == long.cross.data_ptr()
@@ -223,6 +232,61 @@ def test_buckets_of_one_batch_size_share_the_loop_state():
         assert res.counts[0] == counts[0]
 
 
+@pytest.mark.parametrize("max_len", [13, 200])
+def test_a_greedy_bucket_makes_two_programs(monkeypatch, max_len):
+    """A greedy bucket's warm-up and dispatches make two programs, the
+    bucket's and its one chunk program, both run (on a card: captured),
+    whatever ``max_len`` asks of the loop."""
+    made = []
+    init = programs.DeviceProgram.__init__
+
+    def counted(self, *a, **kw):
+        made.append(self)
+        init(self, *a, **kw)
+
+    monkeypatch.setattr(programs.DeviceProgram, "__init__", counted)
+    pipe = pipeline(-1.0, max_len=max_len)
+    pipe._warm_one(4, N_SAMPLES)
+    _, d = dispatch(pipe, samples())
+    prog = pipe.programs[BUCKET]
+    assert made == [prog.loop.program, prog]
+    assert all(p.warm for p in made)
+    assert d["loop_chunks_total"] == prog.loop.limit == -(-max_len // 8) - 1
+    assert d["steps_total"] == max_len
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_chunk_program_run_again_equals_the_whole_loop(dtype):
+    """One program of a chunk of decisions from the device position, run
+    after the opening until the chunks reach ``max_len``, gives the whole
+    loop's (``greedy_cached_from_enc``) tokens, counts and every logit,
+    exactly."""
+    model = AEDModel(CFG).init_weights(torch.Generator().manual_seed(11))
+    with torch.no_grad():
+        model.decoder.out["b"][EOS] = -1.0
+    model = model.eval().to(dtype)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, CFG.n_mels, 90))
+                         .astype(np.float32)).to(dtype)
+    with torch.inference_mode():
+        enc, el = model.encode(x, torch.tensor([90, 61, 30],
+                                               dtype=torch.int32))
+        want_t, want_c, want_l = model.greedy_cached_from_enc(
+            enc, el, max_len=30, return_logits=True)
+        state = model.cached_loop(3, enc.shape[1], 30, enc.device)
+        kept = []
+        model.greedy_open(enc, el, state, kept)
+    chunk = programs.DeviceProgram(
+        "chunk", torch.device("cpu"),
+        lambda: (model.greedy_chunk(state, LOOP_CHUNK, kept), state.live)[1:])
+    for _ in range(state.chunks):
+        chunk.run()
+    assert len(kept) == 32
+    assert torch.equal(state.tokens, want_t)
+    assert torch.equal(state.counts, want_c)
+    assert torch.equal(torch.stack(kept[:30], dim=1), want_l)
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -233,16 +297,15 @@ def dev():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("eos_bias", [20.0, 4.2, -1.0])
 def test_replayed_chunks_equal_an_eager_run(dev, eos_bias, dtype):
-    """On a card: every piece captured as a graph of its own; a dispatch
-    of replays, an eager dispatch of the same pieces and the whole loop
-    give the same real lanes' tokens and counts, and the decode's device
-    time covers the chunks."""
+    """On a card: the bucket's program and its one chunk program each
+    captured as a graph; a dispatch of replays, an eager dispatch of the
+    same pieces and the whole loop give the same real lanes' tokens and
+    counts, and the decode's device time covers the chunks."""
     pipe = pipeline(eos_bias, dtype=dtype, backend="tpu", device=dev)
     pipe._warm_one(4, N_SAMPLES)
     prog = pipe.programs[BUCKET]
     assert prog.graph is not None
-    assert all(c.graph is not None
-               for c in pipe.bucket_loops[BUCKET[1:]].chunks)
+    assert prog.loop.program.graph is not None
     batch = samples()
     got, d = dispatch(pipe, batch)
     eager, _ = dispatch(pipe, batch, eager=True)

@@ -29,11 +29,13 @@ from amira_rust_asr_server_tpu_torch.config import Config
 from amira_rust_asr_server_tpu_torch.convert import (jax_leaf,
                                                      load_checkpoint,
                                                      load_npz, to_model)
-from amira_rust_asr_server_tpu_torch.models.aed import AEDModel
+from amira_rust_asr_server_tpu_torch.models import Transducer
+from amira_rust_asr_server_tpu_torch.models.aed import LOOP_CHUNK, AEDModel
 from amira_rust_asr_server_tpu_torch.models.ctc import CTCModel
 from amira_rust_asr_server_tpu_torch.models.presets import (
     PRESETS, TINY, ModelConfig, get_preset)
 from amira_rust_asr_server_tpu_torch.reliability import tracing
+from amira_rust_asr_server_tpu_torch.runtime import AsrPipeline
 from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import (
     AEDPipeline, build_family_pipeline)
 from amira_rust_asr_server_tpu_torch.server.app import (load_model,
@@ -249,9 +251,27 @@ def _dispatch_spans(pipe, samples):
     return top, kids
 
 
-def test_the_family_dispatch_records_the_transducer_s_spans(pipe):
+def family_pipe(family: str, aed: AEDPipeline):
+    """A pipeline of ``family`` at the tiny widths above (no prompt off the
+    AED), seeded; ``aed`` is the AED's."""
+    if family == "aed":
+        return aed
+    cfg = dataclasses.replace(CFG, dec_prompt=())
+    gen = torch.Generator().manual_seed(1)
+    if family == "ctc":
+        return build_family_pipeline(
+            "ctc", "tiny", VOCAB, family_config(model_family="ctc"),
+            model=CTCModel(cfg).init_weights(gen))[1]
+    return AsrPipeline(Transducer(cfg).init_weights(gen).eval(), VOCAB,
+                       family_config(model_family="transducer"))
+
+
+@pytest.mark.parametrize("family", ["transducer", "ctc", "aed"])
+def test_the_family_dispatch_records_the_transducer_s_spans(pipe, family):
+    """Every family's greedy dispatch is the one dispatch: its span tree,
+    attributes and children in order."""
     samples = utterances(8, lens=(6000,))
-    top, kids = _dispatch_spans(pipe, samples)
+    top, kids = _dispatch_spans(family_pipe(family, pipe), samples)
     attrs = dict(top[6])
     assert attrs["lanes"] == 1 and attrs["batch"] in (1, 2)
     assert attrs["length"] == 8000 and attrs["requests"] == ()
@@ -270,11 +290,11 @@ def test_the_aed_counters_count_a_dispatch_from_its_readback(pipe):
     res = pipe.decode_samples_batch(samples)[0]
     after = pipe.aed_stats.to_json()
     d = {k: after[k] - before[k] for k in after}
-    loop = pipe.bucket_loops[(2, 8000)]
-    steps = sum(loop.decisions[:d["loop_chunks_total"] + 1])
+    loop = pipe.programs[("greedy", 2, 8000)].loop
+    steps = min(LOOP_CHUNK * (d["loop_chunks_total"] + 1), pipe.max_len)
     counts = [int(c) for c in res.counts[:2]]
     assert d["dispatches"] == 1 and d["lanes_total"] == 2
-    assert 0 <= d["loop_chunks_total"] <= len(loop.chunks)
+    assert 0 <= d["loop_chunks_total"] <= loop.limit
     assert min(max(counts) + 1, pipe.max_len) <= steps <= pipe.max_len
     assert d["steps_total"] == steps
     assert d["lane_steps_total"] == 2 * steps

@@ -378,10 +378,10 @@ def counting_steps(monkeypatch):
 
 def test_step_route_bucket_equals_eager_and_jax(jax_pipe, monkeypatch):
     """The step route: a bucket's program runs the loop's first steps and
-    its StepLoop's program the rest, asking the host once per run; tokens,
-    frames and counts equal the eager host loop's (which asks after every
-    step) and the JAX pipeline's, and the host reads at most
-    ceil(steps / STEPS_PER_RUN) + 1 times."""
+    its FlagLoop's piece the rest, asking the host once per piece, one
+    piece behind; tokens, frames and counts equal the eager host loop's
+    (which asks after every step) and the JAX pipeline's, and the host
+    reads at most ceil(steps / STEPS_PER_RUN) + 2 times."""
     from amira_rust_asr_server_tpu_torch.runtime import pipeline
     n = 2  # the trained weights take few steps
     monkeypatch.setattr(pipeline, "STEPS_PER_RUN", n)
@@ -392,10 +392,11 @@ def test_step_route_bucket_equals_eager_and_jax(jax_pipe, monkeypatch):
     steps = counting_steps(monkeypatch)
     want = pipe._decode_batch(batch, eager=True)[0]
     prog = pipe.programs[("greedy", 4, 32000)]
-    reads = prog.steps.reads
+    reads = prog.loop.reads
     again = pipe.decode_samples_batch(batch)[0]
-    assert prog.steps.reads - reads == reads <= -(-steps[0] // n) + 1
-    assert steps[0] > n and prog.steps.program.warm  # the steps' program
+    assert prog.loop.reads - reads == reads <= -(-steps[0] // n) + 2
+    assert prog.loop.pieces == 2 * reads  # a read after every piece
+    assert steps[0] > n and prog.loop.program.warm  # the loop's piece
     ref = jax_pipe.decode_samples_batch(batch)[0]
     assert lanes(got, range(2)) == lanes(want, range(2)) == \
         lanes(again, range(2)) == lanes(ref, range(2))
@@ -404,7 +405,7 @@ def test_step_route_bucket_equals_eager_and_jax(jax_pipe, monkeypatch):
 
 def test_lane_engine_step_route_equals_eager(streaming):
     """The lane engine on the step route: its chunk step runs the loop's
-    first steps and its StepLoop the rest; the tokens and the carry equal
+    first steps and its FlagLoop the rest; the tokens and the carry equal
     the eager engine's (the host loop), and the JAX-held loop route's."""
     _, _, loop_pipe = streaming
     pipe = AsrPipeline(loop_pipe.model, loop_pipe.vocab, Config(
@@ -423,7 +424,7 @@ def test_lane_engine_step_route_equals_eager(streaming):
             eng.feed(lane, w, final=True)
         while eng.pending():
             eng.tick()
-    assert stepped.steps.reads > 0 and eager.steps.reads == 0
+    assert stepped.program.loop.reads > 0 and eager.program.loop.reads == 0
     assert stepped.tokens == eager.tokens == loop.tokens
     assert any(stepped.tokens)
     for a, b in zip((stepped.dec_h, stepped.dec_c, stepped.pred_out,
@@ -571,24 +572,24 @@ def test_beam_replay_with_a_swapped_graph_equals_eager(dev, route):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_step_route_replay_equals_eager(dev, dtype, monkeypatch):
     """The step route on the card: the bucket's graph runs the loop's first
-    steps and the StepLoop's graph the rest, replayed until the device
-    flag reads false; tokens, frames, counts and the carry equal the eager
-    host loop's, and each replay of the steps' graph counts its
-    joint-argmax launches."""
+    steps and the FlagLoop's graph the rest, replayed until the device
+    flag, read one piece behind, reads false; tokens, frames, counts and
+    the carry equal the eager host loop's, and each replay of the piece's
+    graph counts its joint-argmax launches."""
     from amira_rust_asr_server_tpu_torch.runtime import pipeline
     monkeypatch.setattr(pipeline, "STEPS_PER_RUN", 4)
     batch = utterances(24, [["one", "two", "three"], ["nine"], ["five"]])
     pipe = port_pipe("cuda", compute_dtype=dtype, **STEP_ROUTE)
     pipe.decode_samples_batch(batch)  # warm and capture both programs
     prog = pipe.programs[("greedy", 4, 32000)]
-    assert prog.graph is not None and prog.steps.program.graph is not None
-    assert prog.steps.program.launches == {"joint_argmax": 4}
+    assert prog.graph is not None and prog.loop.program.graph is not None
+    assert prog.loop.program.launches == {"joint_argmax": 4}
     kernels.reset_launch_counts()
-    reads = prog.steps.reads
+    reads, pieces = prog.loop.reads, prog.loop.pieces
     got, fl, el, got_st = pipe.decode_samples_batch(batch)
-    runs = prog.steps.reads - reads - 1
-    assert runs >= 1 and kernels.launch_counts()["joint_argmax"] == \
-        4 * (runs + 1)
+    runs = prog.loop.pieces - pieces
+    assert runs >= 1 and prog.loop.reads - reads == runs
+    assert kernels.launch_counts()["joint_argmax"] == 4 * (runs + 1)
     want, wfl, wel, want_st = pipe._decode_batch(batch, eager=True)
     for field in ("tokens", "counts", "frame_idx"):
         np.testing.assert_array_equal(getattr(got, field),

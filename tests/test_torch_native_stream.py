@@ -187,7 +187,7 @@ def test_solo_program_equals_eager_body(pair, route):
     assert list(pipe.solo_chunk_programs) == [key]
     assert pipe.solo_chunk_warm(*key)
     prog = pipe.solo_chunk_programs[key]
-    assert (prog.steps is None) == (route == "loop")
+    assert (prog.loop is None) == (route == "loop")
 
 
 def test_solo_stream_is_budgeted_by_its_programs_warmth(pair):
