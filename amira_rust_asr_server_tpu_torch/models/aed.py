@@ -26,7 +26,11 @@ decisions on a :class:`CachedLoop` kept in place (:meth:`AEDModel.
 greedy_open`, then :meth:`AEDModel.greedy_chunk`); each step reads its
 position from the state on the device, so every chunk is the same piece of
 work and a server may capture it as one graph, replayed until every real
-lane has emitted EOS; the whole loop runs every chunk.
+lane has emitted EOS; the whole loop runs every chunk. Each of its steps'
+attentions reads the cache and the cross K/V where the state holds them,
+through ``ops/kernels/aed_attention.py`` ``decode_attention``: on CUDA one
+launch of ``csrc/aed_attention.cu`` (sums in f32, one rounding), on the CPU
+the einsum arithmetic above.
 :meth:`AEDModel.loss` is the teacher-forced cross-entropy the family trains
 on.
 """
@@ -41,10 +45,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.beam import topk_first
+from ..ops.kernels.aed_attention import NEG, decode_attention
 from .encoder import EncoderModel, init_encoder_weights, scalar
 from .presets import ModelConfig
-
-NEG = -1e9
 
 # decisions in each piece of the cached greedy loop: the opening makes the
 # first N (the prompt's prefill and N - 1 steps), each chunk the next N. A
@@ -561,8 +564,6 @@ class AEDModel(EncoderModel):
         dh = d // h
         x = (p.embed[loop.buf.index_select(1, at).long()]
              + loop.pe.index_select(0, at))
-        pos_mask = _mask(loop.ar[None, :] <= at[:, None], x)  # [n, U]
-        enc_mask = loop.enc_mask
         for li, lp in enumerate(p.layers):
             hh = _ln(x, lp["ln1"])
             q = (hh @ lp["self"]["wq"]).reshape(b, n, h, dh)
@@ -570,20 +571,13 @@ class AEDModel(EncoderModel):
                 b, n, h, dh))
             loop.v[li].index_copy_(1, at, (hh @ lp["self"]["wv"]).reshape(
                 b, n, h, dh))
-            kc, vc = loop.k[li, :, :u], loop.v[li, :, :u]
-            logits = torch.einsum("bnhd,bthd->bhnt", q, kc)
-            logits = logits / torch.sqrt(scalar(dh, logits))
-            att = _softmax(logits + pos_mask)
-            x = x + torch.einsum("bhnt,bthd->bnhd", att, vc
-                                 ).reshape(b, n, d) @ lp["self"]["wo"]
+            x = x + decode_attention(q, loop.k[li, :, :u], loop.v[li, :, :u],
+                                     at=at) @ lp["self"]["wo"]
             hh = _ln(x, lp["ln2"])
             q = (hh @ lp["cross"]["wq"]).reshape(b, n, h, dh)
             ck, cv = loop.cross_kv(li)
-            cl = torch.einsum("bnhd,bthd->bhnt", q, ck)
-            cl = cl / torch.sqrt(scalar(dh, cl))
-            catt = _softmax(cl + enc_mask)
-            x = x + torch.einsum("bhnt,bthd->bnhd", catt, cv
-                                 ).reshape(b, n, d) @ lp["cross"]["wo"]
+            x = x + decode_attention(q, ck, cv, mask=loop.enc_mask
+                                     ) @ lp["cross"]["wo"]
             x = x + _ff(_ln(x, lp["ln3"]), lp["ff"])
         x = _ln(x[:, -1], p.ln_out)
         return x @ p.out["w"] + p.out["b"]

@@ -8,6 +8,7 @@ launches the kernel for CUDA tensors, counting launches in ``.launches``:
 - ``beam_loop.beam_loop``               <- csrc/beam_loop.cu
 - ``quant_matmul.quant_matmul``         <- csrc/quant_matmul.cu
 - ``decode_step.joint_argmax``          <- csrc/decode_step.cu
+- ``aed_attention.decode_attention``    <- csrc/aed_attention.cu
 
 The int8 branches of the two loop kernels count apart, in
 ``decode_loop.greedy_loop_int8`` and ``beam_loop.beam_loop_int8``.
@@ -22,6 +23,7 @@ launches that ran.
 import contextlib
 
 from . import _build
+from .aed_attention import decode_attention
 from .beam_loop import beam_loop, beam_loop_int8
 from .decode_loop import DecodeWeights, greedy_loop, greedy_loop_int8
 from .decode_step import joint_argmax
@@ -31,7 +33,8 @@ from .quant_matmul import quant_matmul
 KERNELS = {"log_mel": log_mel_raw, "greedy_loop": greedy_loop,
            "beam_loop": beam_loop, "quant_matmul": quant_matmul,
            "joint_argmax": joint_argmax, "greedy_loop_int8": greedy_loop_int8,
-           "beam_loop_int8": beam_loop_int8}
+           "beam_loop_int8": beam_loop_int8,
+           "aed_attention": decode_attention}
 
 
 def reset_launch_counts() -> None:
@@ -65,6 +68,7 @@ def add_launches(counts: dict) -> None:
             KERNELS[name].launches += n
 
 
-__all__ = ["DecodeWeights", "beam_loop", "greedy_loop", "joint_argmax",
-           "log_mel_raw", "quant_matmul", "KERNELS", "reset_launch_counts",
-           "launch_counts", "recording_launches", "add_launches"]
+__all__ = ["DecodeWeights", "beam_loop", "decode_attention", "greedy_loop",
+           "joint_argmax", "log_mel_raw", "quant_matmul", "KERNELS",
+           "reset_launch_counts", "launch_counts", "recording_launches",
+           "add_launches"]

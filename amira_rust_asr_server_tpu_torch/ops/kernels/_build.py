@@ -54,10 +54,13 @@ SIGNATURES = {
     "amira_quant_matmul": [I] * 5 + [P] * 6,
     "amira_joint_argmax_scratch_bytes": [I] * 4,
     "amira_joint_argmax": [I] * 9 + [P] * 10,
+    "amira_aed_attention_scratch_bytes": [I] * 7,
+    "amira_aed_attention": [I] * 7 + [I64] * 7 + [P] * 9,
 }
 RESTYPES = {"amira_beam_loop_scratch_bytes": ctypes.c_longlong,
             "amira_greedy_loop_scratch_bytes": ctypes.c_longlong,
-            "amira_joint_argmax_scratch_bytes": ctypes.c_longlong}
+            "amira_joint_argmax_scratch_bytes": ctypes.c_longlong,
+            "amira_aed_attention_scratch_bytes": ctypes.c_longlong}
 
 
 def find_nvcc() -> str:

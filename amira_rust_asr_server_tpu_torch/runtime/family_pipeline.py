@@ -198,6 +198,15 @@ class CTCPipeline(AsrPipeline):
                           n_best=rows if n_best > 1 else None)
 
 
+def _attention_launches(prog: DeviceProgram, pieces: int) -> int:
+    """The decode-attention launches of a dispatch that ran ``prog`` and
+    ``pieces`` of its loop, as their captures recorded them."""
+    n = prog.launches.get("aed_attention", 0)
+    if prog.loop is not None:
+        n += pieces * prog.loop.program.launches.get("aed_attention", 0)
+    return n
+
+
 @dataclasses.dataclass
 class AEDStats:
     """The AED pipeline's greedy dispatches, for ``/metrics`` (group
@@ -210,7 +219,10 @@ class AEDStats:
     decisions, from its captured events, and the chunks, from an event
     before the first and one after the last, with any wait for the host
     between them: ``FlagLoop.seconds``), from CUDA events, on a card
-    only."""
+    only. ``attention_launches_total`` counts the decode-attention kernel's
+    launches (``csrc/aed_attention.cu``, two a decoder layer a decision)
+    from what the bucket's program and its chunk program recorded at
+    capture: 0 where nothing is captured (the CPU)."""
 
     dispatches: int = 0
     lanes_total: int = 0
@@ -219,6 +231,7 @@ class AEDStats:
     live_lane_steps_total: int = 0  # min(tokens + 1, max_len), real lanes
     prompt_tokens_total: int = 0    # prompt positions x real lanes
     loop_chunks_total: int = 0      # chunk programs replayed
+    attention_launches_total: int = 0  # decode-attention kernel launches
     encode_device_s_total: float = 0.0
     decode_device_s_total: float = 0.0
 
@@ -335,6 +348,7 @@ class AEDPipeline(CTCPipeline):
             real.astype(np.int64) + 1, steps).sum())
         st.prompt_tokens_total += len(self.model.prompt) * b_real
         st.loop_chunks_total += pieces
+        st.attention_launches_total += _attention_launches(prog, pieces)
         secs = prog.stage_seconds()
         if secs is not None:
             st.encode_device_s_total += secs[0]

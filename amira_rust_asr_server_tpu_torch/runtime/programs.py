@@ -38,6 +38,7 @@ one pipeline share one memory pool, so no two may run at once.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -182,6 +183,11 @@ class DeviceProgram:
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        # no garbage collection inside the capture: a collected cycle that
+        # holds a captured graph (a dropped pipeline's programs) resets it,
+        # a call a capture forbids, and the capture fails
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # the wrappers' launches are recorded here, not counted
             with kernels.recording_launches() as recorded, \
@@ -191,6 +197,9 @@ class DeviceProgram:
         except Exception as e:
             raise RuntimeError(
                 f"CUDA graph capture of {self.name} failed: {e}") from e
+        finally:
+            if collecting:
+                gc.enable()
         self.capture_seconds = time.perf_counter() - t0
         self.graph_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = dict(recorded)

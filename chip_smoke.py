@@ -130,7 +130,11 @@ their plain PyTorch versions:
      30 s, beam 2 s with n-best 4, and quantization="int8" at 2 and 30 s;
      200/COMPLETE in the reference schema, the log-mel kernel launched on
      every request and the W8A8 kernel on every int8 one (and on no other);
-     each request's wall and its bucket's replay device time
+     each request's wall and its bucket's replay device time; the AED
+     decode-attention kernel's launches a dispatch (2 a decoder layer a
+     decision), and at Canary's heads, 8 and 16 lanes, the kernel held to
+     its plain version (ragged frames, the prefill's nine queries) and
+     timed beside it and F.scaled_dot_product_attention
   S  hot reload at large: build_state behind the server with a temporary
      repository of seeded .npz files; the repository routes, then every
      route's programs reloaded and held against a pipeline built afresh
@@ -2605,6 +2609,116 @@ def greedy_dispatch(pipe, prog, eager: bool = False) -> int:
         return prog.run_through(eager)[1]
 
 
+def aed_attention_timing(out: dict) -> None:
+    """The AED step's decode-attention kernel (``csrc/aed_attention.cu``)
+    at Canary-1B-flash's heads (8 of 128), bf16, held to its plain version
+    and timed beside it and ``F.scaled_dot_product_attention`` on the same
+    views (a yardstick; the port never calls it). Cross-attention over 375
+    frames at 8 and 16 lanes, one query a lane: checked with ragged valid
+    frames as the served frame mask has them (all, a third, one, none, in
+    turn), timed with every frame valid (the most bytes; SDPA then takes
+    no mask). Self-attention of a 209-position cache at 8 lanes: one query
+    at position 104, and the prompt's prefill, nine queries at positions
+    0..8. The check, relative to 1 + the value's size, as
+    tests/test_torch_aed_attention.py holds it: the kernel within 4e-3 of
+    a float64 attention over the visible keys alone (one bf16 rounding of
+    the output, 2^-9), and within 4e-3 + 3e-2 of the plain version (which
+    rounds its logits, scale and weights to bf16 besides: 1.1e-2 apart at
+    the prefill's early positions, where few keys carry large weights).
+    The bound is the visible K and V bytes at 3.35 TB/s.
+    Each is timed as the step runs it, inside a CUDA graph (no host time
+    between launches), over copies of K and V that exceed the L2, as a
+    step's four layers do."""
+    import torch
+    import torch.nn.functional as F
+
+    from amira_rust_asr_server_tpu_torch.ops.kernels.aed_attention import (
+        NEG, decode_attention, decode_attention_reference)
+    dev, dt, heads, dh = torch.device("cuda"), torch.bfloat16, 8, 128
+    g = torch.Generator(device=dev).manual_seed(72)
+
+    def graph_us(fn, copies: int) -> float:
+        fn(0)  # eager first (the kernel's counters)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(2 * copies):
+                fn(i % copies)
+        return cuda_ms(graph.replay, 5) * 1e3 / (2 * copies)
+
+    def frame_mask(lens, t: int) -> torch.Tensor:
+        keep = (torch.arange(t, device=dev)[None, :]
+                < torch.as_tensor(lens, device=dev)[:, None])
+        return torch.where(keep, 0.0, NEG).to(dt)[:, None, None, :]
+
+    def exact(q, k, v, visible) -> torch.Tensor:
+        """float64 attention over the keys ``visible [B, n, T]`` alone;
+        uniform weights over all T where a query sees none."""
+        q, k, v = (x.double() for x in (q, k, v))
+        s = torch.einsum("bnhd,bthd->bnht", q, k) / dh ** 0.5
+        vis = visible[:, :, None, :].expand_as(s)
+        s = torch.where(vis, s, -torch.inf)
+        s = torch.where(vis.any(-1, keepdim=True), s, 0.0)
+        return torch.einsum("bnht,bthd->bnhd", torch.softmax(s, -1),
+                            v).reshape(q.shape[0], q.shape[1], -1)
+
+    def rel_err(got, want) -> float:
+        got, want = got.double(), want.double()
+        return ((got - want).abs() / (1 + want.abs())).max().item()
+
+    for kind, lanes, t, n in (("cross", 8, 375, 1), ("cross", 16, 375, 1),
+                              ("self", 8, 209, 1), ("self", 8, 209, 9)):
+        copies = max(2, -(-160 * 2**20 // (2 * lanes * t * heads * dh * 2)))
+        ks = [torch.randn((lanes, t, heads, dh), generator=g, device=dev,
+                          dtype=dt) for _ in range(copies)]
+        vs = [torch.randn_like(k) for k in ks]
+        q = torch.randn((lanes, n, heads, dh), generator=g, device=dev,
+                        dtype=dt)
+        if kind == "cross":
+            seen = t
+            lens = torch.tensor([t, t // 3, 1, 0] * (lanes // 4), device=dev)
+            checked = {"mask": frame_mask(lens, t)}
+            visible = (torch.arange(t, device=dev)[None, None, :]
+                       < lens[:, None, None]).expand(lanes, n, t)
+            keys = {"mask": frame_mask([t] * lanes, t)}
+            sdpa_mask = None  # every frame valid
+        else:
+            start = 104 if n == 1 else 0
+            at = torch.arange(start, start + n, device=dev)
+            seen = int(at.sum()) + n  # keys read, over the queries
+            checked = keys = {"at": at}
+            sdpa_mask = (torch.arange(t, device=dev)[None, :]
+                         <= at[:, None])[None, None]
+            visible = sdpa_mask[0].expand(lanes, n, t)
+        got = decode_attention(q, ks[0], vs[0], **checked)
+        err = rel_err(got, exact(q, ks[0], vs[0], visible))
+        err_plain = rel_err(got, decode_attention_reference(
+            q, ks[0], vs[0], **checked))
+        us = {"kernel": graph_us(lambda i: decode_attention(
+                  q, ks[i], vs[i], **keys), copies),
+              "plain": graph_us(lambda i: decode_attention_reference(
+                  q, ks[i], vs[i], **keys), copies),
+              "library": graph_us(lambda i: F.scaled_dot_product_attention(
+                  q.transpose(1, 2), ks[i].transpose(1, 2),
+                  vs[i].transpose(1, 2), attn_mask=sdpa_mask), copies)}
+        kv_bytes = 2 * lanes * seen * heads * dh * 2
+        bound_us = kv_bytes / 3.35e12 * 1e6
+        row = f"aed_attention {kind} {lanes} x {t}, {n} a lane"
+        out[row] = {**{f"{k}_ms": v / 1e3 for k, v in us.items()},
+                    "bound_ms": bound_us / 1e3, "kv_bytes": kv_bytes,
+                    "rel_err_vs_exact": err, "rel_err_vs_plain": err_plain}
+        say("R", f"{row} bf16: kernel {us['kernel']:.2f} us, plain "
+            f"{us['plain']:.2f} us, library_ms (SDPA) {us['library']:.2f} "
+            f"us; bound {bound_us:.2f} us ({kv_bytes} K/V bytes, "
+            f"{100 * bound_us / us['kernel']:.1f}% of it); relative error "
+            f"vs float64 {err:.2e}, vs plain {err_plain:.2e}")
+        if not (err <= 4e-3 and err_plain <= 4e-3 + 3e-2):
+            raise AssertionError(f"[R] {row}: kernel vs float64 {err}, vs "
+                                 f"plain {err_plain}")
+        del ks, vs
+    torch.cuda.empty_cache()
+
+
 def phase_r(results):
     """The CTC and AED families: the tiny-digits goldens on the card, each
     family's bucket replay against its eager body in f32 (greedy and beam),
@@ -2621,6 +2735,7 @@ def phase_r(results):
     import torch
 
     from amira_rust_asr_server_tpu_torch.config import Config
+    from amira_rust_asr_server_tpu_torch.models.aed import LOOP_CHUNK
     from amira_rust_asr_server_tpu_torch.ops import kernels
     from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
         build_family_pipeline
@@ -2737,22 +2852,31 @@ def phase_r(results):
         prog = pipe.programs[("greedy", lanes, n30)]
         pipe.decode_samples_batch(list(digits_audio(lanes, 30.0, seed=71)))
         ms = cuda_ms(lambda: greedy_dispatch(pipe, prog), 3)
+        kernels.reset_launch_counts()
         chunks = greedy_dispatch(pipe, prog)
+        attention = kernels.launch_counts()["aed_attention"]
+        per_decision = 2 * pipe.model.config.dec_layers
         captures = [p.name for p in (prog, prog.loop.program)
                     if p.graph is not None]
         out[f"aed bf16 greedy {lanes} x 30s"] = {
             "device_ms": ms, "loop_chunks": chunks, "captures": len(captures),
             "warm_s": warm_s, "capture_s": prog.capture_seconds
-            + prog.loop.program.capture_seconds}
+            + prog.loop.program.capture_seconds,
+            "attention_launches": attention}
         say("R", f"large aed bf16 greedy {lanes} x 30 s: whole dispatch "
             f"{ms:.3f} ms device, {chunks} loop chunks of one chunk "
             f"program; {len(captures)} captures a bucket {captures}; warm "
-            f"{warm_s:.2f} s")
+            f"{warm_s:.2f} s; aed_attention launches a dispatch "
+            f"{attention} ({per_decision} a decision)")
         if len(captures) != 2:
             raise AssertionError(f"[R] aed {lanes} lanes: captures "
                                  f"{captures}")
+        if attention != per_decision * LOOP_CHUNK * (1 + chunks):
+            raise AssertionError(f"[R] aed {lanes} lanes: {attention} "
+                                 "attention launches")
     del pipe, prog
     torch.cuda.empty_cache()
+    aed_attention_timing(out)
 
     runs = (("greedy", {}, (2.0, 8.0, 30.0)),
             ("beam", dict(decoding_mode="beam", beam_n_best=4), (2.0,)),

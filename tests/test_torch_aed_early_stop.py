@@ -10,9 +10,11 @@ end after 1, 12 and 13 decisions, at -1 none ends within 30.
 
 The oracle is the whole loop, ``greedy_cached_from_enc`` at ``max_len``
 on the bucket's encoder output: every decision, whatever the lanes emit.
-Tokens and counts are compared exactly. The CUDA case skips without a
+Tokens and counts are compared exactly. The CUDA cases skip without a
 card.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -157,8 +159,8 @@ def test_the_counters_follow_the_chunks_run():
             "live_lane_steps_total": int(np.minimum(counts + 1,
                                                     steps).sum()),
             "prompt_tokens_total": 3 * len(CFG.dec_prompt),
-            "loop_chunks_total": chunks, "encode_device_s_total": 0.0,
-            "decode_device_s_total": 0.0}
+            "loop_chunks_total": chunks, "attention_launches_total": 0,
+            "encode_device_s_total": 0.0, "decode_device_s_total": 0.0}
         assert counts.max() < steps or steps == pipe.max_len
     assert pipe.aed_stats.loop_chunks_total == 6
     assert pipe.aed_stats.steps_total == 16 + 30 + 24
@@ -315,3 +317,21 @@ def test_replayed_chunks_equal_an_eager_run(dev, eos_bias, dtype):
         np.testing.assert_array_equal(res.counts[:3], want_c[:3])
     assert d["loop_chunks_total"] >= 1
     assert d["decode_device_s_total"] > 0 and d["encode_device_s_total"] > 0
+
+
+def test_no_collection_runs_inside_a_capture(dev, monkeypatch):
+    """A collection inside a capture would free the captured graphs of a
+    dropped pipeline waiting in a cycle, a call a capture forbids, and the
+    capture would fail: the bucket's program and its chunk program are
+    each captured with the collector off, and it is on again after."""
+    seen = []
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def recording(self, *args, **kwargs):
+        seen.append(gc.isenabled())
+        return begin(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", recording)
+    assert gc.isenabled()
+    pipeline(20.0, backend="tpu", device=dev)._warm_one(4, N_SAMPLES)
+    assert seen == [False, False] and gc.isenabled()

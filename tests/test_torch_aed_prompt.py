@@ -323,7 +323,8 @@ def test_the_aed_group_is_in_metrics_only_when_aed_is_served(pipe):
     assert set(out["aed"]) == {
         "dispatches", "lanes_total", "steps_total", "lane_steps_total",
         "live_lane_steps_total", "prompt_tokens_total", "loop_chunks_total",
-        "encode_device_s_total", "decode_device_s_total"}
+        "attention_launches_total", "encode_device_s_total",
+        "decode_device_s_total"}
     ctc_model = CTCModel(dataclasses.replace(CFG, dec_prompt=())
                          ).init_weights(torch.Generator().manual_seed(1))
     ctc = build_family_pipeline("ctc", "tiny", VOCAB,

@@ -643,9 +643,12 @@ def test_beam_chunk_replay_equals_eager_with_two_sessions(dev):
 def test_family_replay_equals_eager_body(dev, family, mode):
     """A CTC or AED bucket's replay and its eager body on the same inputs,
     f32: identical tokens, counts, frames and confidences (greedy), n-best
-    tokens and scores (beam); the replay runs the mel kernel once and no
-    other hand kernel; the committed tiny-digits weights transcribe the
-    golden through the replay."""
+    tokens and scores (beam); the replay runs the mel kernel once, the AED
+    greedy bucket the decode-attention kernel twice a decoder layer for
+    each decision of the loop's opening, and no other hand kernel; the
+    committed tiny-digits weights transcribe the golden through the
+    replay."""
+    from amira_rust_asr_server_tpu_torch.models.aed import LOOP_CHUNK
     from amira_rust_asr_server_tpu_torch.runtime.family_pipeline import \
         build_family_pipeline
     from amira_rust_asr_server_tpu_torch.testing import (
@@ -669,6 +672,10 @@ def test_family_replay_equals_eager_body(dev, family, mode):
         np.testing.assert_array_equal(got.tokens, want.tokens)
         assert got.n_best == want.n_best
     prog = next(p for k, p in pipe.programs.items() if k[0] == mode)
-    assert prog.graph is not None and prog.launches == {"log_mel": 1}
+    launches = {"log_mel": 1}
+    if family == "aed" and mode == "greedy":
+        launches["aed_attention"] = (2 * pipe.model.config.dec_layers
+                                     * LOOP_CHUNK)
+    assert prog.graph is not None and prog.launches == launches
     assert pipe.process_batch(
         pcm16_digits(["two", "five", "nine"])).text == "two five nine"

@@ -64,7 +64,7 @@ def no_cloud_request():
 
 NO_LAUNCHES = {"log_mel": 0, "greedy_loop": 0, "beam_loop": 0,
                "quant_matmul": 0, "joint_argmax": 0, "greedy_loop_int8": 0,
-               "beam_loop_int8": 0}
+               "beam_loop_int8": 0, "aed_attention": 0}
 
 
 @pytest.fixture
